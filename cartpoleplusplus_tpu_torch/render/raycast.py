@@ -1,0 +1,216 @@
+"""Ray-cast renderer in plain PyTorch: the plain version of kernels K3/K4.
+
+Port of the slab path of cartpoleplusplus_tpu.render.raycast with the
+reciprocal slab cascade (``_ray_obb_affine`` with ``recip``), computed in
+float32 with an exact reciprocal.  Rays are screen-affine
+(``d = fwd + px·right + py·up``); the static background (ground checker,
+sky) is baked host-side; each frame decomposes into four fields (cart
+shade, pole shade, ground value, sky mask) that are average-pooled over
+the ``p2`` sub-rays of each pooled pixel and combined into plane-major RGB
+per camera: ``[cam0 R | cam0 G | cam0 B | cam1 R | …]``.
+
+The raster and division-free ratio cast modes of the JAX package are not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from cartpoleplusplus_tpu_torch.physics import soa
+from cartpoleplusplus_tpu_torch.physics.bodies import RigidState, SceneParams
+from cartpoleplusplus_tpu_torch.render.camera import DEFAULT_CAMERAS, ray_coords, ray_grid
+
+_BIG = 1e9
+
+GROUND_A = (0.82, 0.82, 0.82)
+GROUND_B = (0.62, 0.62, 0.62)
+CART_COLOR = (0.15, 0.35, 0.9)
+POLE_COLOR = (0.9, 0.15, 0.15)
+SKY_COLOR = (0.7, 0.85, 1.0)
+
+_L = np.array([0.45, 0.3, 0.84])
+_L = _L / np.linalg.norm(_L)
+LIGHT_DIR = (float(_L[0]), float(_L[1]), float(_L[2]))
+_AMBIENT = 0.35
+
+
+def pool_ray_layout(pool: int, height: int, width: int, samples: int = 0):
+    """Static ray permutation for epilogue pooling → ``(sel, (p2, n, stride))``.
+
+    ``sel`` reorders a row-major H·W ray grid into ``p2`` blocks — block
+    ``s`` holds, in pooled-row-major order, every pixel at intra-window
+    offset ``s`` — each tail-padded to a 128-aligned ``stride``.
+    ``samples`` (0 = all pool²) keeps that many offsets spread along the
+    window diagonal.
+    """
+    n = (height // pool) * (width // pool)
+    stride = -(-n // 128) * 128
+    idx = np.arange(height * width).reshape(height, width)
+    offsets = [(r, c) for r in range(pool) for c in range(pool)]
+    if samples and samples < len(offsets):
+        pick = np.linspace(0, len(offsets) - 1, samples).round().astype(int)
+        offsets = [offsets[i] for i in pick]
+    blocks = [idx[r::pool, c::pool].reshape(-1) for r, c in offsets]
+    sel = np.concatenate([np.pad(b, (0, stride - n), mode="edge") for b in blocks])
+    return sel, (len(offsets), n, stride)
+
+
+def static_background(dirs, eye):
+    """Host-side static background planes: (ground_value, sky_mask), (P,) f32."""
+    ndx, ndy, ndz = (np.asarray(d, np.float32) for d in dirs)
+    e = (float(eye[0]), float(eye[1]), float(eye[2]))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t_g = np.where(np.abs(ndz) > 1e-9, -e[2] / ndz, _BIG)
+    t_g = np.where(t_g > 0.0, t_g, _BIG).astype(np.float32)
+    gx = e[0] + t_g * ndx
+    gy = e[1] + t_g * ndy
+    checker = np.mod(np.floor(gx) + np.floor(gy), 2.0) > 0.5
+    gvalid = t_g < _BIG * 0.5
+    shade_g = _AMBIENT + (1.0 - _AMBIENT) * max(LIGHT_DIR[2], 0.0)
+    ground_val = np.where(
+        gvalid, np.where(checker, GROUND_B[0], GROUND_A[0]) * shade_g, 0.0
+    ).astype(np.float32)
+    sky_mask = (~gvalid).astype(np.float32)
+    return ground_val, sky_mask
+
+
+def ray_planes(config):
+    """Static per-ray rows for the config's cameras (the first
+    ``num_cameras`` of ``DEFAULT_CAMERAS``).
+
+    Returns ``(planes, cam_meta, (p2, n))``: ``planes`` float32
+    (4, C, p2, n) with rows px, py, ground value, sky mask, rays in
+    :func:`pool_ray_layout` order without the lane padding; ``cam_meta``
+    the per-camera ``(basis, eye)`` float tuples.
+    """
+    cams = DEFAULT_CAMERAS[: config.num_cameras]
+    h, w = config.render_height, config.render_width
+    if config.obs_pool > 1:
+        sel, (p2, n, stride) = pool_ray_layout(config.obs_pool, h, w, config.obs_samples)
+        sel = sel.reshape(p2, stride)[:, :n]
+    else:
+        p2, n = 1, h * w
+        sel = np.arange(n)[None]
+    planes = np.zeros((4, len(cams), p2, n), np.float32)
+    cam_meta = []
+    for c, cam in enumerate(cams):
+        dirs, _ = ray_grid(cam, h, w)
+        px, py, basis, eye = ray_coords(cam, h, w)
+        gval, smask = static_background((dirs[:, 0], dirs[:, 1], dirs[:, 2]), eye)
+        for row, values in enumerate((px, py, gval, smask)):
+            planes[row, c] = values[sel]
+        cam_meta.append((basis, eye))
+    return planes, cam_meta, (p2, n)
+
+
+def poses_from_rigid(rigid: RigidState) -> torch.Tensor:
+    """RigidState (E, …) → (E, 16) [cart pos quat | pole pos quat | 0 0]."""
+    e = rigid.pos.shape[0]
+    return torch.cat(
+        [rigid.pos[:, 0], rigid.quat[:, 0], rigid.pos[:, 1], rigid.quat[:, 1],
+         torch.zeros((e, 2), dtype=rigid.pos.dtype, device=rigid.pos.device)],
+        dim=-1,
+    )
+
+
+def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light):
+    """Screen-affine ray vs oriented box, reciprocal slab cascade.
+
+    ``px``/``py``: (1, P) screen rows; ``center``/``quat``: (E, 1) columns.
+    Returns ``(t, lambert, hit)``, (E, P) each: entry depth (exit depth when
+    the eye is inside the box, ``_BIG`` on a miss), the entry face's n·L,
+    and the hit mask.
+    """
+    fwd, right, up = basis
+    r = soa.q_to_mat(quat)
+    rel = tuple(eye[i] - center[i] for i in range(3))
+    o_l = tuple(r[0][k] * rel[0] + r[1][k] * rel[1] + r[2][k] * rel[2] for k in range(3))
+    A = tuple(r[0][k] * fwd[0] + r[1][k] * fwd[1] + r[2][k] * fwd[2] for k in range(3))
+    B = tuple(r[0][k] * right[0] + r[1][k] * right[1] + r[2][k] * right[2] for k in range(3))
+    C = tuple(r[0][k] * up[0] + r[1][k] * up[1] + r[2][k] * up[2] for k in range(3))
+    ldot = tuple(light[0] * r[0][k] + light[1] * r[1][k] + light[2] * r[2][k] for k in range(3))
+
+    t_lo, t_hi, cand = [], [], []
+    for k in range(3):
+        d = A[k] + B[k] * px + C[k] * py
+        s = 2.0 * (d >= 0.0).to(d.dtype) - 1.0
+        inv = torch.reciprocal(d + s * 1e-9)
+        a = (-float(half_extents[k]) - o_l[k]) * inv
+        b = (float(half_extents[k]) - o_l[k]) * inv
+        t_lo.append(torch.minimum(a, b))
+        t_hi.append(torch.maximum(a, b))
+        cand.append(-s * ldot[k])
+    tmin, lam = t_lo[0], cand[0]
+    for k in (1, 2):
+        take = t_lo[k] > tmin
+        tmin = torch.maximum(tmin, t_lo[k])
+        lam = torch.where(take, cand[k], lam)
+    tmax = torch.minimum(torch.minimum(t_hi[0], t_hi[1]), t_hi[2])
+    hit = (tmax >= tmin) & (tmax > 0.0)
+    t = torch.where(tmin > 0.0, tmin, tmax)
+    t = torch.where(hit, t, torch.full_like(t, _BIG))
+    return t, lam, hit
+
+
+def render_frames(
+    scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta, p2: int, n: int,
+    quantize: bool = True,
+) -> torch.Tensor:
+    """Render one frame per env from poses (E, 16) → (E, C·3·n).
+
+    ``planes``: (4, C, p2, n) from :func:`ray_planes`, on the poses' device.
+    ``quantize``: uint8 ``floor(clip(c·255 + 0.5, 0, 255))``; else float32
+    colours in [0, 1].  All geometry and shading run in float32.
+    """
+    col = lambda j: poses[:, j : j + 1].to(torch.float32)
+    cart_c, cart_q = (col(0), col(1), col(2)), (col(3), col(4), col(5), col(6))
+    pole_c, pole_q = (col(7), col(8), col(9)), (col(10), col(11), col(12), col(13))
+    inv_p2 = 1.0 / p2
+    zero = torch.zeros((), dtype=torch.float32, device=poses.device)
+    out = []
+    for c, (basis, eye) in enumerate(cam_meta):
+        rows = planes[:, c].reshape(4, 1, p2 * n)
+        px, py, gval, smask = rows[0], rows[1], rows[2], rows[3]
+        tc, lam_c, hit_c = _ray_obb_affine(
+            px, py, basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR)
+        tp, lam_p, hit_p = _ray_obb_affine(
+            px, py, basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR)
+        sel_c = hit_c & (tc <= tp)
+        sel_p = hit_p & ~sel_c
+        lambert = torch.clamp(torch.where(sel_c, lam_c, lam_p), min=0.0)
+        shade = _AMBIENT + (1.0 - _AMBIENT) * lambert
+        bgm = ~(sel_c | sel_p)
+        fields = (
+            torch.where(sel_c, shade, zero),
+            torch.where(sel_p, shade, zero),
+            torch.where(bgm, gval, zero),
+            torch.where(bgm, smask, zero),
+        )
+        # Pool: sum the p2 sub-ray blocks of each pooled pixel.
+        a, b, g, s = (sum(f[:, i * n : (i + 1) * n] for i in range(p2)) * inv_p2 for f in fields)
+        for k in range(3):
+            color = CART_COLOR[k] * a + POLE_COLOR[k] * b + g + SKY_COLOR[k] * s
+            if quantize:
+                color = torch.floor(torch.clamp(color * 255.0 + 0.5, 0.0, 255.0)).to(torch.uint8)
+            out.append(color)
+    return torch.cat(out, dim=-1)
+
+
+def make_observe_pixels(config, dtype=torch.uint8):
+    """Batched observe fn: (scene, rigid[E]) → flat frames (E, C·3·n), on
+    the rigid state's device.
+
+    ``dtype=torch.uint8`` quantizes as the kernels do; ``torch.float32``
+    returns [0, 1] colours (the golden-image convention).
+    """
+    planes, cam_meta, (p2, n) = ray_planes(config)
+    planes_t = torch.from_numpy(planes)
+    quantize = dtype == torch.uint8
+
+    def observe(scene: SceneParams, rigid: RigidState) -> torch.Tensor:
+        poses = poses_from_rigid(rigid)
+        return render_frames(scene, poses, planes_t.to(poses.device), cam_meta, p2, n, quantize)
+
+    return observe
