@@ -1,8 +1,10 @@
-"""Agent wiring shared by the agents: port of the vector-env construction
-and greedy evaluation of cartpoleplusplus_tpu.agents.common."""
+"""Agent wiring shared by the agents: port of the vector-env construction,
+greedy evaluation and the schedule and replay-sizing helpers of
+cartpoleplusplus_tpu.agents.common."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
@@ -12,31 +14,32 @@ from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
 from cartpoleplusplus_tpu_torch.physics import cuda_step
 from cartpoleplusplus_tpu_torch.render import prefer_raster
-from cartpoleplusplus_tpu_torch.render.cuda_render import SlabRenderer
+from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 
 
-def make_venv(config, num_envs: int, device=None) -> VectorCartpole:
+def make_venv(config, num_envs: int, device=None,
+              render_raster: bool | None = None) -> VectorCartpole:
     """Vector env wired to the kernels, as the JAX ``make_venv`` wires its
     Pallas kernels with the fused step on:
 
     - reset push: K2 (``cuda_step.step_substeps``);
-    - reset frame: K4 (``SlabRenderer.render_batched``);
+    - reset frame: K4 (``Renderer.render_batched``);
     - step: K1 (``cuda_step.step_repeats``) then K3
-      (``SlabRenderer.render_repeats``) over all repeats.
+      (``Renderer.render_repeats``) over all repeats.
 
-    On a CPU device each wrapper runs its plain PyTorch version.  Low-dim
-    configs and exact pixel configs (``obs_samples == 0``, raster mode)
+    ``render_raster=None`` resolves through :func:`prefer_raster`: the
+    raster mode (K5a, in both render launches) for exact configs
+    (``obs_samples == 0``), the slab mode for sampled ones.  Nothing falls
+    back: a raster kernel that fails to build or launch raises.  On a CPU
+    device each wrapper runs its plain PyTorch version.  Low-dim configs
     are not ported yet.
     """
     dev = resolve_device(device)
     if not config.use_raw_pixels:
         raise NotImplementedError("low-dim observations are not ported yet")
-    if prefer_raster(config.num_cameras, config.obs_pool, config.obs_samples):
-        raise NotImplementedError(
-            "exact pixel configs (obs_samples == 0) render in the raster mode, "
-            "which is not ported yet"
-        )
-    renderer = SlabRenderer(config, dev)
+    if render_raster is None:
+        render_raster = prefer_raster(config.num_cameras, config.obs_pool, config.obs_samples)
+    renderer = Renderer(config, dev, raster=render_raster)
 
     def sim_fn(scene, rigid, force):
         rigid, poses = cuda_step.step_repeats(
@@ -46,6 +49,50 @@ def make_venv(config, num_envs: int, device=None) -> VectorCartpole:
 
     return VectorCartpole(config, num_envs, physics_fn=cuda_step.step_substeps,
                           observe_fn=renderer.render_batched, sim_fn=sim_fn, device=dev)
+
+
+def ou_sigma_at(env_steps: int, sigma: float, sigma_min: float | None,
+                decay_steps: int) -> float:
+    """Annealed OU sigma at vectorized step ``env_steps``: a linear ramp
+    sigma → sigma_min over ``decay_steps``, constant when annealing is off.
+    The step counter is a host int, so this is a host float."""
+    if not decay_steps or sigma_min is None or sigma_min == sigma:
+        return sigma
+    frac = min(max(env_steps / decay_steps, 0.0), 1.0)
+    return sigma + (sigma_min - sigma) * frac
+
+
+def make_lr(opts, lr: float):
+    """Learning rate per ``opts.lr_schedule``: ``lr`` for "const", or for
+    "cosine" a function of the update count (optax's
+    ``cosine_decay_schedule(lr, total_updates, alpha=0.02)``), to be read
+    before each optimizer step."""
+    if getattr(opts, "lr_schedule", "const") != "cosine":
+        return lr
+    total = max(opts.num_train_batches * opts.steps_per_segment, 1)
+
+    def schedule(count: int) -> float:
+        frac = min(count, total) / total
+        return lr * (0.98 * 0.5 * (1.0 + math.cos(math.pi * frac)) + 0.02)
+
+    return schedule
+
+
+def replay_block(opts, num_envs: int) -> int:
+    """Insertion-block size for the s2-free replay: one vectorized step's
+    transitions, or 0 (explicit s2) when the capacity cannot hold two
+    blocks.  The port runs on one card, so there are no device shards."""
+    return num_envs if 0 < num_envs < opts.replay_capacity else 0
+
+
+def replay_min_fill(warmup_steps: int, num_envs: int, capacity: int, n_step: int = 1) -> int:
+    """Transitions the replay must hold before the train gate may open:
+    a fresh run's first train step (``(warmup + 1)·num_envs``, capped one
+    block below capacity), and at least ``n_step + 1`` blocks so the
+    newest blocks, which ``sample`` excludes, are never all there is."""
+    fresh = min((warmup_steps + 1) * num_envs, capacity - num_envs)
+    floor = min((n_step + 1) * num_envs, capacity)
+    return max(fresh, floor)
 
 
 @torch.no_grad()

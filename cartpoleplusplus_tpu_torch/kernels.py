@@ -44,10 +44,12 @@ SOURCES = {
 
 # Launches per wrapper, by kernel name.
 LAUNCHES = {
-    "step_repeats": 0,    # K1
-    "step_substeps": 0,   # K2
-    "render_repeats": 0,  # K3
-    "render_batched": 0,  # K4
+    "step_repeats": 0,           # K1
+    "step_substeps": 0,          # K2
+    "render_repeats": 0,         # K3 (slab mode)
+    "render_batched": 0,         # K4 (slab mode)
+    "render_repeats_raster": 0,  # K5a through K3's launch
+    "render_batched_raster": 0,  # K5a through K4's launch
 }
 
 
@@ -127,7 +129,7 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cp_physics_step.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_physics_step.restype = i32
-    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, ptr]
+    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_render.restype = i32
     return lib
 

@@ -1,9 +1,11 @@
-"""Wrappers of the CUDA render kernel K3/K4 (csrc/render.cu).
+"""Wrappers of the CUDA render kernel (csrc/render.cu): K3/K4 in the slab
+mode, K5a in the raster mode.
 
 Counterparts of cartpoleplusplus_tpu.render.pallas_kernel's
-``make_render_repeats`` (K3) and ``make_render_batched`` (K4) in their
-slab + reciprocal mode.  For CUDA tensors they launch the kernel; for CPU
-tensors they run the plain PyTorch version in render/raycast.py.
+``make_render_repeats`` (K3) and ``make_render_batched`` (K4), in the slab
++ reciprocal mode of the sampled configs and the raster mode of the exact
+ones.  For CUDA tensors they launch the kernel or raise; for CPU tensors
+they run the plain PyTorch version in render/raycast.py.
 """
 
 from __future__ import annotations
@@ -39,14 +41,19 @@ class RenderParams(ctypes.Structure):
     ]
 
 
-class SlabRenderer:
-    """Renders a config's camera frames with the slab cascade.
+class Renderer:
+    """Renders a config's camera frames with the slab cascade or, with
+    ``raster``, the projective raster (K5a).
 
     Holds the static ray table (4, C, p2, n) on ``device``.  Frames are
-    uint8, plane-major per camera, ``n`` pooled pixels per plane.
+    uint8, plane-major per camera, ``n`` pooled pixels per plane.  Launches
+    count under ``render_repeats``/``render_batched`` in the slab mode and
+    under the same names with ``_raster`` in the raster mode.
     """
 
-    def __init__(self, config, device):
+    def __init__(self, config, device, raster: bool = False):
+        self.raster = bool(raster)
+        self._suffix = "_raster" if self.raster else ""
         planes, self.cam_meta, (self.p2, self.n) = raycast.ray_planes(config)
         self.planes = torch.from_numpy(planes).to(device)
         self.num_cams = len(self.cam_meta)
@@ -55,7 +62,8 @@ class SlabRenderer:
     def plain(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version: poses (R, E, 16) → uint8 (E, R, C·3·n)."""
         frames = [
-            raycast.render_frames(scene, poses[r], self.planes, self.cam_meta, self.p2, self.n)
+            raycast.render_frames(scene, poses[r], self.planes, self.cam_meta, self.p2, self.n,
+                                  raster=self.raster)
             for r in range(poses.shape[0])
         ]
         return torch.stack(frames, dim=1)
@@ -89,7 +97,7 @@ class SlabRenderer:
             raise ValueError("empty pose batch")
         out = torch.empty((e, r, self.frame_width), dtype=torch.uint8, device=poses.device)
         self.launch(self.kernel_params(scene), poses.contiguous(), out)
-        kernels.LAUNCHES[name] += 1
+        kernels.LAUNCHES[name + self._suffix] += 1
         return out
 
     def launch(self, params: RenderParams, poses: torch.Tensor, out: torch.Tensor) -> None:
@@ -99,12 +107,14 @@ class SlabRenderer:
         r, e = poses.shape[0], poses.shape[1]
         err = kernels.library().cp_render(
             ctypes.addressof(params), poses.data_ptr(), self.planes.data_ptr(),
-            out.data_ptr(), e, r, torch.cuda.current_stream(poses.device).cuda_stream,
+            out.data_ptr(), e, r, int(self.raster),
+            torch.cuda.current_stream(poses.device).cuda_stream,
         )
         kernels.check(err, "render")
 
     def render_repeats(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
-        """K3: every repeat's frame, poses (R, E, 16) → uint8 (E, R, C·3·n)."""
+        """K3 (K5a when raster): every repeat's frame, poses (R, E, 16) →
+        uint8 (E, R, C·3·n)."""
         if poses.device.type == "cpu":
             return self.plain(scene, poses)
         if poses.device.type != "cuda":
@@ -112,7 +122,8 @@ class SlabRenderer:
         return self._launch("render_repeats", scene, poses)
 
     def render_batched(self, scene: SceneParams, rigid: RigidState) -> torch.Tensor:
-        """K4: one frame per env from its state → uint8 (E, C·3·n)."""
+        """K4 (K5a when raster): one frame per env from its state → uint8
+        (E, C·3·n)."""
         poses = raycast.poses_from_rigid(rigid)[None]
         if poses.device.type == "cpu":
             return self.plain(scene, poses)[:, 0]

@@ -1,16 +1,18 @@
-"""Ray-cast renderer in plain PyTorch: the plain version of kernels K3/K4.
+"""Ray-cast renderer in plain PyTorch: the plain version of kernels K3/K4
+(slab mode) and K5a (raster mode).
 
-Port of the slab path of cartpoleplusplus_tpu.render.raycast with the
-reciprocal slab cascade (``_ray_obb_affine`` with ``recip``), computed in
-float32 with an exact reciprocal.  Rays are screen-affine
+Port of cartpoleplusplus_tpu.render.raycast's two main-path cast modes,
+computed in float32: the reciprocal slab cascade (``_ray_obb_affine``
+with ``recip``, here with an exact reciprocal) for sampled configs, and
+the projective inverse-depth raster (``_obb_q_setup`` + ``_obb_q_cast``)
+for exact ones (``prefer_raster``).  Rays are screen-affine
 (``d = fwd + px·right + py·up``); the static background (ground checker,
 sky) is baked host-side; each frame decomposes into four fields (cart
 shade, pole shade, ground value, sky mask) that are average-pooled over
 the ``p2`` sub-rays of each pooled pixel and combined into plane-major RGB
 per camera: ``[cam0 R | cam0 G | cam0 B | cam1 R | …]``.
 
-The raster and division-free ratio cast modes of the JAX package are not
-ported yet.
+The division-free ratio slab mode of the JAX package is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,15 +156,84 @@ def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light):
     return t, lam, hit
 
 
+def _obb_q_setup(basis, eye, center, quat, half_extents, light):
+    """Per-env scalar algebra of the projective rasterizer.
+
+    ``center``/``quat``: (E, 1) columns.  Returns ``(A, B, C, inv_u, inv_l,
+    ahead, cand, inside)``, each a 3-tuple of (E, 1) columns except
+    ``inside`` (E, 1): box axis k oriented so ``g_k = û_k·(c − eye) ≥ 0``,
+    its affine ray coefficients, the inverse far (``U = g + he``) and near
+    (``L = g − he``, sign-preserving clamp at 1e-7) plane distances, whether
+    the near plane lies ahead of the eye, the Lambert candidate −û_k·L and
+    whether the eye is inside the box.
+    """
+    fwd, right, up = basis
+    r = soa.q_to_mat(quat)
+    rel = tuple(center[i] - eye[i] for i in range(3))
+    g = tuple(r[0][k] * rel[0] + r[1][k] * rel[1] + r[2][k] * rel[2] for k in range(3))
+    sign = lambda x: 2.0 * (x >= 0.0).to(x.dtype) - 1.0
+    sg = tuple(sign(g[k]) for k in range(3))
+    ga = tuple(sg[k] * g[k] for k in range(3))
+    lo = tuple(ga[k] - float(half_extents[k]) for k in range(3))
+    hi = tuple(ga[k] + float(half_extents[k]) for k in range(3))
+    sl = tuple(sign(lo[k]) for k in range(3))
+    lo = tuple(sl[k] * torch.clamp(sl[k] * lo[k], min=1e-7) for k in range(3))
+    inv_u = tuple(1.0 / hi[k] for k in range(3))
+    inv_l = tuple(1.0 / lo[k] for k in range(3))
+    ahead = tuple(lo[k] > 0.0 for k in range(3))
+
+    def dot_axis(k, v):
+        return r[0][k] * v[0] + r[1][k] * v[1] + r[2][k] * v[2]
+
+    A = tuple(sg[k] * dot_axis(k, fwd) for k in range(3))
+    B = tuple(sg[k] * dot_axis(k, right) for k in range(3))
+    C = tuple(sg[k] * dot_axis(k, up) for k in range(3))
+    cand = tuple(
+        -sg[k] * (light[0] * r[0][k] + light[1] * r[1][k] + light[2] * r[2][k])
+        for k in range(3)
+    )
+    inside = ~(ahead[0] | ahead[1] | ahead[2])
+    return A, B, C, inv_u, inv_l, ahead, cand, inside
+
+
+def _obb_q_cast(px, py, setup):
+    """Per-ray work of the projective rasterizer → ``(q, lambert, hit)``,
+    (E, P) each: the entry inverse depth (larger is nearer; the exit one
+    when the eye is inside the box, ``-_BIG`` on a miss), the entry face's
+    n·L and the hit mask."""
+    A, B, C, inv_u, inv_l, ahead, cand, inside = setup
+    w = tuple(A[k] + B[k] * px + C[k] * py for k in range(3))
+    a = tuple(w[k] * inv_u[k] for k in range(3))  # far plane: lower bound
+    b = tuple(w[k] * inv_l[k] for k in range(3))  # near plane, routed
+    big = torch.tensor(_BIG, dtype=px.dtype, device=px.device)
+    ub = tuple(torch.where(ahead[k], b[k], big) for k in range(3))
+    lb = tuple(torch.where(ahead[k], -big, b[k]) for k in range(3))
+    q_lo = torch.maximum(
+        torch.maximum(torch.maximum(a[0], a[1]), torch.maximum(a[2], lb[0])),
+        torch.maximum(lb[1], lb[2]),
+    )
+    q_hi, lam = ub[0], cand[0]
+    for k in (1, 2):
+        take = ub[k] < q_hi
+        q_hi = torch.minimum(q_hi, ub[k])
+        lam = torch.where(take, cand[k], lam)
+    hit = q_hi >= torch.clamp(q_lo, min=1e-30)
+    q = torch.where(inside, q_lo, q_hi)
+    q = torch.where(hit, q, -big)
+    return q, lam, hit
+
+
 def render_frames(
     scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta, p2: int, n: int,
-    quantize: bool = True,
+    quantize: bool = True, raster: bool = False,
 ) -> torch.Tensor:
     """Render one frame per env from poses (E, 16) → (E, C·3·n).
 
     ``planes``: (4, C, p2, n) from :func:`ray_planes`, on the poses' device.
     ``quantize``: uint8 ``floor(clip(c·255 + 0.5, 0, 255))``; else float32
-    colours in [0, 1].  All geometry and shading run in float32.
+    colours in [0, 1].  ``raster``: cast with the projective raster and
+    order by inverse depth (ties → cart) instead of the slab cascade.  All
+    geometry and shading run in float32.
     """
     col = lambda j: poses[:, j : j + 1].to(torch.float32)
     cart_c, cart_q = (col(0), col(1), col(2)), (col(3), col(4), col(5), col(6))
@@ -173,11 +244,18 @@ def render_frames(
     for c, (basis, eye) in enumerate(cam_meta):
         rows = planes[:, c].reshape(4, 1, p2 * n)
         px, py, gval, smask = rows[0], rows[1], rows[2], rows[3]
-        tc, lam_c, hit_c = _ray_obb_affine(
-            px, py, basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR)
-        tp, lam_p, hit_p = _ray_obb_affine(
-            px, py, basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR)
-        sel_c = hit_c & (tc <= tp)
+        if raster:
+            qc, lam_c, hit_c = _obb_q_cast(px, py, _obb_q_setup(
+                basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR))
+            qp, lam_p, hit_p = _obb_q_cast(px, py, _obb_q_setup(
+                basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR))
+            sel_c = hit_c & (qc >= qp)
+        else:
+            tc, lam_c, hit_c = _ray_obb_affine(
+                px, py, basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR)
+            tp, lam_p, hit_p = _ray_obb_affine(
+                px, py, basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR)
+            sel_c = hit_c & (tc <= tp)
         sel_p = hit_p & ~sel_c
         lambert = torch.clamp(torch.where(sel_c, lam_c, lam_p), min=0.0)
         shade = _AMBIENT + (1.0 - _AMBIENT) * lambert
@@ -198,12 +276,13 @@ def render_frames(
     return torch.cat(out, dim=-1)
 
 
-def make_observe_pixels(config, dtype=torch.uint8):
+def make_observe_pixels(config, dtype=torch.uint8, raster: bool = False):
     """Batched observe fn: (scene, rigid[E]) → flat frames (E, C·3·n), on
     the rigid state's device.
 
     ``dtype=torch.uint8`` quantizes as the kernels do; ``torch.float32``
-    returns [0, 1] colours (the golden-image convention).
+    returns [0, 1] colours (the golden-image convention).  ``raster``
+    selects the cast mode (see :func:`render_frames`).
     """
     planes, cam_meta, (p2, n) = ray_planes(config)
     planes_t = torch.from_numpy(planes)
@@ -211,6 +290,7 @@ def make_observe_pixels(config, dtype=torch.uint8):
 
     def observe(scene: SceneParams, rigid: RigidState) -> torch.Tensor:
         poses = poses_from_rigid(rigid)
-        return render_frames(scene, poses, planes_t.to(poses.device), cam_meta, p2, n, quantize)
+        return render_frames(scene, poses, planes_t.to(poses.device), cam_meta, p2, n,
+                             quantize, raster)
 
     return observe

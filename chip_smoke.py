@@ -5,15 +5,27 @@
 
 Builds the CUDA kernels from ``cartpoleplusplus_tpu_torch/csrc`` with plain
 nvcc, holds each kernel against its plain PyTorch version on the card, then
-drives the port's main path at config 5 (2 cameras, 50×50 renders,
-obs_pool 2, obs_samples 2, 3 repeats × 5 substeps, 4096 envs): a greedy
-DDPG actor with seeded random weights runs full evaluation rollouts, then
-windows of lazily auto-resetting steps, each over a second.  Each kernel
-is held against its plain version again on the main path's own inputs and
-timed there; a torch.profiler trace of a few more steps gives the card's
-busy share.  Each phase prints one JSON line with the elapsed seconds; the
-line before the last two holds every kernel's launches, error, time and
-bound; the last line is ``{"ok": true, "device": {...}}``.
+drives the port's paths at full width (4096 envs, 50×50 renders, obs_pool 2,
+3 repeats × 5 substeps, 3 solver iterations), each with the launch counts
+set to 0 just before it and read just after:
+
+- acting at config 5 (2 cameras, obs_samples 2, slab render): a greedy DDPG
+  actor with seeded random weights runs full evaluation rollouts, then
+  windows of lazily auto-resetting steps, each over a second;
+- DDPG training with the bench's hyperparameters (replay 8192, batch 128,
+  20 steps per segment, Adam 1e-4/1e-3, γ 0.99, τ 0.005, warmup 0, OU
+  θ 0.15 σ 0.2) at config 5 and at the 1-camera exact row (obs_samples 0,
+  raster render, K5a): a warm segment, then timed windows of whole
+  segments, each over a second;
+- one TD3 segment at the 1-camera exact row.
+
+Each kernel is held against its plain version on seeded states and on the
+paths' own inputs and timed there; torch.profiler traces of a few acting
+steps and of one training segment per row give the card's busy share and
+the learner's share of it.  Each phase prints one JSON line with the
+elapsed seconds; the line before the last two holds every kernel's
+launches, error, time and bound; the last line is
+``{"ok": true, "device": {...}}``.
 
 A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
 Without CUDA, or without the port beside it, the script fails before
@@ -28,11 +40,13 @@ import math
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
+from cartpoleplusplus_tpu_torch.agents import ddpg
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
@@ -42,7 +56,8 @@ from cartpoleplusplus_tpu_torch.models.networks import Actor
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
-from cartpoleplusplus_tpu_torch.render.cuda_render import SlabRenderer
+from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 
 WATCHDOG_S = 300
 SEED = 0
@@ -59,10 +74,28 @@ PEAK_F32_OPS_PER_S = 67e12
 PHYS_ATOL = 1e-5
 PIX_LEVEL, PIX_SHARE, PIX_MEAN = 2, 0.999, 0.5
 
-CONFIG5 = CartpoleConfig(
-    discrete_actions=False, use_raw_pixels=True, num_cameras=2, render_width=50,
-    render_height=50, obs_pool=2, obs_samples=2, action_repeats=3, steps_per_repeat=5,
-    solver_iterations=3,
+_ROW = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
+            obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
+CONFIG5 = CartpoleConfig(num_cameras=2, obs_samples=2, **_ROW)        # 2cam_samples2
+CONFIG1_EXACT = CartpoleConfig(num_cameras=1, obs_samples=0, **_ROW)  # 1cam_exact
+CONFIG2_EXACT = CartpoleConfig(num_cameras=2, obs_samples=0, **_ROW)  # raster parity only
+
+# The bench's training hyperparameters (utils/benchmark.py build) and the
+# TD3 recipe's stabilizers.
+REPLAY_CAPACITY = 8192
+TRAIN_HP = dict(gamma=0.99, tau=0.005, batch_size=128, warmup_steps=0, steps_per_segment=20,
+                ou_theta=0.15, ou_sigma=0.2)
+TD3_HP = dict(twin_critic=True, policy_delay=2, target_noise=0.2, aug_shift=2,
+              reward_scale=0.1, grad_clip=10.0)
+TRAIN_WINDOWS = 3
+WINDOW_MIN_S = 1.0
+# The polyak step target ← target + τ·(online − target), checked in norm.
+TARGET_STEP_RTOL = 1e-3
+TRAIN_ROWS = (
+    ("2cam_samples2", CONFIG5,
+     ("step_repeats", "step_substeps", "render_repeats", "render_batched")),
+    ("1cam_exact", CONFIG1_EXACT,
+     ("step_repeats", "step_substeps", "render_repeats_raster", "render_batched_raster")),
 )
 
 KERNELS = (
@@ -74,6 +107,10 @@ KERNELS = (
      "cartpoleplusplus_tpu/render/pallas_kernel.py:347"),
     ("render_batched", "cartpoleplusplus_tpu_torch/csrc/render.cu",
      "cartpoleplusplus_tpu/render/pallas_kernel.py:436"),
+    ("render_repeats_raster", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:225"),
+    ("render_batched_raster", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:225"),
 )
 
 
@@ -217,6 +254,159 @@ def parity_inputs(scene, device):
     return rigid, force
 
 
+def raster_parity(scene, renderer, rigid, poses) -> dict:
+    """K5a in both launch forms against the plain raster version on the
+    card → pixel statistics by form; raises where one disagrees."""
+    pix = {
+        "render_repeats_raster": pixel_check(
+            "render_repeats_raster", renderer.render_repeats(scene, poses),
+            renderer.plain(scene, poses)),
+        "render_batched_raster": pixel_check(
+            "render_batched_raster", renderer.render_batched(scene, rigid),
+            renderer.plain(scene, raycast.poses_from_rigid(rigid)[None])[:, 0]),
+    }
+    torch.cuda.synchronize()
+    return pix
+
+
+def params_of(*modules) -> list[torch.Tensor]:
+    return [p.detach().clone() for m in modules for p in m.parameters()]
+
+
+def target_step_err(t0, online, t1, tau) -> float:
+    """‖t1 − (t0 + τ·(online − t0))‖ / ‖τ·(online − t0)‖ over all params, in
+    float64: how far one update's target step is from the polyak step."""
+    num = den = 0.0
+    for a, o, b in zip(t0, online, t1):
+        a, o, b = a.double(), o.double(), b.double()
+        step = tau * (o - a)
+        num += float(((b - a) - step).pow(2).sum())
+        den += float(step.pow(2).sum())
+    return math.sqrt(num / den) if den > 0 else math.inf
+
+
+def train_row(venv, cfg, row_kernels) -> tuple[dict, dict]:
+    """Train at full width: init_state, one warm segment, then
+    TRAIN_WINDOWS windows of whole segments, each over WINDOW_MIN_S; then
+    one more update outside the counted run to check the polyak step →
+    (the row's line, what the profile phase needs)."""
+    opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=False)
+    st = ddpg.init_state(opts, cfg, venv)
+    segment = ddpg.make_segment(venv, **TRAIN_HP)
+    actor0 = params_of(st.actor)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launches()
+    t_warm = time.monotonic()
+    warm = {k: float(v) for k, v in segment(st).items()}
+    warm_s = time.monotonic() - t_warm
+    seg_metrics, window_s, window_segs = [], [], []
+    for _ in range(TRAIN_WINDOWS):
+        t_win, n = time.monotonic(), 0
+        while True:
+            seg_metrics.append({k: float(v) for k, v in segment(st).items()})
+            n += 1
+            if time.monotonic() - t_win >= WINDOW_MIN_S:
+                break
+        window_s.append(time.monotonic() - t_win)
+        window_segs.append(n)
+    launches = dict(kernels.LAUNCHES)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    steps_per_seg = TRAIN_HP["steps_per_segment"]
+    rates = [NUM_ENVS * steps_per_seg * n / t for n, t in zip(window_segs, window_s)]
+    med = sorted(rates)[len(rates) // 2]
+    actor_moved = max(float((a - b).abs().max()) for a, b in zip(actor0, params_of(st.actor)))
+
+    train_once = ddpg.make_train_once(cfg, gamma=TRAIN_HP["gamma"], tau=TRAIN_HP["tau"],
+                                      warmup_steps=TRAIN_HP["warmup_steps"])
+    t0 = params_of(st.target_actor, st.target_critic)
+    train_once(st, replay_mod.sample(st.replay, TRAIN_HP["batch_size"], st.generator),
+               st.env_steps)
+    step_err = target_step_err(t0, params_of(st.actor, st.critic),
+                               params_of(st.target_actor, st.target_critic), TRAIN_HP["tau"])
+
+    mean = lambda k: sum(m[k] for m in seg_metrics) / len(seg_metrics)
+    trained = [m for m in seg_metrics if m["updates"] > 0]
+    checks = {
+        "row_kernels_launched": all(launches[k] > 0 for k in row_kernels),
+        "other_render_mode_not_launched": all(
+            v == 0 for k, v in launches.items() if k.startswith("render") and k not in row_kernels),
+        "losses_finite": all(math.isfinite(m[k]) for m in [warm, *seg_metrics]
+                             for k in ("critic_loss", "actor_loss")),
+        "critic_loss_positive_once_trained": bool(trained)
+        and all(m["critic_loss"] > 0.0 for m in trained),
+        "actor_moved": actor_moved > 0.0,
+        "target_moved_by_tau": step_err < TARGET_STEP_RTOL,
+        "replay_full": st.replay.size == st.replay.capacity,
+    }
+    line = dict(
+        envs=NUM_ENVS, config=dict(num_cameras=cfg.num_cameras, obs_samples=cfg.obs_samples,
+                                   obs_pool=cfg.obs_pool, raster=cfg.obs_samples == 0),
+        hyperparameters={**TRAIN_HP, "replay_capacity": REPLAY_CAPACITY},
+        warm_segment_s=warm_s, window_s=window_s, window_segments=window_segs,
+        window_env_steps_per_s=rates, env_steps_per_s=med,
+        spread=(max(rates) - min(rates)) / med, step_ms=1e3 * NUM_ENVS / med,
+        mean_critic_loss=mean("critic_loss"), mean_actor_loss=mean("actor_loss"),
+        mean_reward=mean("reward"), mean_done_frac=mean("done_frac"),
+        double_reset_frac=mean("double_reset_frac"), warm_segment=warm,
+        updates=sum(m["updates"] for m in seg_metrics) + int(warm["updates"]),
+        replay_size=st.replay.size, replay_cursor=st.replay.cursor,
+        replay_capacity=st.replay.capacity, env_steps=st.env_steps,
+        actor_max_param_change=actor_moved, target_step_rel_err=step_err,
+        launches=launches, peak_mem_mib=peak_mib, checks=checks,
+    )
+    if not all(checks.values()):
+        raise AssertionError(f"train checks failed: {checks}")
+    return line, {"state": st, "segment": segment, "step_ms": 1e3 * NUM_ENVS / med,
+                  "launches": launches}
+
+
+def device_events(prof) -> list:
+    """The device-side kernel and copy events of a torch.profiler trace
+    (not the spans that record_function and the optimizer draw on the
+    device timeline)."""
+    return [e for e in prof.events()
+            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+
+
+def training_profile(st, segment, step_ms: float) -> dict:
+    """Device time per env step of one profiled training segment, split
+    into the port's kernels (by name), the learner (kernels launched by an
+    op inside a ``ddpg.LEARNER_SPAN`` span: GEMMs, Adam, target updates,
+    sampling) and the rest; plus the busy share against the unprofiled
+    step time."""
+    steps = TRAIN_HP["steps_per_segment"]
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        {k: float(v) for k, v in segment(st).items()}
+        torch.cuda.synchronize()
+    events = prof.events()
+    spans = [(e.time_range.start, e.time_range.end) for e in events
+             if e.name == ddpg.LEARNER_SPAN and not str(e.device_type).endswith("CUDA")]
+    learner_us = 0.0
+    for e in events:
+        ks = getattr(e, "kernels", None) or []
+        if ks and not str(e.device_type).endswith("CUDA") and any(
+                a <= e.time_range.start <= b for a, b in spans):
+            learner_us += sum(k.duration for k in ks)
+    by_name = {}
+    for e in device_events(prof):
+        by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
+    total_us = sum(by_name.values())
+    ours_us = sum(v for k, v in by_name.items() if "render_kernel" in k or "phys_kernel" in k)
+    per_step = lambda us: us / 1e3 / steps
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(
+        device_ms_per_step=per_step(total_us), kernels_ms_per_step=per_step(ours_us),
+        learner_ms_per_step=per_step(learner_us) if spans else None,
+        rest_ms_per_step=per_step(total_us - ours_us - learner_us) if spans else None,
+        learner_spans=len(spans), step_ms=step_ms,
+        device_busy_share=per_step(total_us) / step_ms if total_us else None,
+        learner_share_of_device=learner_us / total_us if total_us and spans else None,
+        top_device_ms_per_step={k: per_step(v) for k, v in top},
+    )
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
     try:
@@ -254,7 +444,7 @@ def run() -> int:
 
     # 3. parity: each kernel against its plain version on seeded states
     scene = cartpole.scene_for(CONFIG5)
-    renderer = SlabRenderer(CONFIG5, dev)
+    renderer = Renderer(CONFIG5, dev)
     rigid, force = parity_inputs(scene, dev)
     seeded_errs, pix = parity(scene, renderer, rigid, force)
     # The plain version on the card against itself on the CPU, for scale.
@@ -267,7 +457,31 @@ def run() -> int:
          step_repeats_max_abs_err=seeded_errs["step_repeats"],
          plain_cuda_vs_cpu_step_substeps_max_abs_err=plain_gap, **pix)
 
-    # 4. main path at full width
+    # 4. K5a against the plain raster version: the 1cam_exact row's own
+    # reset state and first step under a seeded actor, and seeded states
+    # seen by 2 cameras (the TD3 recipe's camera count).
+    spr, reps, n_push = CONFIG5.steps_per_repeat, CONFIG5.action_repeats, CONFIG5.initial_force_steps
+    venv1 = make_venv(CONFIG1_EXACT, NUM_ENVS)
+    raster1 = Renderer(CONFIG1_EXACT, dev, raster=True)
+    actor1 = Actor(CONFIG1_EXACT.obs_shape, use_raw_pixels=True, height=CONFIG1_EXACT.obs_height,
+                   width=CONFIG1_EXACT.obs_width, generator=torch.Generator().manual_seed(SEED))
+    gen1 = torch.Generator(device=dev).manual_seed(SEED)
+    state1, obs1 = venv1.reset(gen1)
+    rigid1 = state1.rigid
+    with torch.no_grad():
+        force1 = cartpole.action_to_force(CONFIG1_EXACT, actor1(obs1))
+    _, poses1 = cuda_step.step_repeats(scene, rigid1, force1, spr, reps)
+    pix_main = raster_parity(scene, raster1, rigid1, poses1)
+    raster2 = Renderer(CONFIG2_EXACT, dev, raster=True)
+    _, poses_seeded = soa.step_repeats_batched(scene, rigid, force, spr, reps)
+    pix_2cam = raster_parity(scene, raster2, rigid, poses_seeded)
+    raster_errs = {k: v["max_abs_err"] for k, v in pix_main.items()}
+    seeded_errs.update({k: v["max_abs_err"] for k, v in pix_2cam.items()})
+    emit("parity_raster", envs_1cam_exact=NUM_ENVS, envs_2cam_exact=PARITY_ENVS,
+         pixel_bound={"level": PIX_LEVEL, "share": PIX_SHARE, "mean": PIX_MEAN},
+         one_cam_exact=pix_main, two_cam_exact=pix_2cam)
+
+    # 5. acting main path at config 5, full width
     venv = make_venv(CONFIG5, NUM_ENVS)
     actor = Actor(CONFIG5.obs_shape, use_raw_pixels=True, height=CONFIG5.obs_height,
                   width=CONFIG5.obs_width, generator=torch.Generator().manual_seed(SEED))
@@ -305,7 +519,9 @@ def run() -> int:
     launches = dict(kernels.LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     checks = {
-        "launches_all_positive": all(v > 0 for v in launches.values()),
+        "launches_all_positive": all(launches[k] > 0 for k, _, _ in KERNELS[:4]),
+        "raster_not_launched": launches["render_repeats_raster"] == 0
+        and launches["render_batched_raster"] == 0,
         "finite": all(math.isfinite(v) for ep in episodes for v in ep)
         and bool(torch.isfinite(reward_sum).all())
         and all(bool(torch.isfinite(getattr(states.rigid, f)).all())
@@ -327,10 +543,38 @@ def run() -> int:
          peak_mem_mib=peak_mib, checks=checks)
     if not all(checks.values()):
         raise AssertionError(f"main path checks failed: {checks}")
+    launches_by_path = {"acting_2cam_samples2": launches}
 
-    # 5. kernels at the main path's shapes: parity, time, plain time, bound
-    e, reps = NUM_ENVS, CONFIG5.action_repeats
-    spr, n_push = CONFIG5.steps_per_repeat, CONFIG5.initial_force_steps
+    # 6. DDPG training at each row, full width, the bench's hyperparameters
+    trained = {}
+    for name, cfg, row_kernels in TRAIN_ROWS:
+        row_venv = venv if cfg is CONFIG5 else venv1
+        line, trained[name] = train_row(row_venv, cfg, row_kernels)
+        launches_by_path[f"train_{name}"] = line["launches"]
+        emit(f"train_{name}", **line)
+
+    # 7. one TD3 segment at the 1cam_exact row
+    td3_opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=True)
+    td3_state = ddpg.init_state(td3_opts, CONFIG1_EXACT, venv1)
+    td3_segment = ddpg.make_segment(venv1, **TRAIN_HP, **TD3_HP)
+    kernels.reset_launches()
+    t_td3 = time.monotonic()
+    td3 = {k: float(v) for k, v in td3_segment(td3_state).items()}
+    td3_s = time.monotonic() - t_td3
+    launches_by_path["td3_1cam_exact"] = dict(kernels.LAUNCHES)
+    td3_checks = {
+        "losses_finite": all(math.isfinite(td3[k]) for k in ("critic_loss", "actor_loss")),
+        "updated": td3["updates"] > 0,
+        "twin": isinstance(td3_state.critic, ddpg.TwinCritic),
+    }
+    emit("td3_1cam_exact", hyperparameters={**TRAIN_HP, **TD3_HP}, segment_s=td3_s,
+         metrics=td3, launches=launches_by_path["td3_1cam_exact"], checks=td3_checks)
+    if not all(td3_checks.values()):
+        raise AssertionError(f"td3 checks failed: {td3_checks}")
+    del td3_state, td3_segment
+
+    # 8. kernels at the main paths' shapes: parity, time, plain time, bound
+    e = NUM_ENVS
     state0, obs0 = venv.reset(gen)
     rigid0 = state0.rigid
     with torch.no_grad():
@@ -339,9 +583,8 @@ def run() -> int:
     emit("parity_main_path", envs=NUM_ENVS, physics_atol=PHYS_ATOL,
          step_substeps_max_abs_err=errs["step_substeps"],
          step_repeats_max_abs_err=errs["step_repeats"], **pix)
+    errs.update(raster_errs)
     _, poses0 = cuda_step.step_repeats(scene, rigid0, force0, spr, reps)
-    frame_bytes = CONFIG5.pixel_obs_shape[1]
-    ray_bytes = renderer.planes.numel() * 4
     work = {
         "step_repeats": (
             lambda: cuda_step.step_repeats(scene, rigid0, force0, spr, reps),
@@ -351,16 +594,23 @@ def run() -> int:
             lambda: cuda_step.step_substeps(scene, rigid0, force0, n_push),
             lambda: soa.step_substeps_batched(scene, rigid0, force0, n_push),
             (26 + 3 + 26) * 4 * e),
-        "render_repeats": (
-            lambda: renderer.render_repeats(scene, poses0),
-            lambda: renderer.plain(scene, poses0),
-            reps * e * 16 * 4 + ray_bytes + e * reps * frame_bytes),
-        "render_batched": (
-            lambda: renderer.render_batched(scene, rigid0),
-            lambda: renderer.plain(scene, raycast.poses_from_rigid(rigid0)[None]),
-            e * 16 * 4 + ray_bytes + e * frame_bytes),
     }
+    for suffix, rnd, rig, pos in (("", renderer, rigid0, poses0),
+                                  ("_raster", raster1, rigid1, poses1)):
+        frame_bytes, ray_bytes = rnd.frame_width, rnd.planes.numel() * 4
+        work["render_repeats" + suffix] = (
+            lambda rnd=rnd, pos=pos: rnd.render_repeats(scene, pos),
+            lambda rnd=rnd, pos=pos: rnd.plain(scene, pos),
+            reps * e * 16 * 4 + ray_bytes + e * reps * frame_bytes)
+        work["render_batched" + suffix] = (
+            lambda rnd=rnd, rig=rig: rnd.render_batched(scene, rig),
+            lambda rnd=rnd, rig=rig: rnd.plain(scene, raycast.poses_from_rigid(rig)[None]),
+            e * 16 * 4 + ray_bytes + e * frame_bytes)
     raw = raw_launches(scene, renderer, rigid0, force0, poses0, spr, n_push)
+    raw.update({k + "_raster": v for k, v in raw_launches(
+        scene, raster1, rigid1, force1, poses1, spr, n_push).items() if k.startswith("render")})
+    total_launches = {name: sum(p.get(name, 0) for p in launches_by_path.values())
+                      for name, _, _ in KERNELS}
     rows = []
     with torch.no_grad():
         for name, source, replaces in KERNELS:
@@ -369,8 +619,10 @@ def run() -> int:
             t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches[name], "max_abs_err": errs[name],
-                "seeded_max_abs_err": seeded_errs[name],
+                "launches": total_launches[name],
+                "launches_by_path": {p: v.get(name, 0) for p, v in launches_by_path.items()},
+                "max_abs_err": errs[name],
+                "seeded_max_abs_err": seeded_errs.get(name),
                 "ms": time_ms(raw[name], reps=50),
                 "wrapper_ms": time_ms(wrapper_fn, reps=50),
                 "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
@@ -385,10 +637,10 @@ def run() -> int:
     step_ms = 1e3 * NUM_ENVS / sim_rate
     emit("kernels_timed", card=smi, actor_forward_ms=actor_ms, sim_only_step_ms=step_ms)
 
-    # 6. device time of sim-only steps, from a torch.profiler trace: the
-    # card's busy share of a step (against the unprofiled step time) and
-    # the device kernels that take it.  Null where the trace holds no
-    # device time.
+    # 9. device time from torch.profiler traces: a few sim-only steps (the
+    # card's busy share and the kernels that take it), then one training
+    # segment per row split into the port's kernels, the learner and the
+    # rest.  Null where a trace holds no device time.
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
         for _ in range(PROFILE_STEPS):
@@ -403,9 +655,12 @@ def run() -> int:
             device_ms[ev.key[:80]] = us / 1e3 / PROFILE_STEPS
     device_step_ms = sum(device_ms.values()) or None
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
+    training = {name: training_profile(t["state"], t["segment"], t["step_ms"])
+                for name, t in trained.items()}
     emit("profile", steps=PROFILE_STEPS, device_ms_per_step=device_step_ms,
          device_busy_share=device_step_ms and device_step_ms / step_ms,
-         device_kernels=len(device_ms), top_device_ms_per_step=dict(top))
+         device_kernels=len(device_ms), top_device_ms_per_step=dict(top),
+         training=training)
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

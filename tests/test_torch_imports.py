@@ -43,28 +43,55 @@ def test_port_never_imports_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20  # every module was walked
+    assert int(out.stdout.split()[-1]) >= 24  # every module was walked
 
 
-@pytest.mark.parametrize("entry", ["make_venv", "VectorCartpole", "Actor", "resolve_device"])
+_EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_pool=2,
+              obs_samples=0)
+
+
+@pytest.mark.parametrize("entry", ["make_venv", "VectorCartpole", "Actor", "resolve_device",
+                                   "make_venv_exact", "Critic", "init_state", "make_segment"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
-    """Without CUDA, entry points raise unless the caller passes device='cpu'."""
+    """Without CUDA, entry points raise unless the caller passes device='cpu'.
+    ``init_state`` and ``make_segment`` run on their vector env's device."""
+    from types import SimpleNamespace
+
     from cartpoleplusplus_tpu_torch import resolve_device
+    from cartpoleplusplus_tpu_torch.agents import ddpg
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
-    from cartpoleplusplus_tpu_torch.models.networks import Actor
+    from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic
 
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = CartpoleConfig(discrete_actions=False, use_raw_pixels=True, num_cameras=2,
                          obs_pool=2, obs_samples=2)
+    exact = CartpoleConfig(**_EXACT)
+
+    def venv_on(device=None):
+        """A vector env on ``device``; one named for CUDA is built while
+        CUDA is reported present, then used while it is not."""
+        if device == "cpu":
+            return make_venv(exact, 4, device="cpu")
+        with monkeypatch.context() as m:
+            m.setattr(torch.cuda, "is_available", lambda: True)
+            return VectorCartpole(exact, 4, None, None, None, device=device)
+
+    opts = SimpleNamespace(seed=0, replay_capacity=16)
+    seg_kw = dict(gamma=0.99, tau=0.005, batch_size=4, warmup_steps=0, steps_per_segment=1,
+                  ou_theta=0.15, ou_sigma=0.2)
+    net_kw = dict(use_raw_pixels=True, height=25, width=25)
     build = {
         "make_venv": lambda **kw: make_venv(cfg, 4, **kw),
         "VectorCartpole": lambda **kw: VectorCartpole(cfg, 4, None, None, None, **kw),
-        "Actor": lambda **kw: Actor(cfg.obs_shape, use_raw_pixels=True, height=25, width=25,
-                                    **kw),
+        "Actor": lambda **kw: Actor(cfg.obs_shape, **net_kw, **kw),
         "resolve_device": lambda **kw: resolve_device(kw.get("device")),
+        "make_venv_exact": lambda **kw: make_venv(exact, 4, **kw),
+        "Critic": lambda **kw: Critic(cfg.obs_shape, **net_kw, **kw),
+        "init_state": lambda **kw: ddpg.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
+        "make_segment": lambda **kw: ddpg.make_segment(venv_on(**kw), **seg_kw),
     }[entry]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build()
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -73,12 +100,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(use_raw_pixels=True), "raster"),
     (dict(use_raw_pixels=False), "low-dim"),
 ])
 def test_unported_configs_are_refused(kw, match):
-    """Exact pixel configs need the raster mode and low-dim configs their
-    observation; neither is ported yet."""
+    """Low-dim configs need their observation, which is not ported yet.
+    The exact configs' raster mode is ported: see tests/test_torch_raster.py."""
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 

@@ -28,7 +28,7 @@ from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState, rest_state
 from cartpoleplusplus_tpu_torch.render import prefer_raster, raycast
-from cartpoleplusplus_tpu_torch.render.cuda_render import SlabRenderer
+from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 
 torch.set_num_threads(2)
 
@@ -138,7 +138,7 @@ def test_renderer_cpu_is_plain_version():
     K3 equals K4 applied per repeat."""
     _, cfg = _configs(2, 2, 2)
     scene = cartpole.scene_for(cfg)
-    renderer = SlabRenderer(cfg, "cpu")
+    renderer = Renderer(cfg, "cpu")
     rigids = [RigidState(*(torch.from_numpy(a) for a in _poses(s))) for s in range(3)]
     poses = torch.stack([raycast.poses_from_rigid(r) for r in rigids])
     kernels.reset_launches()
