@@ -17,8 +17,9 @@ from cartpoleplusplus_tpu_torch.render import prefer_raster
 from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 
 
-def make_venv(config, num_envs: int, device=None,
-              render_raster: bool | None = None) -> VectorCartpole:
+def make_venv(config, num_envs: int, device=None, render_raster: bool | None = None,
+              render_recip: bool = True, render_hoist: bool = False,
+              render_mxu: bool = False) -> VectorCartpole:
     """Vector env wired to the kernels, as the JAX ``make_venv`` wires its
     Pallas kernels with the fused step on:
 
@@ -29,17 +30,23 @@ def make_venv(config, num_envs: int, device=None,
 
     ``render_raster=None`` resolves through :func:`prefer_raster`: the
     raster mode (K5a, in both render launches) for exact configs
-    (``obs_samples == 0``), the slab mode for sampled ones.  Nothing falls
-    back: a raster kernel that fails to build or launch raises.  On a CPU
-    device each wrapper runs its plain PyTorch version.  Low-dim configs
-    are not ported yet.
+    (``obs_samples == 0``), the slab mode for sampled ones.  The other
+    flags are the JAX package's, with its defaults and meaning: in the slab
+    mode ``render_recip=False`` casts with the division-free ratio cascade
+    (K5b); in the raster mode ``render_hoist`` packs the per-env setup in a
+    pass of its own first (K5c) and ``render_mxu`` computes the bound planes
+    as one tensor-core product (K5d), alone or together.  Nothing falls
+    back: a kernel that fails to build or launch raises.  On a CPU device
+    each wrapper runs its plain PyTorch version.  Low-dim configs are not
+    ported yet.
     """
     dev = resolve_device(device)
     if not config.use_raw_pixels:
         raise NotImplementedError("low-dim observations are not ported yet")
     if render_raster is None:
         render_raster = prefer_raster(config.num_cameras, config.obs_pool, config.obs_samples)
-    renderer = Renderer(config, dev, raster=render_raster)
+    renderer = Renderer(config, dev, raster=render_raster, recip=render_recip,
+                        hoist=render_hoist, mxu=render_mxu)
 
     def sim_fn(scene, rigid, force):
         rigid, poses = cuda_step.step_repeats(

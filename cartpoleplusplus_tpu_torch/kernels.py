@@ -40,16 +40,29 @@ COMMON_FLAGS = ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 SOURCES = {
     "physics.cu": ("-fmad=false",),
     "render.cu": (),
+    "roofline.cu": (),
 }
 
 # Launches per wrapper, by kernel name.
 LAUNCHES = {
-    "step_repeats": 0,           # K1
-    "step_substeps": 0,          # K2
-    "render_repeats": 0,         # K3 (slab mode)
-    "render_batched": 0,         # K4 (slab mode)
-    "render_repeats_raster": 0,  # K5a through K3's launch
-    "render_batched_raster": 0,  # K5a through K4's launch
+    "step_repeats": 0,                     # K1
+    "step_substeps": 0,                    # K2
+    "render_repeats": 0,                   # K3 (slab mode)
+    "render_batched": 0,                   # K4 (slab mode)
+    "render_repeats_raster": 0,            # K5a through K3's launch
+    "render_batched_raster": 0,            # K5a through K4's launch
+    "render_repeats_ratio": 0,             # K5b through K3's launch
+    "render_batched_ratio": 0,             # K5b through K4's launch
+    "pack_setups": 0,                      # K5c's setup pass, both launches
+    "render_repeats_raster_hoist": 0,      # K5c through K3's launch
+    "render_batched_raster_hoist": 0,      # K5c through K4's launch
+    "render_repeats_raster_mxu": 0,        # K5d through K3's launch
+    "render_batched_raster_mxu": 0,        # K5d through K4's launch
+    "render_repeats_raster_hoist_mxu": 0,  # K5d from K5c's table, K3's launch
+    "render_batched_raster_hoist_mxu": 0,  # K5d from K5c's table, K4's launch
+    # K6, one count per op chain
+    **{f"roofline_{mix}": 0 for mix in ("fma_f32", "fma_bf16", "mix_f32", "mix_bf16",
+                                        "recip_f32", "div_f32")},
 }
 
 
@@ -129,8 +142,12 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cp_physics_step.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_physics_step.restype = i32
-    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_render.restype = i32
+    lib.cp_pack_setups.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
+    lib.cp_pack_setups.restype = i32
+    lib.cp_roofline.argtypes = [ptr, ptr, i32, i32, i32, ptr]
+    lib.cp_roofline.restype = i32
     return lib
 
 

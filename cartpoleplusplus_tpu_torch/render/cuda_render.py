@@ -1,11 +1,13 @@
-"""Wrappers of the CUDA render kernel (csrc/render.cu): K3/K4 in the slab
-mode, K5a in the raster mode.
+"""Wrappers of the CUDA render kernels (csrc/render.cu): K3/K4 in the slab
+mode, K5a in the raster mode, and the three other modes of the JAX render
+kernel: K5b (division-free ratio slab), K5c (raster from a hoisted setup
+table) and K5d (raster with its bound planes on the tensor cores).
 
 Counterparts of cartpoleplusplus_tpu.render.pallas_kernel's
-``make_render_repeats`` (K3) and ``make_render_batched`` (K4), in the slab
-+ reciprocal mode of the sampled configs and the raster mode of the exact
-ones.  For CUDA tensors they launch the kernel or raise; for CPU tensors
-they run the plain PyTorch version in render/raycast.py.
+``make_render_repeats`` (K3's launch) and ``make_render_batched`` (K4's
+launch) in every mode their flags select.  For CUDA tensors they launch the
+kernel or raise; for CPU tensors they run the plain PyTorch version in
+render/raycast.py.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ from cartpoleplusplus_tpu_torch.physics.bodies import RigidState, SceneParams
 from cartpoleplusplus_tpu_torch.render import raycast
 
 MAX_CAMS = 2
+# The kernel's cast modes (enum Mode in csrc/render.cu).
+SLAB, RASTER, RATIO, RASTER_HOIST, MXU, MXU_HOIST = range(6)
 
 
 class RenderParams(ctypes.Structure):
@@ -42,28 +46,49 @@ class RenderParams(ctypes.Structure):
 
 
 class Renderer:
-    """Renders a config's camera frames with the slab cascade or, with
-    ``raster``, the projective raster (K5a).
+    """Renders a config's camera frames in one of the render kernel's modes.
+
+    ``raster=False``: the slab cascade, with a reciprocal (K3/K4) or, with
+    ``recip=False``, the division-free ratio cascade (K5b).  ``raster``:
+    the projective raster (K5a); with ``hoist`` its setup is packed by a
+    kernel of its own first (K5c), with ``mxu`` its bound planes come from
+    a tensor-core product (K5d); the two may be combined.  As in the JAX
+    package, ``recip`` acts only in the slab mode, ``hoist`` and ``mxu``
+    only in the raster mode.
 
     Holds the static ray table (4, C, p2, n) on ``device``.  Frames are
     uint8, plane-major per camera, ``n`` pooled pixels per plane.  Launches
-    count under ``render_repeats``/``render_batched`` in the slab mode and
-    under the same names with ``_raster`` in the raster mode.
+    count under ``render_repeats``/``render_batched`` plus the mode's
+    suffix (``_ratio``, ``_raster``, ``_raster_hoist``, ``_raster_mxu``,
+    ``_raster_hoist_mxu``), and each setup pass under ``pack_setups``.
     """
 
-    def __init__(self, config, device, raster: bool = False):
+    def __init__(self, config, device, raster: bool = False, recip: bool = True,
+                 hoist: bool = False, mxu: bool = False):
         self.raster = bool(raster)
-        self._suffix = "_raster" if self.raster else ""
+        self.recip = bool(recip) or self.raster
+        self.hoist = bool(hoist) and self.raster
+        self.mxu = bool(mxu) and self.raster
+        if not self.raster:
+            self.mode, self.suffix = (SLAB, "") if self.recip else (RATIO, "_ratio")
+        else:
+            if self.mxu:
+                self.mode = MXU_HOIST if self.hoist else MXU
+            else:
+                self.mode = RASTER_HOIST if self.hoist else RASTER
+            self.suffix = "_raster" + "_hoist" * self.hoist + "_mxu" * self.mxu
         planes, self.cam_meta, (self.p2, self.n) = raycast.ray_planes(config)
         self.planes = torch.from_numpy(planes).to(device)
         self.num_cams = len(self.cam_meta)
         self.frame_width = self.num_cams * 3 * self.n
+        self.setup_width = self.num_cams * 2 * raycast.SETUP_W
 
     def plain(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version: poses (R, E, 16) → uint8 (E, R, C·3·n)."""
         frames = [
             raycast.render_frames(scene, poses[r], self.planes, self.cam_meta, self.p2, self.n,
-                                  raster=self.raster)
+                                  raster=self.raster, recip=self.recip, hoist=self.hoist,
+                                  mxu=self.mxu)
             for r in range(poses.shape[0])
         ]
         return torch.stack(frames, dim=1)
@@ -95,26 +120,51 @@ class Renderer:
         r, e = poses.shape[0], poses.shape[1]
         if r == 0 or e == 0:
             raise ValueError("empty pose batch")
+        params, poses = self.kernel_params(scene), poses.contiguous()
+        setups = None
+        if self.hoist:
+            setups = torch.empty((r, e, self.setup_width), dtype=torch.float32,
+                                 device=poses.device)
+            self.launch_pack(params, poses, setups)
+            kernels.LAUNCHES["pack_setups"] += 1
         out = torch.empty((e, r, self.frame_width), dtype=torch.uint8, device=poses.device)
-        self.launch(self.kernel_params(scene), poses.contiguous(), out)
-        kernels.LAUNCHES[name + self._suffix] += 1
+        self.launch(params, poses, out, setups)
+        kernels.LAUNCHES[name + self.suffix] += 1
         return out
 
-    def launch(self, params: RenderParams, poses: torch.Tensor, out: torch.Tensor) -> None:
-        """Launch the render kernel on prepared CUDA buffers: contiguous
-        float32 ``poses`` (R, E, 16) → uint8 ``out`` (E, R, C·3·n).  Counts
+    def launch_pack(self, params: RenderParams, poses: torch.Tensor,
+                    setups: torch.Tensor) -> None:
+        """Launch the setup pass of the hoisted raster on prepared CUDA
+        buffers: contiguous float32 ``poses`` (R, E, 16) → float32
+        ``setups`` (R, E, C·2·22), the layout of ``raycast.pack_setups``.
+        Counts nothing: the wrappers count."""
+        r, e = poses.shape[0], poses.shape[1]
+        err = kernels.library().cp_pack_setups(
+            ctypes.addressof(params), poses.data_ptr(), setups.data_ptr(), e, r,
+            torch.cuda.current_stream(poses.device).cuda_stream,
+        )
+        kernels.check(err, "pack_setups")
+
+    def launch(self, params: RenderParams, poses: torch.Tensor, out: torch.Tensor,
+               setups: torch.Tensor | None = None) -> None:
+        """Launch the render kernel of this mode on prepared CUDA buffers:
+        contiguous float32 ``poses`` (R, E, 16) → uint8 ``out``
+        (E, R, C·3·n); the hoisted modes read ``setups`` (R, E, C·2·22)
+        from :meth:`launch_pack` instead of computing the setup.  Counts
         nothing: the wrappers count."""
+        if self.hoist and setups is None:
+            raise ValueError("the hoisted raster reads a setup table")
         r, e = poses.shape[0], poses.shape[1]
         err = kernels.library().cp_render(
             ctypes.addressof(params), poses.data_ptr(), self.planes.data_ptr(),
-            out.data_ptr(), e, r, int(self.raster),
+            setups.data_ptr() if self.hoist else None, out.data_ptr(), e, r, self.mode,
             torch.cuda.current_stream(poses.device).cuda_stream,
         )
         kernels.check(err, "render")
 
     def render_repeats(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
-        """K3 (K5a when raster): every repeat's frame, poses (R, E, 16) →
-        uint8 (E, R, C·3·n)."""
+        """K3's launch in this mode: every repeat's frame, poses (R, E, 16)
+        → uint8 (E, R, C·3·n)."""
         if poses.device.type == "cpu":
             return self.plain(scene, poses)
         if poses.device.type != "cuda":
@@ -122,8 +172,8 @@ class Renderer:
         return self._launch("render_repeats", scene, poses)
 
     def render_batched(self, scene: SceneParams, rigid: RigidState) -> torch.Tensor:
-        """K4 (K5a when raster): one frame per env from its state → uint8
-        (E, C·3·n)."""
+        """K4's launch in this mode: one frame per env from its state →
+        uint8 (E, C·3·n)."""
         poses = raycast.poses_from_rigid(rigid)[None]
         if poses.device.type == "cpu":
             return self.plain(scene, poses)[:, 0]

@@ -15,17 +15,24 @@ set to 0 just before it and read just after:
 - DDPG training with the bench's hyperparameters (replay 8192, batch 128,
   20 steps per segment, Adam 1e-4/1e-3, γ 0.99, τ 0.005, warmup 0, OU
   θ 0.15 σ 0.2) at config 5 and at the 1-camera exact row (obs_samples 0,
-  raster render, K5a): a warm segment, then timed windows of whole
-  segments, each over a second;
-- one TD3 segment at the 1-camera exact row.
+  raster render, K5a), and at three rows of the render kernel's other
+  modes, each a ``make_venv`` option: config 5 with ``render_recip=False``
+  (K5b), the 1-camera exact row with ``render_hoist=True`` (K5c) and with
+  ``render_mxu=True`` (K5d); each a warm segment, then timed windows of
+  whole segments, each over a second;
+- one TD3 segment at the 1-camera exact row;
+- the card's element-op rate probe (K6): six op chains timed at N and 2N
+  iterations.
 
 Each kernel is held against its plain version on seeded states and on the
-paths' own inputs and timed there; torch.profiler traces of a few acting
-steps and of one training segment per row give the card's busy share and
-the learner's share of it.  Each phase prints one JSON line with the
-elapsed seconds; the line before the last two holds every kernel's
-launches, error, time and bound; the last line is
-``{"ok": true, "device": {...}}``.
+paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
+byte-equal to K5a and K5d within the silhouette rule of K5a;
+``parity_owed`` for K3/K4 at one sample per pooled pixel and K1/K2 at 8192
+envs); torch.profiler traces of a few acting steps and of one training
+segment per row give the card's busy share and the learner's share of it.
+Each phase prints one JSON line with the elapsed seconds; the line before
+the last two holds every kernel's launches, error, time and bound; the
+last line is ``{"ok": true, "device": {...}}``.
 
 A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
 Without CUDA, or without the port beside it, the script fails before
@@ -34,9 +41,13 @@ printing any result.
 
 from __future__ import annotations
 
+import collections
 import faulthandler
 import json
 import math
+import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -58,27 +69,49 @@ from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
+from cartpoleplusplus_tpu_torch.utils import roofline
 
 WATCHDOG_S = 300
 SEED = 0
 NUM_ENVS = 4096
 PARITY_ENVS = 1024
+OWED_PHYS_ENVS = 8192  # K1/K2 parity at twice the main path's width
 SIM_ONLY_WINDOWS = 3
 EVAL_ROLLOUTS = 3
 SIM_ONLY_STEPS = 700  # per window: over a second at 1.6-1.9 ms per step
 PROFILE_STEPS = 20
-# Published H100 SXM peaks: HBM bandwidth and float32 (non-tensor-core) rate.
+# Published H100 SXM peaks: HBM bandwidth and float32 (non-tensor-core)
+# rate; the non-tensor-core bfloat16 rate is twice the float32 one
+# (NVIDIA's Hopper architecture whitepaper: 133.8 TFLOP/s).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 133.8e12
 # Tolerances: physics atol, pixel levels (|Δ| ≤ 2 on ≥ 99.9%, mean < 0.5).
 PHYS_ATOL = 1e-5
 PIX_LEVEL, PIX_SHARE, PIX_MEAN = 2, 0.999, 0.5
+# K5d against K5a and its plain version (tests/test_raster_render.py's rule
+# for the product's rounding): under 1e-3 of bytes differ, and every
+# differing pixel lies within one pixel of a silhouette edge of more than 4
+# levels.
+SIL_SHARE, SIL_EDGE = 1e-3, 4
+# K6 against its fused plain chains (each multiply-add rounded once, as
+# FFMA/HFMA2 do) after K6_PARITY_ITERS iterations from roofline.varied's
+# distinct starts: float32 within 1e-6 (a few ulp; recip_f32's reciprocal
+# is approximate in the kernel), bfloat16 within one ulp below 0.5 (2^-9),
+# and either within K6_MOVE_SHARE of how far the plain chain moved.  The
+# chains move 3e-5 (mix_f32) to 1.1 (recip_f32, div_f32) there.
+K6_PARITY_ITERS = 256
+K6_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-9}
+K6_MOVE_SHARE = 0.01
+K6_ROW_ITERS = 1000  # the chains' iterations in the kernels line
+PACK_RTOL = 1e-6  # K5c's packed setups against the plain packing, relative
 
 _ROW = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
             obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
 CONFIG5 = CartpoleConfig(num_cameras=2, obs_samples=2, **_ROW)        # 2cam_samples2
 CONFIG1_EXACT = CartpoleConfig(num_cameras=1, obs_samples=0, **_ROW)  # 1cam_exact
 CONFIG2_EXACT = CartpoleConfig(num_cameras=2, obs_samples=0, **_ROW)  # raster parity only
+CONFIG1_S1 = CartpoleConfig(num_cameras=1, obs_samples=1, **_ROW)     # 1cam_samples1: p2 = 1
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -91,11 +124,25 @@ TRAIN_WINDOWS = 3
 WINDOW_MIN_S = 1.0
 # The polyak step target ← target + τ·(online − target), checked in norm.
 TARGET_STEP_RTOL = 1e-3
+_PHYS = ("step_repeats", "step_substeps")
+# (row, config, make_venv options, kernels the row must launch)
 TRAIN_ROWS = (
-    ("2cam_samples2", CONFIG5,
-     ("step_repeats", "step_substeps", "render_repeats", "render_batched")),
-    ("1cam_exact", CONFIG1_EXACT,
-     ("step_repeats", "step_substeps", "render_repeats_raster", "render_batched_raster")),
+    ("2cam_samples2", CONFIG5, {}, (*_PHYS, "render_repeats", "render_batched")),
+    ("1cam_exact", CONFIG1_EXACT, {}, (*_PHYS, "render_repeats_raster", "render_batched_raster")),
+    ("2cam_samples2_ratio", CONFIG5, {"render_recip": False},
+     (*_PHYS, "render_repeats_ratio", "render_batched_ratio")),
+    ("1cam_exact_hoist", CONFIG1_EXACT, {"render_hoist": True},
+     (*_PHYS, "pack_setups", "render_repeats_raster_hoist", "render_batched_raster_hoist")),
+    ("1cam_exact_mxu", CONFIG1_EXACT, {"render_mxu": True},
+     (*_PHYS, "render_repeats_raster_mxu", "render_batched_raster_mxu")),
+)
+# The render modes of parity_modes: (name, Renderer options, config at the
+# main path's inputs); the seeded inputs are seen by 2 cameras.
+MODES = (
+    ("ratio", dict(recip=False), CONFIG5),
+    ("raster_hoist", dict(raster=True, hoist=True), CONFIG1_EXACT),
+    ("raster_mxu", dict(raster=True, mxu=True), CONFIG1_EXACT),
+    ("raster_hoist_mxu", dict(raster=True, hoist=True, mxu=True), CONFIG1_EXACT),
 )
 
 KERNELS = (
@@ -111,6 +158,22 @@ KERNELS = (
      "cartpoleplusplus_tpu/render/pallas_kernel.py:225"),
     ("render_batched_raster", "cartpoleplusplus_tpu_torch/csrc/render.cu",
      "cartpoleplusplus_tpu/render/pallas_kernel.py:225"),
+    ("render_repeats_ratio", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:210"),
+    ("render_batched_ratio", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:210"),
+    ("pack_setups", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:111"),
+    ("render_repeats_raster_hoist", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:226"),
+    ("render_batched_raster_hoist", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:226"),
+    ("render_repeats_raster_mxu", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:248"),
+    ("render_batched_raster_mxu", "cartpoleplusplus_tpu_torch/csrc/render.cu",
+     "cartpoleplusplus_tpu/render/pallas_kernel.py:248"),
+    *((f"roofline_{mix}", "cartpoleplusplus_tpu_torch/csrc/roofline.cu", "scripts/roofline.py:56")
+      for mix in roofline.CHAINS),
 )
 
 
@@ -149,6 +212,26 @@ def census(fn) -> int:
     return c.ops
 
 
+def sass_opcodes(lib_path: str, function: str) -> dict | None:
+    """Opcode counts of one kernel's SASS in the built library, by
+    ``cuobjdump -sass`` (None where the toolkit has no cuobjdump)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+                          timeout=120, check=True).stdout
+    counts, inside = collections.Counter(), False
+    for line in dump.splitlines():
+        if "Function :" in line:
+            inside = function in line
+        elif inside:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+            if m:
+                counts[m.group(1)] += 1
+    return dict(counts)
+
+
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
     """Mean ms per call from CUDA events around ``reps`` calls."""
     for _ in range(warmup):
@@ -182,7 +265,9 @@ def pixel_check(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
 def raw_launches(scene, renderer, rigid, force, poses, spr, n_push):
     """Closures that launch each kernel on prepared buffers through the
     package's launch functions, so that timing sees the kernels and not the
-    wrappers' packing.  They count no launches."""
+    wrappers' packing.  A hoisted renderer's render kernels read setup
+    tables packed here once; its setup pass is timed on its own
+    (``pack_setups``).  They count no launches."""
     e, reps = rigid.pos.shape[0], poses.shape[0]
     packed, force_t = soa.pack_state(rigid).contiguous(), force.t().contiguous()
     state_out, pose_out = torch.empty_like(packed), torch.empty_like(poses)
@@ -191,24 +276,60 @@ def raw_launches(scene, renderer, rigid, force, poses, spr, n_push):
     frames_r = torch.empty((e, reps, renderer.frame_width), dtype=torch.uint8, device=poses.device)
     frames_b = torch.empty((e, 1, renderer.frame_width), dtype=torch.uint8, device=poses.device)
     phys_p, render_p = cuda_step.phys_params(scene), renderer.kernel_params(scene)
+    setups_r = setups_b = None
+    raw = {}
+    if renderer.hoist:
+        setups_r, setups_b = (torch.empty((*p.shape[:2], renderer.setup_width), device=p.device)
+                              for p in (poses_r, poses_b))
+        renderer.launch_pack(render_p, poses_r, setups_r)
+        renderer.launch_pack(render_p, poses_b, setups_b)
+        raw["pack_setups"] = lambda: renderer.launch_pack(render_p, poses_r, setups_r)
     return {
+        **raw,
         "step_repeats": lambda: cuda_step.launch(
             phys_p, packed, force_t, state_out, pose_out, reps, spr),
         "step_substeps": lambda: cuda_step.launch(
             phys_p, packed, force_t, state_out, None, 1, n_push),
-        "render_repeats": lambda: renderer.launch(render_p, poses_r, frames_r),
-        "render_batched": lambda: renderer.launch(render_p, poses_b, frames_b),
+        "render_repeats": lambda: renderer.launch(render_p, poses_r, frames_r, setups_r),
+        "render_batched": lambda: renderer.launch(render_p, poses_b, frames_b, setups_b),
     }
 
 
-def parity(scene, renderer, rigid, force) -> tuple[dict, dict]:
-    """Each kernel against its plain version on these inputs → (max abs
-    error by kernel, pixel statistics by render kernel); raises where one
-    disagrees.  K3 renders the poses of the plain K1.
+def silhouette_check(name: str, got: torch.Tensor, want: torch.Tensor, h: int, w: int) -> dict:
+    """Frames (…, C·3·h·w) of a product-rounded render against another:
+    under SIL_SHARE of bytes differ, every differing pixel within one pixel
+    of an edge of more than SIL_EDGE levels in either; raises otherwise."""
+    g, v = (x.int().reshape(-1, h, w) for x in (got, want))
 
-    The physics kernels are held against the plain version on the CPU:
-    PyTorch's CUDA rsqrt is approximate, which on its own moves the pole's
-    spin ~1e-4 off the exactly rounded result after 30 substeps."""
+    def edges(img):
+        e = torch.zeros(img.shape, dtype=torch.bool, device=img.device)
+        d = (img[..., :, 1:] - img[..., :, :-1]).abs() > SIL_EDGE
+        e[..., :, :-1] |= d
+        e[..., :, 1:] |= d
+        d = (img[..., 1:, :] - img[..., :-1, :]).abs() > SIL_EDGE
+        e[..., :-1, :] |= d
+        e[..., 1:, :] |= d
+        return e
+
+    zone = edges(g) | edges(v)
+    near = zone.clone()
+    near[..., :-1, :] |= zone[..., 1:, :]
+    near[..., 1:, :] |= zone[..., :-1, :]
+    near[..., :, :-1] |= zone[..., :, 1:]
+    near[..., :, 1:] |= zone[..., :, :-1]
+    diff = g != v
+    res = {"share_bytes_differing": float(diff.float().mean()),
+           "differing_off_silhouette": int((diff & ~near).sum())}
+    if res["differing_off_silhouette"] or res["share_bytes_differing"] >= SIL_SHARE:
+        raise AssertionError(f"{name} breaks the silhouette rule: {res}")
+    return res
+
+
+def phys_parity(scene, rigid, force) -> tuple[dict, tuple]:
+    """K1 and K2 against the plain version on the CPU → (max abs error by
+    kernel, the plain K1's poses); raises where one disagrees.  PyTorch's
+    CUDA rsqrt is approximate, which on its own moves the pole's spin ~1e-4
+    off the exactly rounded result after 30 substeps."""
     spr, reps, n_push = CONFIG5.steps_per_repeat, CONFIG5.action_repeats, CONFIG5.initial_force_steps
     cpu = lambda st: st.map(lambda x: x.cpu())
     rigid_cpu, force_cpu = cpu(rigid), force.cpu()
@@ -223,6 +344,14 @@ def parity(scene, renderer, rigid, force) -> tuple[dict, dict]:
     for name, err in errs.items():
         if not err <= PHYS_ATOL:
             raise AssertionError(f"{name} disagrees with its plain version: {err}")
+    return errs, p1_poses
+
+
+def parity(scene, renderer, rigid, force) -> tuple[dict, dict]:
+    """Each kernel against its plain version on these inputs → (max abs
+    error by kernel, pixel statistics by render kernel); raises where one
+    disagrees.  K3 renders the poses of the plain K1."""
+    errs, p1_poses = phys_parity(scene, rigid, force)
     poses = p1_poses.to(rigid.pos.device)
     pix = {
         "render_repeats": pixel_check(
@@ -236,11 +365,10 @@ def parity(scene, renderer, rigid, force) -> tuple[dict, dict]:
     return errs, pix
 
 
-def parity_inputs(scene, device):
+def parity_inputs(scene, device, e: int = PARITY_ENVS):
     """E states from a seed: the reset push then a few random steps (plain
     PyTorch), so contacts and tilts vary; plus a force for the next step."""
     g = torch.Generator(device=device).manual_seed(SEED)
-    e = PARITY_ENVS
     state, _ = cartpole.reset_batched(
         CONFIG5, scene, e, soa.step_substeps_batched,
         lambda s, r: torch.zeros((e, 1), device=device), device, generator=g)
@@ -269,6 +397,37 @@ def raster_parity(scene, renderer, rigid, poses) -> dict:
     return pix
 
 
+def mode_parity(scene, name, mode, cfg, rigid, poses) -> dict:
+    """One mode of the render kernel in both launch forms against its plain
+    version on the card → statistics by form; raises where one disagrees.
+    The hoisted raster must equal its plain version and K5a byte for byte;
+    the product's raster must keep the silhouette rule against both."""
+    dev = rigid.pos.device
+    rnd, k5a = Renderer(cfg, dev, **mode), Renderer(cfg, dev, raster=True)
+    poses_b = raycast.poses_from_rigid(rigid)[None]
+    forms = {
+        "repeats": (rnd.render_repeats(scene, poses), rnd.plain(scene, poses),
+                    k5a.render_repeats(scene, poses)),
+        "batched": (rnd.render_batched(scene, rigid), rnd.plain(scene, poses_b)[:, 0],
+                    k5a.render_batched(scene, rigid)),
+    }
+    out = {}
+    for form, (got, plain, base) in forms.items():
+        label = f"{name}_{form}"
+        res = pixel_check(label, got, plain)
+        if mode.get("raster"):
+            res["max_abs_err_vs_k5a"] = pixel_check(label + "_vs_k5a", got, base)["max_abs_err"]
+            if mode.get("mxu"):
+                h, w = cfg.obs_height, cfg.obs_width
+                res["silhouette_vs_plain"] = silhouette_check(label, got, plain, h, w)
+                res["silhouette_vs_k5a"] = silhouette_check(label + "_vs_k5a", got, base, h, w)
+            elif not (torch.equal(got, plain) and torch.equal(got, base)):
+                raise AssertionError(f"{label} is not byte-equal to its plain version and K5a")
+        out[form] = res
+    torch.cuda.synchronize()
+    return out
+
+
 def params_of(*modules) -> list[torch.Tensor]:
     return [p.detach().clone() for m in modules for p in m.parameters()]
 
@@ -285,11 +444,12 @@ def target_step_err(t0, online, t1, tau) -> float:
     return math.sqrt(num / den) if den > 0 else math.inf
 
 
-def train_row(venv, cfg, row_kernels) -> tuple[dict, dict]:
+def train_row(venv, cfg, venv_kw, row_kernels) -> tuple[dict, dict]:
     """Train at full width: init_state, one warm segment, then
     TRAIN_WINDOWS windows of whole segments, each over WINDOW_MIN_S; then
     one more update outside the counted run to check the polyak step →
-    (the row's line, what the profile phase needs)."""
+    (the row's line, what the profile phase needs).  ``venv_kw``: the
+    ``make_venv`` options ``venv`` was built with, for the line."""
     opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=False)
     st = ddpg.init_state(opts, cfg, venv)
     segment = ddpg.make_segment(venv, **TRAIN_HP)
@@ -330,7 +490,8 @@ def train_row(venv, cfg, row_kernels) -> tuple[dict, dict]:
     checks = {
         "row_kernels_launched": all(launches[k] > 0 for k in row_kernels),
         "other_render_mode_not_launched": all(
-            v == 0 for k, v in launches.items() if k.startswith("render") and k not in row_kernels),
+            v == 0 for k, v in launches.items()
+            if k.startswith(("render", "pack")) and k not in row_kernels),
         "losses_finite": all(math.isfinite(m[k]) for m in [warm, *seg_metrics]
                              for k in ("critic_loss", "actor_loss")),
         "critic_loss_positive_once_trained": bool(trained)
@@ -342,6 +503,7 @@ def train_row(venv, cfg, row_kernels) -> tuple[dict, dict]:
     line = dict(
         envs=NUM_ENVS, config=dict(num_cameras=cfg.num_cameras, obs_samples=cfg.obs_samples,
                                    obs_pool=cfg.obs_pool, raster=cfg.obs_samples == 0),
+        render_options=venv_kw,
         hyperparameters={**TRAIN_HP, "replay_capacity": REPLAY_CAPACITY},
         warm_segment_s=warm_s, window_s=window_s, window_segments=window_segs,
         window_env_steps_per_s=rates, env_steps_per_s=med,
@@ -393,7 +555,9 @@ def training_profile(st, segment, step_ms: float) -> dict:
     for e in device_events(prof):
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     total_us = sum(by_name.values())
-    ours_us = sum(v for k, v in by_name.items() if "render_kernel" in k or "phys_kernel" in k)
+    ours_us = sum(v for k, v in by_name.items()
+                  if any(n in k for n in ("render_kernel", "render_mxu_kernel", "phys_kernel",
+                                          "pack_setups_kernel")))
     per_step = lambda us: us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
@@ -481,12 +645,74 @@ def run() -> int:
          pixel_bound={"level": PIX_LEVEL, "share": PIX_SHARE, "mean": PIX_MEAN},
          one_cam_exact=pix_main, two_cam_exact=pix_2cam)
 
-    # 5. acting main path at config 5, full width
+    # 4b. K5b, K5c and K5d against their plain versions: the main path's
+    # 4096-env inputs (config 5's reset state and first step for the ratio
+    # slab, the 1cam_exact row's for the raster modes) and the seeded
+    # states seen by 2 cameras.
     venv = make_venv(CONFIG5, NUM_ENVS)
     actor = Actor(CONFIG5.obs_shape, use_raw_pixels=True, height=CONFIG5.obs_height,
                   width=CONFIG5.obs_width, generator=torch.Generator().manual_seed(SEED))
     act = greedy_act(actor)
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    state5, obs5 = venv.reset(gen)
+    rigid5 = state5.rigid
+    with torch.no_grad():
+        force5 = cartpole.action_to_force(CONFIG5, act(obs5))
+    _, poses5 = cuda_step.step_repeats(scene, rigid5, force5, spr, reps)
+    mode_inputs = {CONFIG5: (rigid5, poses5), CONFIG1_EXACT: (rigid1, poses1)}
+    pix_modes, mode_errs = {}, {}
+    for name, mode, cfg in MODES:
+        seeded_cfg = CONFIG5 if cfg is CONFIG5 else CONFIG2_EXACT
+        pix_modes[name] = {
+            "main_path": mode_parity(scene, name, mode, cfg, *mode_inputs[cfg]),
+            "seeded_2cam": mode_parity(scene, name, mode, seeded_cfg, rigid, poses_seeded),
+        }
+        suffix = Renderer(cfg, dev, **mode).suffix
+        for form, launch in (("repeats", "render_repeats"), ("batched", "render_batched")):
+            mode_errs[launch + suffix] = pix_modes[name]["main_path"][form]["max_abs_err"]
+            seeded_errs[launch + suffix] = pix_modes[name]["seeded_2cam"][form]["max_abs_err"]
+    # K5c's setup pass alone: its packed table against the plain packing
+    # (relative error; 1/U and 1/L reach 1e7).
+    for key, p_in, errs_to in (("main_path", poses1, mode_errs),
+                               ("seeded_2cam", poses_seeded, seeded_errs)):
+        hoisted = Renderer(CONFIG1_EXACT if key == "main_path" else CONFIG2_EXACT, dev,
+                           raster=True, hoist=True)
+        table = torch.empty((*p_in.shape[:2], hoisted.setup_width), device=dev)
+        hoisted.launch_pack(hoisted.kernel_params(scene), p_in.contiguous(), table)
+        want = raycast.pack_setups(scene, hoisted.cam_meta, p_in)
+        err = float(((table - want).abs() / want.abs().clamp(min=1.0)).max())
+        if not err <= PACK_RTOL:
+            raise AssertionError(f"pack_setups disagrees with its plain version: {err}")
+        errs_to["pack_setups"] = err
+        pix_modes["raster_hoist"][key]["pack_setups_max_rel_err"] = err
+    emit("parity_modes", envs_main_path=NUM_ENVS, envs_seeded=PARITY_ENVS,
+         pixel_bound={"level": PIX_LEVEL, "share": PIX_SHARE, "mean": PIX_MEAN},
+         silhouette_rule={"share": SIL_SHARE, "edge_levels": SIL_EDGE}, modes=pix_modes)
+
+    # 4c. Shapes the card had not run: K3/K4 at one sample per pooled pixel
+    # (the 1cam_samples1 row's reset state and first step), K1/K2 at 8192
+    # envs against the plain version on the CPU.
+    venv_s1 = make_venv(CONFIG1_S1, NUM_ENVS)
+    state_s1, obs_s1 = venv_s1.reset(gen1)
+    with torch.no_grad():
+        force_s1 = cartpole.action_to_force(CONFIG1_S1, actor1(obs_s1))
+    _, poses_s1 = cuda_step.step_repeats(scene, state_s1.rigid, force_s1, spr, reps)
+    slab_s1 = Renderer(CONFIG1_S1, dev)
+    pix_s1 = {
+        "render_repeats": pixel_check("render_repeats_p2_1", slab_s1.render_repeats(scene, poses_s1),
+                                      slab_s1.plain(scene, poses_s1)),
+        "render_batched": pixel_check(
+            "render_batched_p2_1", slab_s1.render_batched(scene, state_s1.rigid),
+            slab_s1.plain(scene, raycast.poses_from_rigid(state_s1.rigid)[None])[:, 0]),
+    }
+    phys_8k, _ = phys_parity(scene, *parity_inputs(scene, dev, OWED_PHYS_ENVS))
+    emit("parity_owed", physics_atol=PHYS_ATOL,
+         one_cam_samples1=dict(envs=NUM_ENVS, p2=slab_s1.p2, n=slab_s1.n, **pix_s1),
+         physics=dict(envs=OWED_PHYS_ENVS, step_substeps_max_abs_err=phys_8k["step_substeps"],
+                      step_repeats_max_abs_err=phys_8k["step_repeats"]))
+    del venv_s1, state_s1, obs_s1
+
+    # 5. acting main path at config 5, full width
     with torch.no_grad():  # the actor's first call sets up cuBLAS: keep it out of the timing
         act(venv.reset(gen)[1])
     torch.cuda.synchronize()
@@ -520,8 +746,9 @@ def run() -> int:
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
     checks = {
         "launches_all_positive": all(launches[k] > 0 for k, _, _ in KERNELS[:4]),
-        "raster_not_launched": launches["render_repeats_raster"] == 0
-        and launches["render_batched_raster"] == 0,
+        "other_render_mode_not_launched": all(
+            v == 0 for k, v in launches.items()
+            if k.startswith(("render", "pack")) and k not in ("render_repeats", "render_batched")),
         "finite": all(math.isfinite(v) for ep in episodes for v in ep)
         and bool(torch.isfinite(reward_sum).all())
         and all(bool(torch.isfinite(getattr(states.rigid, f)).all())
@@ -546,10 +773,13 @@ def run() -> int:
     launches_by_path = {"acting_2cam_samples2": launches}
 
     # 6. DDPG training at each row, full width, the bench's hyperparameters
-    trained = {}
-    for name, cfg, row_kernels in TRAIN_ROWS:
-        row_venv = venv if cfg is CONFIG5 else venv1
-        line, trained[name] = train_row(row_venv, cfg, row_kernels)
+    trained, mode_venvs = {}, {}
+    for name, cfg, venv_kw, row_kernels in TRAIN_ROWS:
+        if venv_kw:
+            row_venv = mode_venvs[name] = make_venv(cfg, NUM_ENVS, **venv_kw)
+        else:
+            row_venv = venv if cfg is CONFIG5 else venv1
+        line, trained[name] = train_row(row_venv, cfg, venv_kw, row_kernels)
         launches_by_path[f"train_{name}"] = line["launches"]
         emit(f"train_{name}", **line)
 
@@ -573,6 +803,37 @@ def run() -> int:
         raise AssertionError(f"td3 checks failed: {td3_checks}")
     del td3_state, td3_segment
 
+    # 7b. the card's element-op rate (K6): each chain against its plain
+    # version, then timed at N and 2N iterations
+    k6_errs, k6_moved = {}, {}
+    for mix, (_, _, dtype) in roofline.CHAINS.items():
+        x = roofline.varied(mix, roofline.SHAPE, dev)
+        want = roofline.plain_chain(mix, x, K6_PARITY_ITERS, fused=True).float()
+        err = float((roofline.run_chain(mix, x, K6_PARITY_ITERS).float() - want).abs().max())
+        moved = float((want - x.float()).abs().max())
+        if not err <= min(K6_ATOL[dtype], K6_MOVE_SHARE * moved):
+            raise AssertionError(
+                f"roofline {mix} disagrees with its plain version: {err} (plain moved {moved})")
+        k6_errs[f"roofline_{mix}"], k6_moved[mix] = err, moved
+    kernels.reset_launches()
+    probe = {mix: roofline.measure_chain(mix) for mix in roofline.CHAINS}
+    launches_by_path["roofline"] = dict(kernels.LAUNCHES)
+    # fma_f32's chain must be FFMAs only (no FMUL/FADD pair, nothing folded);
+    # checked where the toolkit has cuobjdump.
+    fma_sass = sass_opcodes(kernels.build()["path"], "chain_f32_kernelILi0E")
+    if fma_sass is None:
+        print("chip_smoke: no cuobjdump; fma_f32's SASS is not checked", file=sys.stderr)
+    elif not (fma_sass.get("FFMA", 0) > 0 and not fma_sass.get("FMUL") and not fma_sass.get("FADD")):
+        raise AssertionError(f"fma_f32's chain is not FFMAs only: {fma_sass}")
+    peak = {m: PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S
+            for m, (_, _, dtype) in roofline.CHAINS.items()}
+    emit("roofline", shape=roofline.SHAPE, iters=roofline.ITERS, card=smi,
+         fma_f32_sass_opcodes=fma_sass, fma_f32_sass_checked=fma_sass is not None,
+         parity_iters=K6_PARITY_ITERS, max_abs_err=k6_errs, plain_moved=k6_moved,
+         chains=probe, peak_ops_per_s=peak,
+         share_of_peak={m: v["el_ops_per_s"] / peak[m] for m, v in probe.items()},
+         launches={k: v for k, v in launches_by_path["roofline"].items() if v})
+
     # 8. kernels at the main paths' shapes: parity, time, plain time, bound
     e = NUM_ENVS
     state0, obs0 = venv.reset(gen)
@@ -584,39 +845,76 @@ def run() -> int:
          step_substeps_max_abs_err=errs["step_substeps"],
          step_repeats_max_abs_err=errs["step_repeats"], **pix)
     errs.update(raster_errs)
+    errs.update(mode_errs)
+    errs.update(k6_errs)
     _, poses0 = cuda_step.step_repeats(scene, rigid0, force0, spr, reps)
+    # name → (wrapper call or None, plain version, bytes, operations or None
+    # for the census of the plain version)
     work = {
         "step_repeats": (
             lambda: cuda_step.step_repeats(scene, rigid0, force0, spr, reps),
             lambda: soa.step_repeats_batched(scene, rigid0, force0, spr, reps),
-            (26 + 3 + 26 + reps * 16) * 4 * e),
+            (26 + 3 + 26 + reps * 16) * 4 * e, None),
         "step_substeps": (
             lambda: cuda_step.step_substeps(scene, rigid0, force0, n_push),
             lambda: soa.step_substeps_batched(scene, rigid0, force0, n_push),
-            (26 + 3 + 26) * 4 * e),
+            (26 + 3 + 26) * 4 * e, None),
     }
-    for suffix, rnd, rig, pos in (("", renderer, rigid0, poses0),
-                                  ("_raster", raster1, rigid1, poses1)):
+    raw = raw_launches(scene, renderer, rigid0, force0, poses0, spr, n_push)
+    # Each render mode at its main path's inputs: K3/K4 and K5b at config
+    # 5's, K5a, K5c and K5d at the 1cam_exact row's (the hoisted raster
+    # with its product is held in parity_modes only: no row runs it).
+    renderers = [(renderer, rigid0, poses0), (raster1, rigid1, poses1)]
+    for _, mode, cfg in MODES[:3]:
+        renderers.append((Renderer(cfg, dev, **mode), *mode_inputs[cfg]))
+    for rnd, rig, pos in renderers:
+        suffix = rnd.suffix
+        # K5d computes K5a's frames: its bound is K5a's census, not that of
+        # its product, five of whose eight K columns are zero.
+        ops_rnd = raster1 if rnd.mxu else rnd
         frame_bytes, ray_bytes = rnd.frame_width, rnd.planes.numel() * 4
+        # The hoisted render kernel reads its setup table, not the poses;
+        # its setup pass is a row of its own.
+        in_width = rnd.setup_width if rnd.hoist else 16
+        pack_ops = lambda pos, rnd=rnd: census(
+            lambda: raycast.pack_setups(scene, rnd.cam_meta, pos)) if rnd.hoist else 0
+        pos_b = raycast.poses_from_rigid(rig)[None]
         work["render_repeats" + suffix] = (
             lambda rnd=rnd, pos=pos: rnd.render_repeats(scene, pos),
             lambda rnd=rnd, pos=pos: rnd.plain(scene, pos),
-            reps * e * 16 * 4 + ray_bytes + e * reps * frame_bytes)
+            reps * e * in_width * 4 + ray_bytes + e * reps * frame_bytes,
+            census(lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos))
         work["render_batched" + suffix] = (
             lambda rnd=rnd, rig=rig: rnd.render_batched(scene, rig),
-            lambda rnd=rnd, rig=rig: rnd.plain(scene, raycast.poses_from_rigid(rig)[None]),
-            e * 16 * 4 + ray_bytes + e * frame_bytes)
-    raw = raw_launches(scene, renderer, rigid0, force0, poses0, spr, n_push)
-    raw.update({k + "_raster": v for k, v in raw_launches(
-        scene, raster1, rigid1, force1, poses1, spr, n_push).items() if k.startswith("render")})
+            lambda rnd=rnd, pos_b=pos_b: rnd.plain(scene, pos_b),
+            e * in_width * 4 + ray_bytes + e * frame_bytes,
+            census(lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b))
+        if suffix:
+            mode_raw = raw_launches(scene, rnd, rig, force0, pos, spr, n_push)
+            raw.update({k + suffix: v for k, v in mode_raw.items() if k.startswith("render")})
+        if rnd.hoist:
+            raw["pack_setups"] = mode_raw["pack_setups"]
+            work["pack_setups"] = (
+                None, lambda rnd=rnd, pos=pos: raycast.pack_setups(scene, rnd.cam_meta, pos),
+                reps * e * (16 + rnd.setup_width) * 4, None)
+    for mix, (_, ops_per, _) in roofline.CHAINS.items():
+        x = roofline.initial(mix, roofline.SHAPE, dev)
+        out = torch.empty_like(x)
+        work[f"roofline_{mix}"] = (
+            lambda mix=mix, x=x: roofline.run_chain(mix, x, K6_ROW_ITERS),
+            lambda mix=mix, x=x: roofline.plain_chain(mix, x, K6_ROW_ITERS),
+            2 * x.numel() * x.element_size(), ops_per * x.numel() * K6_ROW_ITERS)
+        raw[f"roofline_{mix}"] = lambda mix=mix, x=x, out=out: roofline.launch(
+            mix, x, out, K6_ROW_ITERS)
     total_launches = {name: sum(p.get(name, 0) for p in launches_by_path.values())
                       for name, _, _ in KERNELS}
     rows = []
     with torch.no_grad():
         for name, source, replaces in KERNELS:
-            wrapper_fn, plain_fn, nbytes = work[name]
-            ops = census(plain_fn)
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+            wrapper_fn, plain_fn, nbytes, ops = work[name]
+            ops = census(plain_fn) if ops is None else ops
+            peak_ops = peak.get(name.removeprefix("roofline_"), PEAK_F32_OPS_PER_S)
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": total_launches[name],
@@ -624,7 +922,7 @@ def run() -> int:
                 "max_abs_err": errs[name],
                 "seeded_max_abs_err": seeded_errs.get(name),
                 "ms": time_ms(raw[name], reps=50),
-                "wrapper_ms": time_ms(wrapper_fn, reps=50),
+                "wrapper_ms": None if wrapper_fn is None else time_ms(wrapper_fn, reps=50),
                 "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",

@@ -82,11 +82,29 @@ def _batch(cfg, seed=0):
             rng.random(B) < 0.25)
 
 
+def _draws(k_train, hp):
+    """The random draws a JAX train_once makes from ``k_train``, for the
+    port: the shift offsets of s1 and s2 (None without shift) and the
+    target-policy noise."""
+    k_aug, k_tn = jax.random.split(k_train)
+    pad = hp.get("aug_shift", 0)
+    offsets = None
+    if pad:
+        k1, k2 = jax.random.split(k_aug)
+        offsets = tuple(torch.from_numpy(np.array(jax.random.randint(k, (B, 2), 0, 2 * pad + 1)))
+                        for k in (k1, k2))
+    return offsets, torch.from_numpy(np.array(jax.random.normal(k_tn, (B, 2))))
+
+
 @pytest.fixture(scope="module", params=list(CASES))
 def update(request):
+    return _one_update(request.param)
+
+
+def _one_update(name):
     """One JAX train_once (from make_segment's closure) and the same update
     in the port, from the same params, batch and random draws."""
-    name, hp = request.param, CASES[request.param]
+    hp = CASES[name]
     twin = hp.get("twin_critic", False)
     jcfg, cfg = JConfig(**CFG_KW), CartpoleConfig(**CFG_KW)
     jactor, jcritic = _nets(jcfg)
@@ -118,19 +136,14 @@ def update(request):
         bundle, jbatch, jnp.ones((B,), jnp.float32), k_train, jnp.asarray(1, jnp.int32))
 
     # The draws train_once makes from k_train, handed to the port.
-    k_aug, k_tn = jax.random.split(k_train)
-    pad = hp.get("aug_shift", 0)
-    offsets = None
-    if pad:
-        k1, k2 = jax.random.split(k_aug)
-        offsets = tuple(torch.from_numpy(np.array(jax.random.randint(k, (B, 2), 0, 2 * pad + 1)))
-                        for k in (k1, k2))
-    target_eps = torch.from_numpy(np.array(jax.random.normal(k_tn, (B, 2))))
+    offsets, target_eps = _draws(k_train, hp)
 
     # JAX's gradients at the same point (the update's own inputs, rebuilt
     # from the JAX building blocks), for the gradient comparison.
     s1, s2 = (jbuffer.decode_obs(x) for x in (jbatch[0], jbatch[3]))
+    pad = hp.get("aug_shift", 0)
     if pad:
+        k1, k2 = jax.random.split(jax.random.split(k_train)[0])
         s1 = jddpg.aug_random_shift(s1, k1, pad, jcfg.obs_height, jcfg.obs_width)
         s2 = jddpg.aug_random_shift(s2, k2, pad, jcfg.obs_height, jcfg.obs_width)
     a2 = jactor.apply(actor_vars, s2)
@@ -177,7 +190,7 @@ def update(request):
     return SimpleNamespace(name=name, hp=hp, twin=twin, cfg=cfg, st=st, closs=closs,
                            aloss=aloss, losses=losses, bundle=bundle, new_bundle=new_bundle,
                            cgrads=cgrads, agrads=agrads, before=before, port_once=port_once,
-                           batch=batch)
+                           batch=batch, train_once=train_once)
 
 
 def _prefixed(module, prefix):
@@ -256,6 +269,44 @@ def test_policy_delay_skips_actor_and_targets(update):
     moved = [k for k, v in frozen.items() if not torch.equal(after[k], v)]
     assert (moved == []) if delayed else (len(moved) == len(frozen))
     assert not all(torch.equal(v, critic0[k]) for k, v in st.critic.state_dict().items())
+
+
+@pytest.fixture(scope="module", params=list(CASES))
+def two_updates(request):
+    """A second update after :func:`_one_update`'s first, in JAX and in the
+    port, on a second batch with fresh draws (step 2)."""
+    u = _one_update(request.param)
+    batch = _batch(u.cfg, seed=1)
+    key = jax.random.PRNGKey(12)
+    bundle, losses, _ = jax.jit(u.train_once)(
+        u.new_bundle, tuple(jnp.asarray(x) for x in batch), jnp.ones((B,), jnp.float32), key,
+        jnp.asarray(2, jnp.int32))
+    offsets, target_eps = _draws(key, u.hp)
+    closs, aloss = u.port_once(u.st, tuple(torch.from_numpy(x) for x in batch), 2,
+                               aug_offsets=offsets, target_eps=target_eps)
+    return SimpleNamespace(u=u, bundle=bundle, losses=losses, closs=closs, aloss=aloss)
+
+
+# After two Adam steps no per-step saturation bounds the gap (the second
+# step's size depends on both gradients), so the bound is the measured one
+# with room: the largest gap on the CPU was 0.43·lr (actor, DDPG) and
+# 0.07·lr (critic, TD3); the bound is 1·lr.
+TWO_STEP_GAP_LR = 1.0
+
+
+def test_train_once_params_match_jax_after_two_updates(two_updates):
+    t, u = two_updates, two_updates.u
+    assert float(t.closs) == pytest.approx(float(t.losses["critic_loss"]), rel=2e-2)
+    gaps = {}
+    for prefix, module, tree, conv, lr in (
+            ("a.", u.st.actor, t.bundle[0], actor_params_from_flax, LR_A),
+            ("c.", u.st.critic, t.bundle[1], critic_params_from_flax, LR_C)):
+        want = conv(jax.device_get(tree))
+        gaps[prefix] = max(float((v - want[k]).abs().max()) / lr
+                           for k, v in module.state_dict().items())
+    print(f"{u.name}: largest gap after two updates, in lr: actor {gaps['a.']:.3f}, "
+          f"critic {gaps['c.']:.3f}")
+    assert all(g <= TWO_STEP_GAP_LR for g in gaps.values()), gaps
 
 
 @pytest.mark.parametrize("twin", [False, True])
