@@ -7,28 +7,48 @@
 //       state only (the reset push).
 // Both are one template here: K2 is K1 with one repeat and no pose output.
 //
-// What bounds it on this card: dependent float32 arithmetic per env.  One
-// substep is a few thousand float ops (contact manifold, 3 Jacobi sweeps
-// over 16 slots, pose integration), all in a chain that cannot be split
-// across threads, while the bytes moved per env step are ~400 (26 state
-// floats in and out, 3 force floats, 16 pose floats per repeat).  At 4096
-// envs the whole batch is 32 blocks of 128 threads: a quarter of the 132
-// SMs, so the kernel is bound by the latency of one thread's chain, not by
-// the card's float rate.  That is accepted for this first port.
+// What bounds it on this card: the latency of dependent float32 arithmetic.
+// One substep is ~5.3 k float ops per env (contact manifold, 3 Jacobi sweeps
+// over 16 slots, pose integration) against ~400 bytes per env step, so the
+// bytes never bound it; and with one thread per env a 4096-env batch is 128
+// warps on 132 SMs (one warp for every four schedulers), each thread running
+// the whole chain with 255 registers and spills.
 //
-// Design: one thread per env with the whole state in registers, read from
-// and written to a plain (26, E) SoA layout so neighbouring threads touch
-// neighbouring addresses (the TPU's (8, L) sublane tiling is not carried
-// over).  Scene constants arrive by value in PhysParams, computed on the
-// host in float32 exactly as the plain PyTorch version computes them.  The
-// substep, repeat and solver loops are kept rolled (#pragma unroll 1) to
-// bound compile time and code size; the 16-slot loops inside a sweep are
-// unrolled so slot arrays can live in registers.  The expression order of
-// every term follows physics/soa.py so results agree with it to rounding,
-// and the file is compiled with -fmad=false (kernels.py): the pole's
-// angular velocity about its long axis (inverse inertia 6e3) amplifies
-// one-ulp differences, and with contracted multiply-adds it drifted past
-// 1e-5 of the plain version within 30 substeps.
+// Design: LANES = 4 lanes per env (eight envs per warp, 32 per block of
+// 128), lane l owning contact slots l, l + 4, l + 8 and l + 12.  The
+// manifold and each solver sweep are per slot: the sweeps are Jacobi sweeps
+// (every slot reads the velocities from before the sweep; the bodies are
+// updated after it), so a lane computes its slots' lever arms, effective
+// masses, impulses and torques on its own, and the chain a lane runs per
+// substep is the body algebra, four slots and the sums.  Slot q of every
+// lane is of one kind (q = 0 cart on ground, 1-2 pole on ground, 3 pole on
+// cart), so no warp diverges.  The body algebra (rotation matrices, world
+// inertia, velocity updates, pose integration) is the same warp instruction
+// for every lane of an env: each lane keeps the whole body state and
+// computes it redundantly, which costs no more issue slots than one lane
+// computing it and needs no broadcast.  Slot arrays shrink from 16 entries
+// to 4 per thread: ptxas keeps everything in registers (about 128) with no
+// spill.  A 4096-env batch is 512 warps, one per scheduler, each with about
+// a quarter of the old chain.  With 8 or 16 lanes per env a warp serves
+// fewer envs, and the body algebra's issue slots per env grew more than the
+// shorter chains saved (PERF.md §6; scripts/compare_kernels_torch.py --lanes).
+//
+// Bit-equality with the one-thread kernel and with physics/soa.py:
+// - every slot term is computed by the same expression as before, in the
+//   same order, and the file is compiled with -fmad=false (kernels.py): the
+//   pole's angular velocity about its long axis (inverse inertia 6e3)
+//   amplifies one-ulp differences, and with contracted multiply-adds it
+//   drifted past 1e-5 of the plain version within 30 substeps;
+// - the sums over slots (imp_c0, imp_c1, imp_p, tau_c0, tau_c1, tau_p) are
+//   gathered term by term with __shfl_sync and added by every lane as a left
+//   fold in slot order 0..15, starting from 0.0f, as soa.py adds them; no
+//   shuffle tree, which would reassociate;
+// - the active-slot counts are popcounts of a ballot: they are sums of 0.0f
+//   and 1.0f, integers below 2^24 that float32 adds exactly in any order.
+// Ragged tails: a lane whose env index is past the batch takes the last env's
+// state and runs every instruction with the rest of its warp, so each
+// __shfl_sync and __ballot_sync sees all 32 lanes of the full mask; it stores
+// nothing.  There is no early return.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -162,7 +182,22 @@ __device__ __forceinline__ float eff_inv_mass_p(const float d[3], const float r_
   return 1.0f / k;
 }
 
-__device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float f[3]) {
+#define THREADS 128
+#define LANES 4                 // lanes per env
+#define SPL (16 / LANES)        // contact slots per lane: lane + q * LANES
+#define FULL_MASK 0xffffffffu
+
+// One lane's contact slot: lever arms from the pole or cart (ra) and from
+// the cart (rb, pole-on-cart slots only), inverse effective masses, bias and
+// accumulated impulses.
+struct Slot {
+  float ra[3], rb[3];
+  float inv_kn, inv_kt1, inv_kt2, bias;
+  float jn, jt1, jt2;
+};
+
+// One substep of one env; `lane` in [0, LANES) of the env's lanes.
+__device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float f[3], int lane) {
   // 1. integrate external forces into velocities
   float cv[3], pv[3], ca[3], pa[3];
   cv[0] = cart.vel[0] + p.dt_inv_m0 * f[0];
@@ -197,8 +232,9 @@ __device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float
     }
   }
 
-  // 2. contact manifold: slots 0-3 cart corners vs ground, 4-11 pole
-  // corners vs ground (world-axis frame), 12-15 pole bottom on cart top.
+  // 2. contact manifold, this lane's slots: 0-3 cart corners vs ground,
+  // 4-11 pole corners vs ground (world-axis frame), 12-15 pole bottom on
+  // cart top.
   float rc[3][3], rp[3][3];
   q_to_mat(cart.quat, rc);
   q_to_mat(pole.quat, rp);
@@ -211,39 +247,46 @@ __device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float
       pcols[k][j] = rp[j][k] * p.pole_he[k];
     }
 
-  float r_a[16][3], pen[16], act[16];
+  Slot sl[SPL];
+  float act[SPL];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    float w[3];
-    if (i < 4) {
-      corner(cart.pos, ccols, i, w);
+  for (int q = 0; q < SPL; ++q) {
+    const int s = lane + q * LANES;
+    float w[3], pen;
+    if (s < 12) {
+      const bool on_cart = s < 4;
+      float bp[3], cols[3][3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        bp[j] = on_cart ? cart.pos[j] : pole.pos[j];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) cols[k][j] = on_cart ? ccols[k][j] : pcols[k][j];
+      }
+      corner(bp, cols, on_cart ? s : s - 4, w);
+      pen = -w[2];
+      act[q] = pen > 0.0f ? 1.0f : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        sl[q].ra[j] = w[j] - bp[j];
+        sl[q].rb[j] = 0.0f;
+      }
     } else {
-      corner(pole.pos, pcols, i - 4, w);
+      float rel[3], ic[3];
+      corner(pole.pos, pcols, s - 12, w);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) rel[j] = w[j] - cart.pos[j];
+#pragma unroll
+      for (int k = 0; k < 3; ++k) ic[k] = rc[0][k] * rel[0] + rc[1][k] * rel[1] + rc[2][k] * rel[2];
+      pen = p.cart_he[2] - ic[2];
+      act[q] = (fabsf(ic[0]) <= p.top_x && fabsf(ic[1]) <= p.top_y && pen > 0.0f &&
+                pen < p.top_band) ? 1.0f : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        sl[q].ra[j] = w[j] - pole.pos[j];
+        sl[q].rb[j] = w[j] - cart.pos[j];
+      }
     }
-    const float* bp = i < 4 ? cart.pos : pole.pos;
-    pen[i] = -w[2];
-    act[i] = pen[i] > 0.0f ? 1.0f : 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) r_a[i][j] = w[j] - bp[j];
-  }
-  float r_b[4][3];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float w[3], rel[3], ic[3];
-    corner(pole.pos, pcols, i, w);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) rel[j] = w[j] - cart.pos[j];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) ic[k] = rc[0][k] * rel[0] + rc[1][k] * rel[1] + rc[2][k] * rel[2];
-    const float pp = p.cart_he[2] - ic[2];
-    pen[12 + i] = pp;
-    act[12 + i] = (fabsf(ic[0]) <= p.top_x && fabsf(ic[1]) <= p.top_y && pp > 0.0f &&
-                   pp < p.top_band) ? 1.0f : 0.0f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      r_a[12 + i][j] = w[j] - pole.pos[j];
-      r_b[i][j] = w[j] - cart.pos[j];
-    }
+    sl[q].bias = p.bias_scale * fmaxf(pen - p.slop, 0.0f);
   }
   // Cart top-face normal (third column of R) and its tangent basis.
   const float n[3] = {rc[0][2], rc[1][2], rc[2][2]};
@@ -260,15 +303,21 @@ __device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float
     t2[2] = -n[1];
   }
 
-  // 3. mass-splitting Jacobi solve.
+  // 3. mass-splitting Jacobi solve.  The active-slot counts: bit s of
+  // `active` is slot s of this env.
   float iiw_c[3][3], iiw_p[3][3];
   inv_inertia_world(rc, p.iib_c, iiw_c);
   inv_inertia_world(rp, p.iib_p, iiw_p);
-  float sum_cg = act[0] + act[1] + act[2] + act[3];
-  float sum_pg = act[4];
+  const int group = (threadIdx.x & 31) & ~(LANES - 1);  // this env's first lane in the warp
+  unsigned active = 0;
 #pragma unroll
-  for (int i = 5; i < 12; ++i) sum_pg = sum_pg + act[i];
-  const float sum_pc = act[12] + act[13] + act[14] + act[15];
+  for (int q = 0; q < SPL; ++q) {
+    const unsigned vote = __ballot_sync(FULL_MASK, act[q] > 0.0f);
+    active |= ((vote >> group) & ((1u << LANES) - 1)) << (q * LANES);
+  }
+  const float sum_cg = static_cast<float>(__popc(active & 0x000fu));
+  const float sum_pg = static_cast<float>(__popc(active & 0x0ff0u));
+  const float sum_pc = static_cast<float>(__popc(active & 0xf000u));
   const float cnt_cart = fmaxf(sum_cg + sum_pc, 1.0f);
   const float cnt_pole = fmaxf(sum_pg + sum_pc, 1.0f);
   const float invm_c = p.inv_m0 * cnt_cart;
@@ -282,38 +331,99 @@ __device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float
       iip[i][j] = iiw_p[i][j] * cnt_pole;
     }
 
-  float inv_kn[16], inv_kt1[16], inv_kt2[16], bias[16];
 #pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    const float(*ii)[3] = i < 4 ? iic : iip;
-    const float invm = i < 4 ? invm_c : invm_p;
-    const float gx = r_a[i][0], gy = r_a[i][1], gz = r_a[i][2];
-    const float a0 = ii[0][0] * gy - ii[0][1] * gx;
-    const float a1 = ii[1][0] * gy - ii[1][1] * gx;
-    inv_kn[i] = 1.0f / (invm + (a0 * gy - a1 * gx)) * act[i];
-    const float b1 = ii[1][1] * gz - ii[1][2] * gy;
-    const float b2 = ii[2][1] * gz - ii[2][2] * gy;
-    inv_kt1[i] = 1.0f / (invm + (b1 * gz - b2 * gy)) * act[i];
-    const float c2 = ii[2][2] * gx - ii[2][0] * gz;
-    const float c0 = ii[0][2] * gx - ii[0][0] * gz;
-    inv_kt2[i] = 1.0f / (invm + (c2 * gx - c0 * gz)) * act[i];
+  for (int q = 0; q < SPL; ++q) {
+    const int s = lane + q * LANES;
+    Slot& c = sl[q];
+    if (s < 12) {
+      const bool on_cart = s < 4;
+      float ii[3][3];
+#pragma unroll
+      for (int i = 0; i < 3; ++i)
+#pragma unroll
+        for (int j = 0; j < 3; ++j) ii[i][j] = on_cart ? iic[i][j] : iip[i][j];
+      const float invm = on_cart ? invm_c : invm_p;
+      const float gx = c.ra[0], gy = c.ra[1], gz = c.ra[2];
+      const float a0 = ii[0][0] * gy - ii[0][1] * gx;
+      const float a1 = ii[1][0] * gy - ii[1][1] * gx;
+      c.inv_kn = 1.0f / (invm + (a0 * gy - a1 * gx)) * act[q];
+      const float b1 = ii[1][1] * gz - ii[1][2] * gy;
+      const float b2 = ii[2][1] * gz - ii[2][2] * gy;
+      c.inv_kt1 = 1.0f / (invm + (b1 * gz - b2 * gy)) * act[q];
+      const float c2 = ii[2][2] * gx - ii[2][0] * gz;
+      const float c0 = ii[0][2] * gx - ii[0][0] * gz;
+      c.inv_kt2 = 1.0f / (invm + (c2 * gx - c0 * gz)) * act[q];
+    } else {
+      c.inv_kn = eff_inv_mass_p(n, c.ra, c.rb, iip, iic, invm_p, invm_c) * act[q];
+      c.inv_kt1 = eff_inv_mass_p(t1, c.ra, c.rb, iip, iic, invm_p, invm_c) * act[q];
+      c.inv_kt2 = eff_inv_mass_p(t2, c.ra, c.rb, iip, iic, invm_p, invm_c) * act[q];
+    }
+    c.jn = c.jt1 = c.jt2 = 0.0f;
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int s = 12 + i;
-    inv_kn[s] = eff_inv_mass_p(n, r_a[s], r_b[i], iip, iic, invm_p, invm_c) * act[s];
-    inv_kt1[s] = eff_inv_mass_p(t1, r_a[s], r_b[i], iip, iic, invm_p, invm_c) * act[s];
-    inv_kt2[s] = eff_inv_mass_p(t2, r_a[s], r_b[i], iip, iic, invm_p, invm_c) * act[s];
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) bias[i] = p.bias_scale * fmaxf(pen[i] - p.slop, 0.0f);
-
-  float jn[16], jt1[16], jt2[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) jn[i] = jt1[i] = jt2[i] = 0.0f;
 
 #pragma unroll 1
   for (int it = 0; it < p.solver_iterations; ++it) {
+    // This lane's slots: impulse and torques from the velocities before the
+    // sweep.
+    float imp[SPL][3], tau[SPL][3], tb[SPL][3];
+#pragma unroll
+    for (int q = 0; q < SPL; ++q) {
+      const int s = lane + q * LANES;
+      Slot& c = sl[q];
+      float w[3], v[3], vn, vt1, vt2, mu;
+      if (s < 12) {
+        const bool on_cart = s < 4;
+        float va_lin[3], va_ang[3];
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          va_lin[k] = on_cart ? cv[k] : pv[k];
+          va_ang[k] = on_cart ? ca[k] : pa[k];
+        }
+        cross(va_ang, c.ra, w);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) v[k] = va_lin[k] + w[k];
+        vn = v[2];
+        vt1 = v[0];
+        vt2 = v[1];
+        mu = on_cart ? p.mu_cg : p.mu_pg;
+      } else {
+        float wb[3];
+        cross(pa, c.ra, w);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) v[k] = pv[k] + w[k];
+        cross(ca, c.rb, wb);
+#pragma unroll
+        for (int k = 0; k < 3; ++k) v[k] = v[k] - (cv[k] + wb[k]);
+        vn = dot(v, n);
+        vt1 = dot(v, t1);
+        vt2 = dot(v, t2);
+        mu = p.mu_pc;
+      }
+      const float jn_new = fmaxf(c.jn + (c.bias - vn) * c.inv_kn, 0.0f);
+      const float dn = jn_new - c.jn;
+      const float bound = mu * jn_new;
+      const float jt1_new = fminf(fmaxf(c.jt1 - vt1 * c.inv_kt1, -bound), bound);
+      const float jt2_new = fminf(fmaxf(c.jt2 - vt2 * c.inv_kt2, -bound), bound);
+      const float d1 = jt1_new - c.jt1;
+      const float d2 = jt2_new - c.jt2;
+      c.jn = jn_new;
+      c.jt1 = jt1_new;
+      c.jt2 = jt2_new;
+      if (s < 12) {
+        imp[q][0] = d1;
+        imp[q][1] = d2;
+        imp[q][2] = dn;
+#pragma unroll
+        for (int k = 0; k < 3; ++k) tb[q][k] = 0.0f;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 3; ++k) imp[q][k] = dn * n[k] + d1 * t1[k] + d2 * t2[k];
+        cross(c.rb, imp[q], tb[q]);
+      }
+      cross(c.ra, imp[q], tau[q]);
+    }
+    // The sums over slots, as a left fold in slot order 0..15: slot s lives
+    // in lane s % LANES of this env, entry s / LANES.
     float imp_c0[3] = {0.0f, 0.0f, 0.0f};  // sum over slots 0-3
     float imp_c1[3] = {0.0f, 0.0f, 0.0f};  // sum over slots 12-15
     float imp_p[3] = {0.0f, 0.0f, 0.0f};   // sum over slots 4-15
@@ -321,70 +431,32 @@ __device__ void substep(const PhysParams& p, Body& cart, Body& pole, const float
     float tau_c1[3] = {0.0f, 0.0f, 0.0f};
     float tau_p[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < 16; ++i) {
-      const bool on_cart = i < 4;
-      const float* va_lin = on_cart ? cv : pv;
-      const float* va_ang = on_cart ? ca : pa;
-      float w[3], v[3];
-      cross(va_ang, r_a[i], w);
+    for (int s = 0; s < 16; ++s) {
+      const int q = s / LANES, src = s % LANES;
+      float im[3], ta[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) v[k] = va_lin[k] + w[k];
-      float vn, vt1, vt2;
-      if (i < 12) {
-        vn = v[2];
-        vt1 = v[0];
-        vt2 = v[1];
-      } else {
-        float wb[3];
-        cross(ca, r_b[i - 12], wb);
-#pragma unroll
-        for (int k = 0; k < 3; ++k) v[k] = v[k] - (cv[k] + wb[k]);
-        vn = dot(v, n);
-        vt1 = dot(v, t1);
-        vt2 = dot(v, t2);
+      for (int k = 0; k < 3; ++k) {
+        im[k] = __shfl_sync(FULL_MASK, imp[q][k], src, LANES);
+        ta[k] = __shfl_sync(FULL_MASK, tau[q][k], src, LANES);
       }
-      const float mu = i < 4 ? p.mu_cg : (i < 12 ? p.mu_pg : p.mu_pc);
-      const float jn_new = fmaxf(jn[i] + (bias[i] - vn) * inv_kn[i], 0.0f);
-      const float dn = jn_new - jn[i];
-      const float bound = mu * jn_new;
-      const float jt1_new = fminf(fmaxf(jt1[i] - vt1 * inv_kt1[i], -bound), bound);
-      const float jt2_new = fminf(fmaxf(jt2[i] - vt2 * inv_kt2[i], -bound), bound);
-      const float d1 = jt1_new - jt1[i];
-      const float d2 = jt2_new - jt2[i];
-      jn[i] = jn_new;
-      jt1[i] = jt1_new;
-      jt2[i] = jt2_new;
-      float imp[3];
-      if (i < 12) {
-        imp[0] = d1;
-        imp[1] = d2;
-        imp[2] = dn;
-      } else {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) imp[k] = dn * n[k] + d1 * t1[k] + d2 * t2[k];
-      }
-      float tau[3];
-      cross(r_a[i], imp, tau);
-      if (on_cart) {
+      if (s < 4) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          imp_c0[k] = imp_c0[k] + imp[k];
-          tau_c0[k] = tau_c0[k] + tau[k];
+          imp_c0[k] = imp_c0[k] + im[k];
+          tau_c0[k] = tau_c0[k] + ta[k];
         }
       } else {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          imp_p[k] = imp_p[k] + imp[k];
-          tau_p[k] = tau_p[k] + tau[k];
+          imp_p[k] = imp_p[k] + im[k];
+          tau_p[k] = tau_p[k] + ta[k];
         }
       }
-      if (i >= 12) {
-        float tb[3];
-        cross(r_b[i - 12], imp, tb);
+      if (s >= 12) {
 #pragma unroll
         for (int k = 0; k < 3; ++k) {
-          imp_c1[k] = imp_c1[k] + imp[k];
-          tau_c1[k] = tau_c1[k] + tb[k];
+          imp_c1[k] = imp_c1[k] + im[k];
+          tau_c1[k] = tau_c1[k] + __shfl_sync(FULL_MASK, tb[q][k], src, LANES);
         }
       }
     }
@@ -443,16 +515,19 @@ __device__ __forceinline__ void store_body(const Body& b, float* __restrict__ s,
 }
 
 // state_in/state_out: (26, E) rows [cart pos quat vel ang | pole ...];
-// force: (3, E); poses: (repeats, E, 16) or unused.
+// force: (3, E); poses: (repeats, E, 16) or unused.  LANES threads per env;
+// the env's first lane stores.
 template <bool kPoses>
-__global__ void __launch_bounds__(128) phys_kernel(PhysParams p,
-                                                  const float* __restrict__ state_in,
-                                                  const float* __restrict__ force,
-                                                  float* __restrict__ state_out,
-                                                  float* __restrict__ poses, int E,
-                                                  int repeats, int substeps) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
+__global__ void __launch_bounds__(THREADS) phys_kernel(PhysParams p,
+                                                      const float* __restrict__ state_in,
+                                                      const float* __restrict__ force,
+                                                      float* __restrict__ state_out,
+                                                      float* __restrict__ poses, int E,
+                                                      int repeats, int substeps) {
+  const int g = (blockIdx.x * blockDim.x + threadIdx.x) / LANES;
+  const int lane = threadIdx.x % LANES;
+  const bool store = g < E && lane == 0;
+  const int e = g < E ? g : E - 1;  // past the batch: run the last env, store nothing
   Body cart, pole;
   load_body(cart, state_in, 0, e, E);
   load_body(pole, state_in, 13, e, E);
@@ -460,38 +535,35 @@ __global__ void __launch_bounds__(128) phys_kernel(PhysParams p,
 #pragma unroll 1
   for (int r = 0; r < repeats; ++r) {
 #pragma unroll 1
-    for (int k = 0; k < substeps; ++k) substep(p, cart, pole, f);
-    if (kPoses) {
-      float* o = poses + ((size_t)r * E + e) * 16;
-#pragma unroll
-      for (int k = 0; k < 3; ++k) o[k] = cart.pos[k];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[3 + k] = cart.quat[k];
-#pragma unroll
-      for (int k = 0; k < 3; ++k) o[7 + k] = pole.pos[k];
-#pragma unroll
-      for (int k = 0; k < 4; ++k) o[10 + k] = pole.quat[k];
-      o[14] = 0.0f;
-      o[15] = 0.0f;
+    for (int k = 0; k < substeps; ++k) substep(p, cart, pole, f, lane);
+    if (kPoses && store) {
+      float4* o = reinterpret_cast<float4*>(poses + ((size_t)r * E + e) * 16);
+      o[0] = make_float4(cart.pos[0], cart.pos[1], cart.pos[2], cart.quat[0]);
+      o[1] = make_float4(cart.quat[1], cart.quat[2], cart.quat[3], pole.pos[0]);
+      o[2] = make_float4(pole.pos[1], pole.pos[2], pole.quat[0], pole.quat[1]);
+      o[3] = make_float4(pole.quat[2], pole.quat[3], 0.0f, 0.0f);
     }
   }
-  store_body(cart, state_out, 0, e, E);
-  store_body(pole, state_out, 13, e, E);
+  if (store) {
+    store_body(cart, state_out, 0, e, E);
+    store_body(pole, state_out, 13, e, E);
+  }
 }
 
 // Launches on `stream`; poses == nullptr selects the K2 form (no snapshots).
+// poses must be 16-byte aligned (rows of 16 floats are stored as float4).
 // Returns cudaGetLastError() as an int.
 extern "C" int cp_physics_step(const PhysParams* params, const float* state_in,
                                const float* force, float* state_out, float* poses, int E,
                                int repeats, int substeps, void* stream) {
-  const int threads = 128;
-  const int blocks = (E + threads - 1) / threads;
+  const long long threads = (long long)E * LANES;
+  const int blocks = static_cast<int>((threads + THREADS - 1) / THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (poses != nullptr) {
-    phys_kernel<true><<<blocks, threads, 0, s>>>(*params, state_in, force, state_out, poses,
+    phys_kernel<true><<<blocks, THREADS, 0, s>>>(*params, state_in, force, state_out, poses,
                                                  E, repeats, substeps);
   } else {
-    phys_kernel<false><<<blocks, threads, 0, s>>>(*params, state_in, force, state_out,
+    phys_kernel<false><<<blocks, THREADS, 0, s>>>(*params, state_in, force, state_out,
                                                   nullptr, E, repeats, substeps);
   }
   return static_cast<int>(cudaGetLastError());

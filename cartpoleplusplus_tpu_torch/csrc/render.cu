@@ -12,9 +12,10 @@
 // the projective inverse-depth rasterizer the exact configs use
 // (render.prefer_raster).  The other three modes are the JAX make_venv's
 // flags: RATIO (K5b, render_recip=False), RASTER_HOIST (K5c,
-// render_hoist=True) and MXU / MXU_HOIST (K5d, render_mxu=True).  One
-// template serves SLAB, RASTER, RATIO and RASTER_HOIST; render_mxu_kernel
-// serves K5d; pack_setups_kernel is K5c's setup pass.
+// render_hoist=True) and MXU / MXU_HOIST (K5d, render_mxu=True).
+// render_slab_kernel serves SLAB; one template, render_kernel, serves RASTER,
+// RATIO and RASTER_HOIST; render_mxu_kernel serves K5d; pack_setups_kernel
+// is K5c's setup pass.
 //
 // What bounds it on this card: float32 operations per ray.  Each ray is
 // cast against two oriented boxes, depth-ordered, shaded and pooled: on the
@@ -24,20 +25,88 @@
 // repeats x 4096 envs = 30.7 M rays per step; 1-camera exact: 1 camera x 4
 // sub-rays x 625 x 3 x 4096, the same 30.7 M).
 //
-// Design: one block per (env, repeat).  The per-env algebra of each box
-// seen from each camera is computed once per block into shared memory by
-// 2*C threads.  Threads then run over the pooled pixels of all cameras;
-// each thread casts its pixel's p2 sub-rays, sums their four colour fields
-// (cart shade, pole shade, ground value, sky mask) in registers, and writes
-// three uint8 channels straight into the obs slab at width n: the TPU's
-// 128-lane padding does not exist here.  Static per-ray rows (px, py,
-// ground value, sky mask) are read coalesced from a (4, C, p2, n) table.
+// Common layout of the first port, which the raster and ratio modes keep:
+// one block per (env, repeat).  The per-env algebra of each box seen from
+// each camera is computed once per block into shared memory by 2*C threads.
+// Threads then run over the pooled pixels of all cameras; each thread casts
+// its pixel's p2 sub-rays, sums their four colour fields (cart shade, pole
+// shade, ground value, sky mask) in registers, and writes three uint8
+// channels straight into the obs slab at width n: the TPU's 128-lane padding
+// does not exist here.  Static per-ray rows (px, py, ground value, sky mask)
+// are read coalesced from a (4, C, p2, n) table.
 //
-// Slab mode: the setup is the box-local eye, the direction coefficients
-// A/B/C and the Lambert dots (15 floats per box and camera); per ray, three
-// slab reciprocals with Hopper's rcp.approx (not Mosaic's), so it is held
-// to the plain float32 version at the pixel tolerance, not bit for bit.
-//
+// Slab mode (K3/K4, render_slab_kernel): the setup is the box-local eye o,
+// the direction coefficients A/B/C and the Lambert dots (15 floats per box
+// and camera); per ray, three slab reciprocals with Hopper's rcp.approx (not
+// Mosaic's), so it is held to the plain float32 version at the pixel
+// tolerance, not bit for bit.  The cast, the setup and the shading are the
+// first port's code, unchanged, and so are the frames, byte for byte.  On
+// the main path's poses the two boxes cover a small part of each frame, so
+// most casts of the first port missed; what bounds this kernel is the casts
+// it still makes and, per pixel, loading its rays and writing its bytes.
+// - A block renders up to SLAB_THREADS / (16 C) repeats of one env (all 3 on
+//   the main path): 16 lanes per (repeat, camera) compute the setups and,
+//   one corner each in double, each box's cull rectangle (cull_rect): the
+//   screen rectangle outside which its slab cast is a miss.
+// - A warp holds 32 pooled pixels of one camera, taken column by column (the
+//   kernel's own order of a camera's pixels, raycast.slab_order): about 1.3
+//   columns of a 25 x 25 frame, where an upright pole is thin.  Per pixel a
+//   static table gives the rectangle of its sub-rays; the warp casts a box
+//   for all its sub-rays only where one lane's rectangle meets the box's
+//   (two __any_sync per pixel, over the lanes that hold a pixel: 625 = 19 *
+//   32 + 17, and a lane past the end has left the loop before the votes).
+//   The decision is uniform in the warp, so the casts it makes are straight
+//   runs, both boxes' casts interleaved where both are cast.  A skipped cast
+//   takes the cast's miss values (t = 1e9, hit false; the Lambert value of a
+//   miss is never read).  Where a warp casts neither box, every sub-ray
+//   misses and the shading adds up the ground values and sky masks: the
+//   table holds those float32 sums (0.0f + the first + ...), so the pixel
+//   costs one load.
+// - The static rows are kept in that order as one float4 per sub-ray, and
+//   the block's frames are written into shared memory, then out in order
+//   (a warp's pixels lie in different rows of the frame).  A block stages as
+//   many repeats as fit in the shared memory left for them
+//   (SLAB_FRAME_BYTES, 46720 bytes); a frame larger than that (two cameras
+//   unpooled at 89 x 89 and over, one at 125 x 125) is written straight to
+//   global memory instead, the same bytes.
+
+// Why the rectangle is conservative (the plain version is
+// raycast.slab_cull_rect; tests/test_torch_cull.py holds it against the
+// cast on poses chosen to break it).  Write eps = 2^-24.
+// 1. The cast in float32.  Per axis k it forms d = A + B px + C py (at most
+//    four roundings, with or without contracted FMAs), d' = d + s 1e-9 and
+//    the slab ends (+-he - o) * rcp.approx(d').  rcp.approx is within 1 ulp
+//    (2 eps relative), so each end is the exact ratio (+-he - o)(1 + delta)
+//    / d' with |delta| <= 4 eps (+ O(eps^2)): it lies inside the exact slab
+//    interval of direction d' for the box grown to he_k + 4 eps (he_k +
+//    |o_k|).  min/max are exact, so a reported hit (tmax >= tmin, tmax > 0)
+//    means the exact ray o + t d', t = tmax > 0, meets that grown box.  The
+//    1e-9 sign bias and the roundings of d make d' = d_exact + e with
+//    |e_k| <= 6 eps S + 1.01e-9, S = |A| + P (|B| + |C|), P the largest
+//    |px|, |py| of the ray table (RenderParams.ray_abs).
+// 2. Screen space.  With the dual basis (A^, B^, C^) of (A, B, C), a point v
+//    (relative to o) has depth z = v.A^ and screen coordinates X = v.B^ / z,
+//    Y = v.C^ / z; the exact ray (px, py) is the set z > 0, X = px, Y = py.
+//    The point o + t d' has X = (px + e.B^) / (1 + e.A^), so px = X (1 +
+//    e.A^) - e.B^ and |px - X| <= |X| |e| |A^| + |e| |B^|.
+// 3. Boxes not wholly in front of the eye.  If every corner of the grown
+//    box has z >= 1 mm (CULL_ZMIN), the box lies in z > 0 and its screen
+//    image is the convex hull of its corners' images, inside their bounding
+//    rectangle; X of the hit point is inside it.  A box with a corner nearer
+//    than that (eye inside or near a slab, the pole crossing the camera
+//    plane) has an unbounded image and is never culled: its rectangle is
+//    (-inf, inf).  Likewise where |e| |A^| > 1/4 or anything is not finite.
+// 4. Margin.  The rectangle of the corners is widened by the bound of 2 on
+//    each side, and both the growth of 1 and that margin are taken
+//    CULL_SAFETY = 16 times over, plus 1e-6 screen units.  It is computed in
+//    double (relative error ~1e-16, far inside the margin) and rounded
+//    outward to float32, so the test px < xlo (etc.) in float32 is exact.
+// 5. Sub-rays and warps.  The bound holds per sub-ray.  A pixel's table
+//    rectangle is the exact min/max of its p2 sub-rays' px and py, so a
+//    sub-ray inside the box's rectangle makes its pixel's rectangle meet
+//    it; a warp skips a box only where no pixel's rectangle meets it, that
+//    is where every sub-ray of every pixel it holds misses the box.
+
 // Raster mode (K5a, the raster=True branch without hoist or mxu:
 // pallas_kernel.py:240-247 setup, :296-297 casts, :311-312 ordering; math of
 // raycast._obb_q_setup/_obb_q_cast).  The setup holds A, B, C, 1/U, 1/L,
@@ -52,10 +121,11 @@
 // the hit tests and depths follow the plain version's float32 arithmetic
 // operation for operation; the shading epilogue, shared with the slab mode,
 // keeps nvcc's FMA contraction and is held at the pixel tolerance.  The work is the same per
-// ray as the slab mode's but cheaper (no reciprocals); p2 = 4 at obs_pool 2
-// doubles the sub-rays a thread sums per pooled pixel.  Nothing is tuned
-// yet: 256 threads over 625 pooled pixels leave the third pass of each
-// block two-fifths full.
+// ray as the slab mode's before culling but cheaper (no reciprocals); p2 = 4
+// at obs_pool 2 doubles the sub-rays a thread sums per pooled pixel.  The
+// raster modes are not tuned yet: they cast every ray against both boxes,
+// and 256 threads over 625 pooled pixels leave the third pass of each block
+// two-fifths full.
 //
 // Ratio mode (K5b, recip=False: pallas_kernel.py:210,313-316; math of
 // raycast._ray_obb_affine's division-free branch, raycast.py:260-285).  The
@@ -94,6 +164,7 @@
 // exactly BIG there, as in K5a.
 
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
 #define MAX_CAMS 2
@@ -120,6 +191,8 @@ struct RenderParams {
   int num_cams;
   int p2;                    // sub-rays per pooled pixel
   int n;                     // pooled pixels per camera
+  float ray_abs;             // largest |px|, |py| of the ray table (slab culling;
+                             // +inf widens every cull rectangle to the plane)
 };
 
 __device__ __forceinline__ float rcp_approx(float x) {
@@ -375,8 +448,8 @@ __device__ __forceinline__ void store_pixel(const RenderParams& p, float fa, flo
   }
 }
 
-// Fills the block's per-box setup table: copied from the packed table
-// (the hoisted modes) or computed by 2*C threads.
+// Fills the block's per-box setup table of a raster or ratio mode: copied
+// from the packed table (the hoisted modes) or computed by 2*C threads.
 template <int MODE>
 __device__ __forceinline__ void block_setup(const RenderParams& p, const float* pose,
                                             const float* setups, float* setup, int W, int E,
@@ -390,10 +463,8 @@ __device__ __forceinline__ void block_setup(const RenderParams& p, const float* 
     float* su = setup + (cam * 2 + box) * W;
     if (MODE == RASTER || MODE == MXU) {
       raster_setup(p, cam, pose + 7 * box, p.he[box], su);
-    } else if (MODE == RATIO) {
-      ratio_setup(p, cam, pose + 7 * box, su);
     } else {
-      box_setup(p, cam, pose + 7 * box, su);
+      ratio_setup(p, cam, pose + 7 * box, su);
     }
   }
 }
@@ -401,7 +472,7 @@ __device__ __forceinline__ void block_setup(const RenderParams& p, const float* 
 // poses: (R, E, 16) [cart pos quat | pole pos quat | 0 0];
 // rays: (4, C, p2, n) rows px, py, ground value, sky mask;
 // setups: (R, E, C*2*22) packed raster setups (RASTER_HOIST only);
-// out: (E, R, C*3*n) uint8.  Grid (E, R).  Modes SLAB, RASTER, RATIO and
+// out: (E, R, C*3*n) uint8.  Grid (E, R).  Modes RASTER, RATIO and
 // RASTER_HOIST.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) render_kernel(RenderParams p,
@@ -434,20 +505,223 @@ __global__ void __launch_bounds__(THREADS) render_kernel(RenderParams p,
         raster_cast(setup[cam][0], px, py, dc, lam_c, hit_c);
         raster_cast(setup[cam][1], px, py, dp, lam_p, hit_p);
         sel_c = hit_c && (dc >= dp);  // inverse depth: larger is nearer
-      } else if (MODE == RATIO) {
+      } else {
         float den_c, den_p;
         ratio_cast(setup[cam][0], p.he[0], px, py, dc, den_c, lam_c, hit_c);
         ratio_cast(setup[cam][1], p.he[1], px, py, dp, den_p, lam_p, hit_p);
         sel_c = hit_c && (mul(dc, den_p) <= mul(dp, den_c));
-      } else {
-        cast(setup[cam][0], p.he[0], px, py, dc, lam_c, hit_c);
-        cast(setup[cam][1], p.he[1], px, py, dp, lam_p, hit_p);
-        sel_c = hit_c && (dc <= dp);
       }
       shade_fields(p, sel_c, hit_p, lam_c, lam_p, gval, smask, fa, fb, fg, fs);
     }
     store_pixel(p, fa, fb, fg, fs, o, cam, j);
   }
+}
+
+#define CULL_EPS 5.9604644775390625e-8  // 2^-24, float32's unit roundoff
+#define CULL_SAFETY 16.0
+#define CULL_ZMIN 1e-3   // metres: nearest corner depth for which a box is culled
+#define CULL_FLOOR 1e-6  // screen units added to the margin
+
+__device__ __forceinline__ void cross_d(const double a[3], const double b[3], double o[3]) {
+  o[0] = a[1] * b[2] - a[2] * b[1];
+  o[1] = a[2] * b[0] - a[0] * b[2];
+  o[2] = a[0] * b[1] - a[1] * b[0];
+}
+
+__device__ __forceinline__ double dot_d(const double a[3], const double b[3]) {
+  return a[0] * b[0] + a[1] * b[1] + a[2] * b[2];
+}
+
+__device__ __forceinline__ double norm_d(const double a[3]) { return sqrt(dot_d(a, a)); }
+
+// The screen rectangle (xlo, xhi, ylo, yhi) of one box seen from one camera
+// outside which its slab cast is a miss (the argument is in the header;
+// raycast.slab_cull_rect is the plain version).  su: box_setup's floats
+// (o, A, B, C); he: the box's half extents.  Called by 8 lanes of a group
+// aligned to 8 lanes, `corner` = the lane's index in it; every lane of the
+// warp must call it (the reductions shuffle over the full mask).
+__device__ void cull_rect(const float* su, const float he[3], float ray_abs, int corner,
+                          float out[4]) {
+  double o[3], a[3], b[3], c[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[k] = su[k];
+    a[k] = su[3 + k];
+    b[k] = su[6 + k];
+    c[k] = su[9 + k];
+  }
+  double bxc[3], cxa[3], axb[3];
+  cross_d(b, c, bxc);
+  cross_d(c, a, cxa);
+  cross_d(a, b, axb);
+  const double inv_det = 1.0 / dot_d(a, bxc);
+  double ah[3], bh[3], ch[3];  // the dual basis
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    ah[k] = bxc[k] * inv_det;
+    bh[k] = cxa[k] * inv_det;
+    ch[k] = axb[k] * inv_det;
+  }
+  const double s = norm_d(a) + (double)ray_abs * (norm_d(b) + norm_d(c));
+  const double e = 1.7320508075688772 * (6.0 * CULL_EPS * s + 1.01e-9);  // sqrt(3) max |e_k|
+  const double ea = e * norm_d(ah), eb = e * norm_d(bh), ec = e * norm_d(ch);
+  double v[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const double h = (double)he[k];
+    const double grown = h + CULL_SAFETY * 4.0 * CULL_EPS * (h + fabs(o[k]));
+    const bool plus = (corner >> k) & 1;
+    v[k] = (plus ? grown : -grown) - o[k];
+  }
+  const double z = dot_d(v, ah);
+  const double x = dot_d(v, bh) / z, y = dot_d(v, ch) / z;
+  bool ok = z >= CULL_ZMIN && ea <= 0.25 && isfinite(x) && isfinite(y);
+  double xlo = x, xhi = x, ylo = y, yhi = y;
+#pragma unroll
+  for (int m = 1; m < 8; m <<= 1) {
+    xlo = fmin(xlo, __shfl_xor_sync(0xffffffffu, xlo, m, 8));
+    xhi = fmax(xhi, __shfl_xor_sync(0xffffffffu, xhi, m, 8));
+    ylo = fmin(ylo, __shfl_xor_sync(0xffffffffu, ylo, m, 8));
+    yhi = fmax(yhi, __shfl_xor_sync(0xffffffffu, yhi, m, 8));
+    ok = __shfl_xor_sync(0xffffffffu, (int)ok, m, 8) && ok;
+  }
+  const double mx = CULL_SAFETY * (ea * fmax(fabs(xlo), fabs(xhi)) + eb) + CULL_FLOOR;
+  const double my = CULL_SAFETY * (ea * fmax(fabs(ylo), fabs(yhi)) + ec) + CULL_FLOOR;
+  out[0] = ok ? __double2float_rd(xlo - mx) : -CUDART_INF_F;
+  out[1] = ok ? __double2float_ru(xhi + mx) : CUDART_INF_F;
+  out[2] = ok ? __double2float_rd(ylo - my) : -CUDART_INF_F;
+  out[3] = ok ? __double2float_ru(yhi + my) : CUDART_INF_F;
+}
+
+// Whether two screen rectangles (xlo, xhi, ylo, yhi) meet.  A NaN bound
+// compares false: they meet.
+__device__ __forceinline__ bool meets(const float a[4], const float b[4]) {
+  return !(a[1] < b[0] || a[0] > b[1] || a[3] < b[2] || a[2] > b[3]);
+}
+
+// The sub-rays of one pooled pixel: cast against the boxes the warp keeps
+// (the others keep the cast's miss values), shaded and summed.  rays: the
+// pixel's first sub-ray in the (C, p2, n) table of (px, py, ground value,
+// sky mask).
+template <bool CART, bool POLE>
+__device__ __forceinline__ void slab_pixel(const RenderParams& p, const float* su_c,
+                                           const float* su_p, const float4* __restrict__ rays,
+                                           float& fa, float& fb, float& fg, float& fs) {
+  for (int sidx = 0; sidx < p.p2; ++sidx) {
+    const float4 ray = rays[sidx * p.n];
+    const float px = ray.x, py = ray.y, gval = ray.z, smask = ray.w;
+    float dc = 1e9f, dp = 1e9f, lam_c = 0.0f, lam_p = 0.0f;
+    bool hit_c = false, hit_p = false;
+    if (CART) cast(su_c, p.he[0], px, py, dc, lam_c, hit_c);
+    if (POLE) cast(su_p, p.he[1], px, py, dp, lam_p, hit_p);
+    const bool sel_c = hit_c && (dc <= dp);
+    shade_fields(p, sel_c, hit_p, lam_c, lam_p, gval, smask, fa, fb, fg, fs);
+  }
+}
+
+#define SLAB_THREADS 128
+#define SLAB_MAX_REPS (SLAB_THREADS / 16)  // repeats per block: SLAB_THREADS / (16 * cameras)
+// Static shared memory of render_slab_kernel (its setup and rect arrays),
+// and the dynamic shared memory left for a block's frames under the default
+// 48 KiB a block may use without opting in.  cuda_render.slab_blocking
+// holds the same numbers.
+#define SLAB_STATIC_BYTES (SLAB_MAX_REPS * MAX_CAMS * 2 * (SLAB_W + 4) * 4)
+#define SLAB_FRAME_BYTES (48 * 1024 - SLAB_STATIC_BYTES)
+
+// K3/K4, the slab mode with culling.  poses: (R, E, 16); rays: (C, p2, n)
+// float4 (px, py, ground value, sky mask); pixels: (C, n, 2) float4, per
+// pooled pixel the screen rectangle (xlo, xhi, ylo, yhi) of its sub-rays,
+// the sums over its sub-rays of the ground value and of the sky mask (0.0f
+// + the first + the second ..., in float32), its index j in the frame and
+// a zero.  Both tables hold the pixels of a camera in the kernel's order
+// (column by column), not the frame's (row by row).  out: (E, R, C*3*n)
+// uint8.  Grid (E, ceil(R / reps)), SLAB_THREADS threads; a block renders
+// `reps` repeats of one env.  STAGED: the block's frames are written into
+// reps * C*3*n bytes of dynamic shared memory, then out in order; else (a
+// frame too large for SLAB_FRAME_BYTES) each pixel's bytes go straight to
+// out.  The values are the same either way.  (A template, not a runtime
+// flag: through a pointer that may be either, the pixel stores lose their
+// shared-memory instructions and the kernel 8 % of its speed.)
+template <bool STAGED>
+__global__ void __launch_bounds__(SLAB_THREADS) render_slab_kernel(
+    RenderParams p, const float* __restrict__ poses, const float4* __restrict__ rays,
+    const float4* __restrict__ pixels, uint8_t* __restrict__ out, int E, int R, int reps) {
+  const int e = blockIdx.x, rep0 = blockIdx.y * reps;
+  const int nrep = min(reps, R - rep0), cams = p.num_cams;
+  __shared__ float setup[SLAB_MAX_REPS][MAX_CAMS][2][SLAB_W];
+  __shared__ float rect[SLAB_MAX_REPS][MAX_CAMS][2][4];
+  static_assert(sizeof(setup) + sizeof(rect) == SLAB_STATIC_BYTES, "SLAB_STATIC_BYTES");
+  extern __shared__ uint8_t frames[];  // nrep frames, as in out, where staged
+  // Setup: 16 lanes per (repeat, camera), lane = 8 * box + corner.  The 8
+  // lanes of a box compute its setup alike (the same bits) and one corner
+  // each of its cull rectangle.  Whole warps enter (cull_rect shuffles over
+  // the full mask); a lane past the last (repeat, camera) repeats it and
+  // stores nothing.
+  const int nsetup = nrep * cams * 16;
+  if (threadIdx.x < ((nsetup + 31) & ~31)) {
+    const int t = min((int)threadIdx.x, nsetup - 1);
+    const int corner = t & 7, box = (t >> 3) & 1, cam = (t >> 4) % cams, rl = (t >> 4) / cams;
+    const float* pose = poses + ((size_t)(rep0 + rl) * E + e) * 16;
+    float su[SLAB_W], r[4];
+    box_setup(p, cam, pose + 7 * box, su);
+    cull_rect(su, p.he[box], p.ray_abs, corner, r);
+    if (threadIdx.x < nsetup && corner == 0) {
+#pragma unroll
+      for (int i = 0; i < SLAB_W; ++i) setup[rl][cam][box][i] = su[i];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) rect[rl][cam][box][i] = r[i];
+    }
+  }
+  __syncthreads();
+
+  // A camera's n pooled pixels, in the tables' order, are laid out over
+  // n_pad = 32 * ceil(n / 32) lanes, so a warp holds a run of up to 32
+  // pixels of one camera: about 1.3 columns of a 25 x 25 frame, where an
+  // upright pole is thin.
+  const int n = p.n, p2 = p.p2, n_pad = (n + 31) & ~31, frame_w = cams * 3 * n;
+  uint8_t* o = out + ((size_t)e * R + rep0) * frame_w;
+  for (int rl = 0; rl < nrep; ++rl) {
+    uint8_t* dst = (STAGED ? frames : o) + rl * frame_w;
+    for (int cam = 0; cam < cams; ++cam) {
+      const float* su_c = setup[rl][cam][0];
+      const float* su_p = setup[rl][cam][1];
+      for (int q = threadIdx.x; q < n_pad; q += blockDim.x) {
+        // The lanes of this warp that hold a pixel: all 32 but in the last
+        // run of a camera (625 = 19 * 32 + 17).  The votes are taken over
+        // them; an idle lane takes part in none.
+        const unsigned active = __ballot_sync(0xffffffffu, q < n);
+        if (q >= n) continue;
+        // The warp casts a box for all its sub-rays where the rectangle of
+        // one of its pixels' sub-rays meets the box's: the same decision
+        // in every lane, and the cast's own values in every lane.
+        const float4 r4 = pixels[2 * (cam * n + q)];
+        const float4 bg = pixels[2 * (cam * n + q) + 1];
+        const float pr[4] = {r4.x, r4.y, r4.z, r4.w};
+        const bool cart = __any_sync(active, meets(pr, rect[rl][cam][0]));
+        const bool pole = __any_sync(active, meets(pr, rect[rl][cam][1]));
+        const float4* ray = rays + cam * p2 * n + q;
+        float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
+        if (cart && pole) {
+          slab_pixel<true, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else if (cart) {
+          slab_pixel<true, false>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else if (pole) {
+          slab_pixel<false, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else {
+          // Every sub-ray misses both boxes: the fields are the background
+          // sums, the values the loop would add up.
+          fg = bg.x;
+          fs = bg.y;
+        }
+        store_pixel(p, fa, fb, fg, fs, dst, cam, static_cast<int>(bg.z));
+      }
+    }
+  }
+  if (!STAGED) return;
+  // The frames are written out whole, byte by byte in order: the pixels of
+  // a warp lie in different rows of the frame.
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrep * frame_w; i += blockDim.x) o[i] = frames[i];
 }
 
 // K5c's setup pass: raster_setup of every (repeat, env, camera, box), one
@@ -610,21 +884,41 @@ __global__ void __launch_bounds__(THREADS) render_mxu_kernel(RenderParams p,
   }
 }
 
-// Launches the render kernel of `mode` (enum Mode) on `stream`; `setups`
-// is read by the hoisted modes only.  Returns cudaGetLastError() as an int.
+// Launches the render kernel of `mode` (enum Mode) on `stream`.  `rays` is
+// the (4, C, p2, n) table, in the slab mode the (C, p2, n, 4) one; `setups`
+// is read by the hoisted modes only, `pixels` by the slab mode only.  The
+// slab mode renders `reps` repeats per block, staging its frames in shared
+// memory where `staged` (cuda_render.slab_blocking chooses both; a choice
+// the kernel cannot run is refused).  Returns cudaGetLastError() as an int.
 extern "C" int cp_render(const RenderParams* params, const float* poses, const float* rays,
-                         const float* setups, uint8_t* out, int E, int R, int mode,
-                         void* stream) {
+                         const float* setups, const float* pixels, uint8_t* out, int E, int R,
+                         int mode, int reps, int staged, void* stream) {
   if (params->num_cams < 1 || params->num_cams > MAX_CAMS) return static_cast<int>(cudaErrorInvalidValue);
   if ((mode == RASTER_HOIST || mode == MXU_HOIST) && setups == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (mode == SLAB && pixels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid(E, R);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case SLAB:
-      render_kernel<SLAB><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
+    case SLAB: {
+      const long frame_w = (long)params->num_cams * 3 * params->n;
+      if (reps < 1 || reps > min(R, SLAB_THREADS / (16 * params->num_cams)) ||
+          (staged && reps * frame_w > SLAB_FRAME_BYTES)) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+      const dim3 slab_grid(E, (R + reps - 1) / reps);
+      const float4* rays4 = reinterpret_cast<const float4*>(rays);
+      const float4* pixels4 = reinterpret_cast<const float4*>(pixels);
+      if (staged) {
+        render_slab_kernel<true><<<slab_grid, SLAB_THREADS, reps * frame_w, st>>>(
+            *params, poses, rays4, pixels4, out, E, R, reps);
+      } else {
+        render_slab_kernel<false><<<slab_grid, SLAB_THREADS, 0, st>>>(
+            *params, poses, rays4, pixels4, out, E, R, reps);
+      }
       break;
+    }
     case RASTER:
       render_kernel<RASTER><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
       break;

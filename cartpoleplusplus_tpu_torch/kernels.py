@@ -29,6 +29,7 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(_HERE, "_build")
 LIB_NAME = "libcartpole_kernels.so"
+LOG_NAME = "build.log"
 NVCC_TIMEOUT_S = 180
 
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -106,12 +107,15 @@ def build() -> dict:
 
     Returns ``{"path", "built", "nvcc_s", "log"}``: ``built`` is False when
     an up-to-date library was found, ``nvcc_s`` the wall time of the
-    compile and link (0 when nothing was built).
+    compile and link (0 when nothing was built), ``log`` the compilers'
+    output (kept beside the library, so also when it was found built).
     """
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
+    log_path = os.path.join(out_dir, LOG_NAME)
     if os.path.exists(lib_path):
-        return {"path": lib_path, "built": False, "nvcc_s": 0.0, "log": ""}
+        log = open(log_path).read() if os.path.exists(log_path) else ""
+        return {"path": lib_path, "built": False, "nvcc_s": 0.0, "log": log}
     nvcc = _nvcc()
     os.makedirs(BUILD_ROOT, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-")
@@ -129,6 +133,8 @@ def build() -> dict:
             [nvcc, *ARCH_FLAGS, "-shared", "-o", os.path.join(tmp, LIB_NAME), *objs]))
         nvcc_s = time.monotonic() - t0
         os.makedirs(out_dir, exist_ok=True)
+        with open(log_path, "w") as f:
+            f.write("".join(logs))
         os.replace(os.path.join(tmp, LIB_NAME), lib_path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -142,7 +148,7 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cp_physics_step.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_physics_step.restype = i32
-    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
+    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
     lib.cp_render.restype = i32
     lib.cp_pack_setups.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.cp_pack_setups.restype = i32

@@ -101,7 +101,10 @@ def launch(
 ) -> None:
     """Launch the physics kernel on prepared CUDA buffers: state ``packed``
     (26, E), ``force`` (3, E) and ``out`` (26, E), all contiguous float32;
-    ``poses`` (R, E, 16) or None.  Counts nothing: the wrappers count."""
+    ``poses`` (R, E, 16) or None, 16-byte aligned.  Counts nothing: the
+    wrappers count."""
+    if poses is not None and poses.data_ptr() % 16:
+        raise ValueError("poses must be 16-byte aligned (the kernel stores float4)")
     err = kernels.library().cp_physics_step(
         ctypes.addressof(params), packed.data_ptr(), force.data_ptr(), out.data_ptr(),
         None if poses is None else poses.data_ptr(), packed.shape[1], repeats, substeps,

@@ -1,5 +1,6 @@
 """Wrappers of the CUDA render kernels (csrc/render.cu): K3/K4 in the slab
-mode, K5a in the raster mode, and the three other modes of the JAX render
+mode (which skips the box casts its cull rectangles rule out), K5a in the
+raster mode, and the three other modes of the JAX render
 kernel: K5b (division-free ratio slab), K5c (raster from a hoisted setup
 table) and K5d (raster with its bound planes on the tensor cores).
 
@@ -14,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from cartpoleplusplus_tpu_torch import kernels
@@ -42,7 +44,46 @@ class RenderParams(ctypes.Structure):
         ("num_cams", ctypes.c_int),
         ("p2", ctypes.c_int),
         ("n", ctypes.c_int),
+        ("ray_abs", ctypes.c_float),
     ]
+
+
+def slab_pixel_table(planes: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """The slab kernel's per-pixel table: planes (4, C, p2, n) → float32
+    (C, n, 8), per pooled pixel the screen rectangle of its sub-rays
+    (``raycast.slab_pixel_rects``), the float32 sums over its sub-rays, in
+    order from 0.0, of the ground value and of the sky mask (what the
+    kernel's shading adds up where every sub-ray misses both boxes), its
+    index in the frame and a zero; row q holds pixel ``order[q]``."""
+    _, c, p2, n = planes.shape
+    table = np.zeros((c, n, 8), np.float32)
+    table[..., :4] = raycast.slab_pixel_rects(planes)
+    for s in range(p2):
+        table[..., 4] = table[..., 4] + planes[2, :, s]
+        table[..., 5] = table[..., 5] + planes[3, :, s]
+    table[..., 6] = np.arange(n)
+    return np.ascontiguousarray(table[:, order])
+
+
+SLAB_THREADS = 128  # the slab kernel's block (csrc/render.cu)
+# Shared memory for a block's frames in the slab kernel: the default 48 KiB
+# a block may use, less its setups and cull rectangles (SLAB_THREADS / 16
+# repeats x MAX_CAMS cameras x 2 boxes x (15 + 4) floats); render.cu's
+# SLAB_FRAME_BYTES.
+SLAB_FRAME_BYTES = 48 * 1024 - SLAB_THREADS // 16 * MAX_CAMS * 2 * (15 + 4) * 4
+
+
+def slab_blocking(num_cams: int, n: int, r: int) -> tuple[int, bool]:
+    """The slab kernel's repeats per block and whether it stages them in
+    shared memory, for ``r`` repeats of ``num_cams`` frames of ``n`` pooled
+    pixels: as many repeats as 16 setup lanes per (repeat, camera) allow,
+    cut to those whose frames fit in ``SLAB_FRAME_BYTES``; where one frame
+    does not fit, the kernel writes its pixels straight to global memory."""
+    reps = min(r, SLAB_THREADS // (16 * num_cams))
+    frame_w = num_cams * 3 * n
+    if frame_w > SLAB_FRAME_BYTES:
+        return reps, False
+    return min(reps, SLAB_FRAME_BYTES // frame_w), True
 
 
 class Renderer:
@@ -79,9 +120,16 @@ class Renderer:
             self.suffix = "_raster" + "_hoist" * self.hoist + "_mxu" * self.mxu
         planes, self.cam_meta, (self.p2, self.n) = raycast.ray_planes(config)
         self.planes = torch.from_numpy(planes).to(device)
+        self.ray_abs = float(np.abs(planes[:2]).max())
+        self.width = raycast.pooled_width(config)
         self.num_cams = len(self.cam_meta)
         self.frame_width = self.num_cams * 3 * self.n
         self.setup_width = self.num_cams * 2 * raycast.SETUP_W
+        if self.mode == SLAB:  # the slab kernel's own layouts of the static rows
+            order = raycast.slab_order(self.n, self.width)
+            self.slab_rays = torch.from_numpy(
+                np.ascontiguousarray(planes[..., order].transpose(1, 2, 3, 0))).to(device)
+            self.slab_pixels = torch.from_numpy(slab_pixel_table(planes, order)).to(device)
 
     def plain(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version: poses (R, E, 16) → uint8 (E, R, C·3·n)."""
@@ -109,6 +157,7 @@ class Renderer:
         p.pole_color[:] = list(raycast.POLE_COLOR)
         p.sky_color[:] = list(raycast.SKY_COLOR)
         p.num_cams, p.p2, p.n = self.num_cams, self.p2, self.n
+        p.ray_abs = self.ray_abs
         return p
 
     def _launch(self, name: str, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
@@ -155,10 +204,14 @@ class Renderer:
         if self.hoist and setups is None:
             raise ValueError("the hoisted raster reads a setup table")
         r, e = poses.shape[0], poses.shape[1]
+        slab = self.mode == SLAB
+        reps, staged = slab_blocking(self.num_cams, self.n, r) if slab else (0, False)
         err = kernels.library().cp_render(
-            ctypes.addressof(params), poses.data_ptr(), self.planes.data_ptr(),
-            setups.data_ptr() if self.hoist else None, out.data_ptr(), e, r, self.mode,
-            torch.cuda.current_stream(poses.device).cuda_stream,
+            ctypes.addressof(params), poses.data_ptr(),
+            (self.slab_rays if slab else self.planes).data_ptr(),
+            setups.data_ptr() if self.hoist else None,
+            self.slab_pixels.data_ptr() if slab else None, out.data_ptr(), e, r, self.mode,
+            reps, int(staged), torch.cuda.current_stream(poses.device).cuda_stream,
         )
         kernels.check(err, "render")
 

@@ -111,6 +111,12 @@ def ray_planes(config):
     return planes, cam_meta, (p2, n)
 
 
+def pooled_width(config) -> int:
+    """Width of the config's pooled frame (``ray_planes``' n = its height ×
+    this)."""
+    return config.render_width // config.obs_pool if config.obs_pool > 1 else config.render_width
+
+
 def poses_from_rigid(rigid: RigidState) -> torch.Tensor:
     """RigidState (E, …) → (E, 16) [cart pos quat | pole pos quat | 0 0]."""
     e = rigid.pos.shape[0]
@@ -121,19 +127,13 @@ def poses_from_rigid(rigid: RigidState) -> torch.Tensor:
     )
 
 
-def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light, recip: bool = True):
-    """Screen-affine ray vs oriented box, slab cascade.
+def _slab_setup(basis, eye, center, quat, light):
+    """Per-env scalar algebra of the slab cascade.
 
-    ``px``/``py``: (1, P) screen rows; ``center``/``quat``: (E, 1) columns.
-    Returns ``(num, den, lambert, hit)``, (E, P) each; the depth is
-    ``num / den``: entry depth (exit depth when the eye is inside the box,
-    ``_BIG`` on a miss), the entry face's n·L and the hit mask.
-
-    ``recip``: slab times through an exact reciprocal, ``num`` the depth
-    itself and ``den`` 1.  Else the division-free ratio cascade: the slab
-    bounds stay ratios ``n / p`` with ``p > 0`` and are compared by
-    cross-multiplying; ``den`` is 1 on a miss.
-    """
+    ``center``/``quat``: (E, 1) columns.  Returns ``(o_l, A, B, C, ldot)``,
+    3-tuples of (E, 1) columns: the eye in the box frame, the box-frame
+    coefficients of the screen-affine direction ``A + B·px + C·py`` and the
+    box axes' n·L."""
     fwd, right, up = basis
     r = soa.q_to_mat(quat)
     rel = tuple(eye[i] - center[i] for i in range(3))
@@ -142,6 +142,30 @@ def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light, recip
     B = tuple(r[0][k] * right[0] + r[1][k] * right[1] + r[2][k] * right[2] for k in range(3))
     C = tuple(r[0][k] * up[0] + r[1][k] * up[1] + r[2][k] * up[2] for k in range(3))
     ldot = tuple(light[0] * r[0][k] + light[1] * r[1][k] + light[2] * r[2][k] for k in range(3))
+    return o_l, A, B, C, ldot
+
+
+def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light, recip: bool = True):
+    """Screen-affine ray vs oriented box, slab cascade: :func:`_slab_cast`
+    of :func:`_slab_setup`."""
+    return _slab_cast(px, py, _slab_setup(basis, eye, center, quat, light), half_extents, recip)
+
+
+def _slab_cast(px, py, setup, half_extents, recip: bool = True):
+    """Per-ray work of the slab cascade.
+
+    ``px``/``py``: screen rows, broadcastable against the ``setup`` columns
+    of :func:`_slab_setup` ((1, P) against (E, 1), or equal shapes).
+    Returns ``(num, den, lambert, hit)`` of the broadcast shape; the depth
+    is ``num / den``: entry depth (exit depth when the eye is inside the
+    box, ``_BIG`` on a miss), the entry face's n·L and the hit mask.
+
+    ``recip``: slab times through an exact reciprocal, ``num`` the depth
+    itself and ``den`` 1.  Else the division-free ratio cascade: the slab
+    bounds stay ratios ``n / p`` with ``p > 0`` and are compared by
+    cross-multiplying; ``den`` is 1 on a miss.
+    """
+    o_l, A, B, C, ldot = setup
     d_l = tuple(A[k] + B[k] * px + C[k] * py for k in range(3))
     one = torch.ones_like(d_l[0])
 
@@ -188,6 +212,244 @@ def _ray_obb_affine(px, py, basis, eye, center, quat, half_extents, light, recip
     num = torch.where(hit, torch.where(inside, m, n), torch.full_like(n, _BIG))
     den = torch.where(hit, torch.where(inside, q, pd), one)
     return num, den, lam, hit
+
+
+# The slab cull (csrc/render.cu, whose header gives the argument): a cast
+# is skipped only where its ray lies outside the box's cull rectangle.
+CULL_EPS = 2.0**-24   # float32's unit roundoff
+CULL_SAFETY = 16.0    # how many times over the rounding bounds are taken
+CULL_ZMIN = 1e-3      # metres: nearest corner depth for which a box is culled
+CULL_FLOOR = 1e-6     # screen units added to the margin
+
+
+def _round_f32(x: torch.Tensor, up: bool) -> torch.Tensor:
+    """float64 → the nearest float32 at or above (``up``) or below ``x``."""
+    y = x.to(torch.float32)
+    past = y.to(torch.float64) < x if up else y.to(torch.float64) > x
+    toward = torch.full_like(y, float("inf") if up else -float("inf"))
+    return torch.where(past, torch.nextafter(y, toward), y)
+
+
+def slab_cull_rect(setup, half_extents, ray_abs: float):
+    """The screen rectangle outside which the slab cast of a ray against
+    one box is a miss, in the kernel's float32 arithmetic (rcp.approx,
+    contracted FMAs) as well as exactly.
+
+    ``setup``: :func:`_slab_setup`'s tuple for one box and camera (E, 1)
+    columns; ``ray_abs``: the largest |px|, |py| of the ray table.  Returns
+    ``(xlo, xhi, ylo, yhi)``, float32 (E, 1) each, rounded outward; (-inf,
+    inf) for a box that is not wholly in front of the eye.  Computed in
+    float64 as render.cu's ``cull_rect`` computes it: the box grown by
+    ``CULL_SAFETY`` times the cast's rounding, its eight corners projected
+    through the dual basis of (A, B, C), their bounding rectangle widened
+    by ``CULL_SAFETY`` times the bound of the direction's rounding plus
+    ``CULL_FLOOR``."""
+    o, a, b, c = (tuple(x.to(torch.float64) for x in v) for v in setup[:4])
+    dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
+    norm = lambda u: torch.sqrt(dot(u, u))
+    bxc, cxa, axb = soa.v_cross(b, c), soa.v_cross(c, a), soa.v_cross(a, b)
+    inv_det = 1.0 / dot(a, bxc)
+    ah, bh, ch = (tuple(x * inv_det for x in v) for v in (bxc, cxa, axb))
+    e = 1.7320508075688772 * (6.0 * CULL_EPS * (norm(a) + ray_abs * (norm(b) + norm(c))) + 1.01e-9)
+    ea, eb, ec = e * norm(ah), e * norm(bh), e * norm(ch)
+    grown = tuple(float(half_extents[k]) + CULL_SAFETY * 4.0 * CULL_EPS
+                  * (float(half_extents[k]) + o[k].abs()) for k in range(3))
+    zs, xs, ys = [], [], []
+    for corner in range(8):  # bit k: + on axis k, as cull_rect's lanes
+        v = tuple((grown[k] if corner >> k & 1 else -grown[k]) - o[k] for k in range(3))
+        z = dot(v, ah)
+        zs.append(z)
+        xs.append(dot(v, bh) / z)
+        ys.append(dot(v, ch) / z)
+    z, x, y = (torch.cat(t, dim=1) for t in (zs, xs, ys))
+    ok = ((z >= CULL_ZMIN).all(1, keepdim=True) & (ea <= 0.25)
+          & torch.isfinite(x).all(1, keepdim=True) & torch.isfinite(y).all(1, keepdim=True))
+    xlo, xhi = x.amin(1, keepdim=True), x.amax(1, keepdim=True)
+    ylo, yhi = y.amin(1, keepdim=True), y.amax(1, keepdim=True)
+    mx = CULL_SAFETY * (ea * torch.maximum(xlo.abs(), xhi.abs()) + eb) + CULL_FLOOR
+    my = CULL_SAFETY * (ea * torch.maximum(ylo.abs(), yhi.abs()) + ec) + CULL_FLOOR
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=z.device)
+    return (torch.where(ok, _round_f32(xlo - mx, False), -inf),
+            torch.where(ok, _round_f32(xhi + mx, True), inf),
+            torch.where(ok, _round_f32(ylo - my, False), -inf),
+            torch.where(ok, _round_f32(yhi + my, True), inf))
+
+
+WARP = 32  # pooled pixels per warp of the slab kernel
+
+
+def slab_pixel_rects(planes: np.ndarray) -> np.ndarray:
+    """The screen rectangle of each pooled pixel's sub-rays: planes (4, C,
+    p2, n) → float32 (C, n, 4), the min/max of px and of py over the p2
+    sub-rays, as (xlo, xhi, ylo, yhi)."""
+    px, py = planes[0], planes[1]
+    return np.stack([px.min(1), px.max(1), py.min(1), py.max(1)], -1).astype(np.float32)
+
+
+def slab_order(n: int, width: int) -> np.ndarray:
+    """The slab kernel's order of a camera's pooled pixels: column by
+    column of the row-major (n / width, width) frame, so that a warp's run
+    of 32 is about 1.3 columns.  Position q holds pixel ``order[q]``."""
+    return np.arange(n).reshape(n // width, width).T.reshape(-1)
+
+
+def pose_boxes(scene: SceneParams, poses: torch.Tensor):
+    """Poses (E, 16) → the cart's and the pole's (center, quat, half
+    extents), the center and quat as float32 (E, 1) columns."""
+    col = lambda j: poses[:, j : j + 1].to(torch.float32)
+    return (((col(0), col(1), col(2)), (col(3), col(4), col(5), col(6)), scene.cart_half_extents),
+            ((col(7), col(8), col(9)), (col(10), col(11), col(12), col(13)),
+             scene.pole_half_extents))
+
+
+def slab_cast_mask(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta,
+                   p2: int, n: int, width: int) -> torch.Tensor:
+    """The casts the slab kernel makes: poses (E, 16) → bool (E, C, p2·n, 2).
+
+    A warp of the kernel holds a run of 32 pooled pixels of one camera in
+    :func:`slab_order` (the last run of a camera shorter).  It casts the
+    cart (0) or the pole (1) for every sub-ray of its pixels where the
+    rectangle of one pixel's sub-rays (:func:`slab_pixel_rects`) meets the
+    box's cull rectangle, and for none of them elsewhere; the mask holds
+    that decision per sub-ray, in the ray table's order.  ``width``: the
+    pooled frame's width."""
+    boxes = pose_boxes(scene, poses)
+    ray_abs = float(planes[:2].abs().max())
+    rects = torch.from_numpy(slab_pixel_rects(planes.cpu().numpy())).to(poses.device)
+    order = torch.from_numpy(slab_order(n, width)).to(poses.device)
+    run = torch.empty_like(order)
+    run[order] = torch.arange(n, device=poses.device) // WARP  # pixel → its warp's run
+    masks = []
+    for c, (basis, eye) in enumerate(cam_meta):
+        r = rects[c]  # (n, 4)
+        per_box = []
+        for center, quat, he in boxes:
+            xlo, xhi, ylo, yhi = slab_cull_rect(
+                _slab_setup(basis, eye, center, quat, LIGHT_DIR), he, ray_abs)
+            meets = ~((r[:, 1] < xlo) | (r[:, 0] > xhi) | (r[:, 3] < ylo) | (r[:, 2] > yhi))
+            in_order = torch.nn.functional.pad(meets[:, order], (0, -n % WARP))
+            runs = in_order.reshape(meets.shape[0], -1, WARP).any(-1)
+            per_box.append(runs[:, run].repeat(1, p2))  # (E, p2·n): the p2 blocks of n
+        masks.append(torch.stack(per_box, dim=-1))
+    return torch.stack(masks, dim=1)
+
+
+def slab_cull_violations(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor,
+                         cam_meta, p2: int, n: int, width: int) -> int:
+    """How many (sub-ray, box) casts that :func:`slab_cast_mask` skips on
+    poses (E, 16) the slab cast hits, in float32 with the exact reciprocal
+    (:func:`_ray_obb_affine`'s arithmetic) or in float64 from the same
+    setup: 0 where the cull is conservative on these poses."""
+    mask = slab_cast_mask(scene, poses, planes, cam_meta, p2, n, width)
+    count = 0
+    for c, (basis, eye) in enumerate(cam_meta):
+        rows = planes[:, c].reshape(4, 1, p2 * n)
+        for b, (center, quat, he) in enumerate(pose_boxes(scene, poses)):
+            setup = _slab_setup(basis, eye, center, quat, LIGHT_DIR)
+            setup64 = tuple(tuple(x.double() for x in v) for v in setup)
+            hit = (_slab_cast(rows[0], rows[1], setup, he)[3]
+                   | _slab_cast(rows[0].double(), rows[1].double(), setup64, he)[3])
+            count += int((hit & ~mask[:, c, :, b]).sum())
+    return count
+
+
+def cull_probe_poses(e: int, seed: int) -> torch.Tensor:
+    """Poses chosen to break the slab cull, (e, 16) float32 from ``seed``,
+    in five families of about e/5: a pole lying at eye height beside a
+    camera, the eye inside its slabs; a pole lying flat on the ground; a
+    cart (tilted, any yaw) near or past the frame's border; a pole whose
+    tip lies near the camera plane of one camera, in front or behind; and
+    both boxes anywhere with any orientation."""
+    rng = np.random.default_rng(seed)
+    fam = np.arange(e) % 5
+    pos = np.zeros((e, 2, 3))
+    quat = np.zeros((e, 2, 4))
+    pos[:, 0] = (0.0, 0.0, 0.1)
+    quat[:, :, 0] = 1.0
+
+    def axis_angle(axis, angle):
+        axis = axis / np.linalg.norm(axis, axis=-1, keepdims=True)
+        return np.concatenate([np.cos(angle / 2)[:, None], axis * np.sin(angle / 2)[:, None]], -1)
+
+    def random_quat(k):
+        q = rng.normal(size=(k, 4))
+        return q / np.linalg.norm(q, axis=-1, keepdims=True)
+
+    cams = [(np.asarray(c.eye), np.asarray(c.target) - np.asarray(c.eye)) for c in DEFAULT_CAMERAS]
+    for f in range(5):
+        idx = np.nonzero(fam == f)[0]
+        k = len(idx)
+        cam = rng.integers(0, 2, k)
+        eye = np.stack([cams[c][0] for c in cam])
+        if f == 0:  # pole along the camera's view axis line at eye height, offset sideways
+            side = rng.choice((-1.0, 1.0), k) * rng.uniform(0.06, 1.0, k)
+            along = rng.uniform(-0.4, 0.6, k)
+            lift = rng.uniform(-0.04, 0.04, k)
+            axis = np.where(cam[:, None] == 0, [[1.0, 0.0, 0.0]], [[0.0, 1.0, 0.0]])
+            off = np.where(cam[:, None] == 0, np.stack([side, along, lift], -1),
+                           np.stack([along, side, lift], -1))
+            pos[idx, 1] = eye + off
+            quat[idx, 1] = axis_angle(axis, np.full(k, np.pi / 2) + rng.normal(0, 0.05, k))
+        elif f == 1:  # pole flat on the ground, any yaw
+            pos[idx, 1] = np.stack([rng.uniform(-2, 2, k), rng.uniform(-2, 2, k),
+                                    np.full(k, 0.05)], -1)
+            yaw = axis_angle(np.tile([0.0, 0.0, 1.0], (k, 1)), rng.uniform(0, 2 * np.pi, k))
+            tip = axis_angle(np.tile([1.0, 0.0, 0.0], (k, 1)), np.full(k, np.pi / 2))
+            quat[idx, 1] = _q_mul(yaw, tip)
+            pos[idx, 0] = np.stack([rng.uniform(-1.5, 1.5, k), rng.uniform(-1.5, 1.5, k),
+                                    np.full(k, 0.1)], -1)
+        elif f == 2:  # cart near or past the frame's border
+            pos[idx, 0] = np.stack([rng.uniform(-2.5, 2.5, k), rng.uniform(-1.8, 2.5, k),
+                                    rng.uniform(0.0, 0.6, k)], -1)
+            quat[idx, 0] = _q_mul(axis_angle(np.tile([0.0, 0.0, 1.0], (k, 1)),
+                                             rng.uniform(0, 2 * np.pi, k)),
+                                  axis_angle(rng.normal(size=(k, 3)), rng.uniform(0, 0.6, k)))
+            pos[idx, 1] = pos[idx, 0] + (0.0, 0.0, 0.7)
+        elif f == 3:  # pole tip near the camera plane
+            fwd = np.stack([cams[c][1] / np.linalg.norm(cams[c][1]) for c in cam])
+            depth = np.where(rng.random(k) < 0.25, 0.0, rng.uniform(-0.3, 0.3, k))
+            lateral = rng.normal(size=(k, 3)) * rng.uniform(0.0, 0.3, k)[:, None]
+            lateral -= (lateral * fwd).sum(-1, keepdims=True) * fwd
+            tip = eye + depth[:, None] * fwd + lateral
+            q = random_quat(k)
+            w, x, y, z = q.T
+            long_axis = np.stack([2 * (x * z + w * y), 2 * (y * z - w * x),
+                                  1 - 2 * (x * x + y * y)], -1)
+            pos[idx, 1] = tip - 0.5 * long_axis
+            quat[idx, 1] = q
+        else:  # anywhere
+            pos[idx] = np.stack([rng.uniform(-3, 3, (k, 2)), rng.uniform(-3, 3, (k, 2)),
+                                 rng.uniform(-0.5, 2.0, (k, 2))], -1)
+            quat[idx, 0], quat[idx, 1] = random_quat(k), random_quat(k)
+    quat /= np.linalg.norm(quat, axis=-1, keepdims=True)
+    out = np.zeros((e, 16), np.float32)
+    out[:, 0:3], out[:, 3:7] = pos[:, 0], quat[:, 0]
+    out[:, 7:10], out[:, 10:14] = pos[:, 1], quat[:, 1]
+    return torch.from_numpy(out)
+
+
+def _q_mul(a, b):
+    """Hamilton product of (k, 4) numpy quaternions (w, x, y, z)."""
+    aw, ax, ay, az = a.T
+    bw, bx, by, bz = b.T
+    return np.stack([aw * bw - ax * bx - ay * by - az * bz,
+                     aw * bx + ax * bw + ay * bz - az * by,
+                     aw * by - ax * bz + ay * bw + az * bx,
+                     aw * bz + ax * by - ay * bx + az * bw], -1)
+
+
+def _slab_cast_where(px, py, setup, half_extents, mask):
+    """:func:`_slab_cast` (``recip``) of the (env, ray) pairs of ``mask``
+    (E, P) only, the others a miss: the same values where it casts, so the
+    same frames, and the operations of only those casts."""
+    ie, ip = mask.nonzero(as_tuple=True)
+    sub = tuple(tuple(col[ie, 0] for col in v) for v in setup)
+    t, _, lam, hit = _slab_cast(px[0, ip], py[0, ip], sub, half_extents, True)
+    t_all = torch.full(mask.shape, _BIG, dtype=torch.float32, device=mask.device)
+    lam_all = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    hit_all = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
+    t_all[ie, ip], lam_all[ie, ip], hit_all[ie, ip] = t, lam, hit
+    return t_all, torch.ones_like(t_all), lam_all, hit_all
 
 
 def _obb_q_setup(basis, eye, center, quat, half_extents, light):
@@ -342,7 +604,7 @@ def bound_planes(rays: torch.Tensor, su_c, su_p):
 def render_frames(
     scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta, p2: int, n: int,
     quantize: bool = True, raster: bool = False, recip: bool = True, hoist: bool = False,
-    mxu: bool = False,
+    mxu: bool = False, cast_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Render one frame per env from poses (E, 16) → (E, C·3·n).
 
@@ -357,14 +619,14 @@ def render_frames(
       (:func:`bound_planes`).  ``recip`` is ignored.
     - else the slab cascade: with ``recip`` an exact reciprocal, else the
       division-free ratio cascade ordered by ``nc·dp ≤ np·dc``.  ``hoist``
-      and ``mxu`` are ignored.
+      and ``mxu`` are ignored.  With ``recip``, ``cast_mask`` (E, C, p2·n,
+      2) from :func:`slab_cast_mask` casts only the (ray, box) pairs it
+      holds and takes a miss elsewhere, as the slab kernel culls.
     """
     col = lambda j: poses[:, j : j + 1].to(torch.float32)
     cart_c, cart_q = (col(0), col(1), col(2)), (col(3), col(4), col(5), col(6))
     pole_c, pole_q = (col(7), col(8), col(9)), (col(10), col(11), col(12), col(13))
     setups = pack_setups(scene, cam_meta, poses) if raster and hoist else None
-    inv_p2 = 1.0 / p2
-    zero = torch.zeros((), dtype=torch.float32, device=poses.device)
     out = []
     for c, (basis, eye) in enumerate(cam_meta):
         rows = planes[:, c].reshape(4, 1, p2 * n)
@@ -383,30 +645,49 @@ def render_frames(
             qc, lam_c, hit_c = _obb_q_cast(px, py, su_c, b_c)
             qp, lam_p, hit_p = _obb_q_cast(px, py, su_p, b_p)
             sel_c = hit_c & (qc >= qp)
+        elif recip and cast_mask is not None:
+            nc, dc, lam_c, hit_c = _slab_cast_where(
+                px, py, _slab_setup(basis, eye, cart_c, cart_q, LIGHT_DIR),
+                scene.cart_half_extents, cast_mask[:, c, :, 0])
+            np_, dp, lam_p, hit_p = _slab_cast_where(
+                px, py, _slab_setup(basis, eye, pole_c, pole_q, LIGHT_DIR),
+                scene.pole_half_extents, cast_mask[:, c, :, 1])
+            sel_c = hit_c & (nc <= np_)
         else:
             nc, dc, lam_c, hit_c = _ray_obb_affine(
                 px, py, basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR, recip)
             np_, dp, lam_p, hit_p = _ray_obb_affine(
                 px, py, basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR, recip)
             sel_c = hit_c & ((nc <= np_) if recip else (nc * dp <= np_ * dc))
-        sel_p = hit_p & ~sel_c
-        lambert = torch.clamp(torch.where(sel_c, lam_c, lam_p), min=0.0)
-        shade = _AMBIENT + (1.0 - _AMBIENT) * lambert
-        bgm = ~(sel_c | sel_p)
-        fields = (
-            torch.where(sel_c, shade, zero),
-            torch.where(sel_p, shade, zero),
-            torch.where(bgm, gval, zero),
-            torch.where(bgm, smask, zero),
-        )
-        # Pool: sum the p2 sub-ray blocks of each pooled pixel.
-        a, b, g, s = (sum(f[:, i * n : (i + 1) * n] for i in range(p2)) * inv_p2 for f in fields)
-        for k in range(3):
-            color = CART_COLOR[k] * a + POLE_COLOR[k] * b + g + SKY_COLOR[k] * s
-            if quantize:
-                color = torch.floor(torch.clamp(color * 255.0 + 0.5, 0.0, 255.0)).to(torch.uint8)
-            out.append(color)
+        out.extend(shade_pool(sel_c, hit_p, lam_c, lam_p, gval, smask, p2, n, quantize))
     return torch.cat(out, dim=-1)
+
+
+def shade_pool(sel_c, hit_p, lam_c, lam_p, gval, smask, p2: int, n: int, quantize: bool = True):
+    """Shade each sub-ray (the cart where ``sel_c``, else the pole where
+    ``hit_p``, else the background) and pool: (…, p2·n) sub-ray rows, the
+    p2 blocks of n pooled pixels → the three colour planes, (…, n) each."""
+    zero = torch.zeros((), dtype=torch.float32, device=sel_c.device)
+    sel_p = hit_p & ~sel_c
+    lambert = torch.clamp(torch.where(sel_c, lam_c, lam_p), min=0.0)
+    shade = _AMBIENT + (1.0 - _AMBIENT) * lambert
+    bgm = ~(sel_c | sel_p)
+    fields = (
+        torch.where(sel_c, shade, zero),
+        torch.where(sel_p, shade, zero),
+        torch.where(bgm, gval, zero),
+        torch.where(bgm, smask, zero),
+    )
+    # Pool: sum the p2 sub-ray blocks of each pooled pixel.
+    inv_p2 = 1.0 / p2
+    a, b, g, s = (sum(f[..., i * n : (i + 1) * n] for i in range(p2)) * inv_p2 for f in fields)
+    out = []
+    for k in range(3):
+        color = CART_COLOR[k] * a + POLE_COLOR[k] * b + g + SKY_COLOR[k] * s
+        if quantize:
+            color = torch.floor(torch.clamp(color * 255.0 + 0.5, 0.0, 255.0)).to(torch.uint8)
+        out.append(color)
+    return out
 
 
 def make_observe_pixels(config, dtype=torch.uint8, raster: bool = False):

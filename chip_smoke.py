@@ -27,12 +27,21 @@ set to 0 just before it and read just after:
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
 byte-equal to K5a and K5d within the silhouette rule of K5a;
-``parity_owed`` for K3/K4 at one sample per pooled pixel and K1/K2 at 8192
-envs); torch.profiler traces of a few acting steps and of one training
-segment per row give the card's busy share and the learner's share of it.
-Each phase prints one JSON line with the elapsed seconds; the line before
-the last two holds every kernel's launches, error, time and bound; the
-last line is ``{"ok": true, "device": {...}}``.
+``parity_owed`` for K3/K4 at one sample per pooled pixel, on poses chosen
+to break the slab kernel's cull (``raycast.cull_probe_poses``) and at two
+frame sizes too large to stage three repeats of in shared memory, and
+K1/K2 at 8192 envs and at 4097, a count that is not a multiple of 32;
+``parity_training_end`` for K3 on poses from the end of the config-5
+training row, where it is also timed); torch.profiler traces of a few
+acting steps and of one training segment per row give the card's busy
+share and the learner's share of it.  On every slab pose set the cull is
+checked where it could fail (``cull_check``: no skipped cast that the
+plain cast hits, frames byte-equal to the kernel's own with culling off)
+and the share of box casts it skips is printed.  Each phase prints one
+JSON line with the elapsed seconds; the line before the last two holds
+every kernel's launches, error, time, bound, registers and spills (K3/K4's
+bound counts the work these inputs need, with the full-work bound beside
+it); the last line is ``{"ok": true, "device": {...}}``.
 
 A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
 Without CUDA, or without the port beside it, the script fails before
@@ -67,7 +76,7 @@ from cartpoleplusplus_tpu_torch.models.networks import Actor
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
-from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+from cartpoleplusplus_tpu_torch.render.cuda_render import SLAB, Renderer, slab_blocking
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import roofline
 
@@ -76,6 +85,8 @@ SEED = 0
 NUM_ENVS = 4096
 PARITY_ENVS = 1024
 OWED_PHYS_ENVS = 8192  # K1/K2 parity at twice the main path's width
+RAGGED_ENVS = 4097     # K1/K2 parity at a count that is not a multiple of 32
+PROBE_POSES = 4096     # raycast.cull_probe_poses: poses chosen to break K3's cull
 SIM_ONLY_WINDOWS = 3
 EVAL_ROLLOUTS = 3
 SIM_ONLY_STEPS = 700  # per window: over a second at 1.6-1.9 ms per step
@@ -112,6 +123,14 @@ CONFIG5 = CartpoleConfig(num_cameras=2, obs_samples=2, **_ROW)        # 2cam_sam
 CONFIG1_EXACT = CartpoleConfig(num_cameras=1, obs_samples=0, **_ROW)  # 1cam_exact
 CONFIG2_EXACT = CartpoleConfig(num_cameras=2, obs_samples=0, **_ROW)  # raster parity only
 CONFIG1_S1 = CartpoleConfig(num_cameras=1, obs_samples=1, **_ROW)     # 1cam_samples1: p2 = 1
+# Frames larger than the slab kernel stages in shared memory for 3 repeats:
+# config 5 at 192 x 192 (a frame over SLAB_FRAME_BYTES: written straight to
+# global memory) and one camera unpooled at 124 x 124 (one repeat per block).
+CONFIG5_WIDE = CartpoleConfig(num_cameras=2, obs_samples=2,
+                              **{**_ROW, "render_width": 192, "render_height": 192})
+CONFIG1_UNPOOLED = CartpoleConfig(num_cameras=1, obs_samples=1, **{
+    **_ROW, "render_width": 124, "render_height": 124, "obs_pool": 1})
+LARGE_FRAME_ENVS = 256
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -260,6 +279,141 @@ def pixel_check(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     if 1.0 - beyond < PIX_SHARE or res["mean_abs_err"] >= PIX_MEAN:
         raise AssertionError(f"{name} disagrees with its plain version: {res}")
     return res
+
+
+def cast_shares(scene, rnd, poses) -> dict:
+    """Share of box casts the slab kernel's cull skips on poses (R, E, 16),
+    for the cart and the pole: of all (sub-ray, box) casts, those in warps
+    that skip the box (the plain predicate, ``raycast.slab_cast_mask``)."""
+    skipped = torch.stack([
+        1.0 - raycast.slab_cast_mask(scene, poses[r], rnd.planes, rnd.cam_meta, rnd.p2, rnd.n,
+                                     rnd.width).float().mean(dim=(0, 1, 2))
+        for r in range(poses.shape[0])]).mean(0)
+    return {"cart": float(skipped[0]), "pole": float(skipped[1])}
+
+
+def cull_check(scene, rnd, poses, name: str) -> dict:
+    """The slab kernel's cull on poses (R, E, 16), where it could fail:
+    the casts the plain predicate skips that the slab cast hits
+    (``raycast.slab_cull_violations``, which must be 0), and the kernel's
+    frames byte-equal to its own with culling off (``ray_abs`` = inf
+    widens every cull rectangle to the plane).  Plus the share of casts
+    skipped."""
+    violations = sum(raycast.slab_cull_violations(scene, poses[r], rnd.planes, rnd.cam_meta,
+                                                  rnd.p2, rnd.n, rnd.width)
+                     for r in range(poses.shape[0]))
+    frames = []
+    for ray_abs in (rnd.ray_abs, float("inf")):
+        params = rnd.kernel_params(scene)
+        params.ray_abs = ray_abs
+        out = torch.empty((poses.shape[1], poses.shape[0], rnd.frame_width), dtype=torch.uint8,
+                          device=poses.device)
+        rnd.launch(params, poses.contiguous(), out)
+        frames.append(out)
+    differ = int((frames[0] != frames[1]).sum())
+    if violations or differ:
+        raise AssertionError(f"{name}: the slab cull skipped {violations} hitting casts; "
+                             f"{differ} bytes differ from the kernel's frames without culling")
+    return {"violations": violations, "bytes_differing_from_uncull": differ,
+            "skipped_cast_share": cast_shares(scene, rnd, poses)}
+
+
+def needed_plain(scene, rnd, poses):
+    """The slab mode's plain version doing only the work these inputs need,
+    as a function of poses (R, E, 16): each box cast only for the sub-rays
+    it hits, a pooled pixel shaded and pooled only where a sub-ray of it
+    hits a box, every other pixel the background colour of its static ray
+    rows (a table, no operation).  The hits and indices are found here,
+    outside the function, by the plain cast.  Its op census is the work
+    these inputs need; its frames are the plain version's."""
+    p2, n = rnd.p2, rnd.n
+    e = poses.shape[1]
+    miss = torch.zeros((1, p2 * n), dtype=torch.bool, device=poses.device)
+    zeros = torch.zeros((1, p2 * n), device=poses.device)
+    plan, background = [], []
+    for c in range(len(rnd.cam_meta)):
+        rows = rnd.planes[:, c].reshape(4, 1, p2 * n)
+        background.append(raycast.shade_pool(miss, miss, zeros, zeros, rows[2], rows[3], p2, n))
+    for r in range(poses.shape[0]):
+        for c, (basis, eye) in enumerate(rnd.cam_meta):
+            rows = rnd.planes[:, c].reshape(4, 1, p2 * n)
+            hits = [raycast._slab_cast(rows[0], rows[1], raycast._slab_setup(
+                basis, eye, center, quat, raycast.LIGHT_DIR), he)[3]
+                for center, quat, he in raycast.pose_boxes(scene, poses[r])]
+            ie, ij = (hits[0] | hits[1]).reshape(e, p2, n).any(1).nonzero(as_tuple=True)
+            sub = (torch.arange(p2, device=poses.device)[:, None] * n + ij).reshape(-1)
+            plan.append((hits, ie, ij, ie.repeat(p2), sub))
+
+    def run():
+        frames, i = [], 0
+        for r in range(poses.shape[0]):
+            boxes, out = raycast.pose_boxes(scene, poses[r]), []
+            for c, (basis, eye) in enumerate(rnd.cam_meta):
+                hits, ie, ij, ie_sub, sub = plan[i]
+                i += 1
+                rows = rnd.planes[:, c].reshape(4, 1, p2 * n)
+                (tc, _, lc, hc), (tp, _, lp, hp) = (
+                    raycast._slab_cast_where(rows[0], rows[1], raycast._slab_setup(
+                        basis, eye, center, quat, raycast.LIGHT_DIR), he, hit)
+                    for (center, quat, he), hit in zip(boxes, hits))
+                at = lambda t: t[ie_sub, sub][None]  # the hit pixels' sub-rays, p2 blocks
+                colors = raycast.shade_pool(at(hc) & (at(tc) <= at(tp)), at(hp), at(lc), at(lp),
+                                            rows[2][:, sub], rows[3][:, sub], p2, len(ie))
+                for k in range(3):
+                    plane = background[c][k].expand(e, n).clone()
+                    plane[ie, ij] = colors[k][0]
+                    out.append(plane)
+            frames.append(torch.cat(out, dim=-1))
+        return torch.stack(frames, dim=1)
+
+    return run
+
+
+def probe_rigid(poses: torch.Tensor) -> RigidState:
+    """Poses (E, 16) as a RigidState at rest (K4's input)."""
+    zeros = torch.zeros((poses.shape[0], 2, 3), device=poses.device)
+    return RigidState(pos=torch.stack([poses[:, 0:3], poses[:, 7:10]], 1),
+                      quat=torch.stack([poses[:, 3:7], poses[:, 10:14]], 1), vel=zeros, ang=zeros)
+
+
+# Mangled-name fragments of each kernel's CUDA function, for its ptxas
+# registers and spills.
+PTXAS_NAMES = {
+    "step_repeats": "phys_kernelILb1E", "step_substeps": "phys_kernelILb0E",
+    "render_repeats": "render_slab_kernelILb1E", "render_batched": "render_slab_kernelILb1E",
+    "render_repeats_raster": "render_kernelILi1E", "render_batched_raster": "render_kernelILi1E",
+    "render_repeats_ratio": "render_kernelILi2E", "render_batched_ratio": "render_kernelILi2E",
+    "pack_setups": "pack_setups_kernel",
+    "render_repeats_raster_hoist": "render_kernelILi3E",
+    "render_batched_raster_hoist": "render_kernelILi3E",
+    "render_repeats_raster_mxu": "render_mxu_kernelILb0E",
+    "render_batched_raster_mxu": "render_mxu_kernelILb0E",
+}
+
+
+def ptxas_usage(log: str) -> dict:
+    """``nvcc -Xptxas -v`` output → {mangled function: {registers,
+    spill_bytes}} (spill stores plus loads)."""
+    out, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            current = out.setdefault(m.group(1), {})
+        elif current is not None and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif current is not None and (m := re.search(r"Used (\d+) registers", line)):
+            current["registers"] = int(m.group(1))
+    return out
+
+
+def usage_of(usage: dict, name: str) -> dict:
+    """A kernel's registers and spill bytes from :func:`ptxas_usage`
+    (None where the build log names no such function)."""
+    fragment = PTXAS_NAMES.get(name)
+    found = [v for k, v in usage.items() if fragment and fragment in k]
+    return {"registers": found[0].get("registers") if found else None,
+            "spill_bytes": found[0].get("spill_bytes") if found else None}
 
 
 def raw_launches(scene, renderer, rigid, force, poses, spr, n_push):
@@ -556,7 +710,8 @@ def training_profile(st, segment, step_ms: float) -> dict:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     total_us = sum(by_name.values())
     ours_us = sum(v for k, v in by_name.items()
-                  if any(n in k for n in ("render_kernel", "render_mxu_kernel", "phys_kernel",
+                  if any(n in k for n in ("render_kernel", "render_slab_kernel",
+                                          "render_mxu_kernel", "phys_kernel",
                                           "pack_setups_kernel")))
     per_step = lambda us: us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
@@ -706,10 +861,51 @@ def run() -> int:
             slab_s1.plain(scene, raycast.poses_from_rigid(state_s1.rigid)[None])[:, 0]),
     }
     phys_8k, _ = phys_parity(scene, *parity_inputs(scene, dev, OWED_PHYS_ENVS))
+    phys_ragged, _ = phys_parity(scene, *parity_inputs(scene, dev, RAGGED_ENVS))
+    # K3/K4 on poses chosen to break the slab kernel's cull: the eye inside a
+    # slab, a pole lying flat, a cart at the frame's border, a pole tip at
+    # the camera plane, anything anywhere (raycast.cull_probe_poses).
+    probe = raycast.cull_probe_poses(PROBE_POSES, SEED).to(dev)
+    pix_probe = {
+        "render_repeats": pixel_check("render_repeats_probe", renderer.render_repeats(
+            scene, probe[None]), renderer.plain(scene, probe[None])),
+        "render_batched": pixel_check("render_batched_probe", renderer.render_batched(
+            scene, probe_rigid(probe)), renderer.plain(scene, probe[None])[:, 0]),
+    }
+    other_errs = {
+        "step_repeats": {f"{OWED_PHYS_ENVS}_envs": phys_8k["step_repeats"],
+                         f"{RAGGED_ENVS}_envs": phys_ragged["step_repeats"]},
+        "step_substeps": {f"{OWED_PHYS_ENVS}_envs": phys_8k["step_substeps"],
+                          f"{RAGGED_ENVS}_envs": phys_ragged["step_substeps"]},
+        **{k: {"p2_1": pix_s1[k]["max_abs_err"], "adversarial": pix_probe[k]["max_abs_err"]}
+           for k in ("render_repeats", "render_batched")},
+    }
+    # The cull where it could fail, and frames too large to stage 3 repeats
+    # of in shared memory (config 5 at 192 x 192: straight to global memory;
+    # one camera unpooled at 124 x 124: one repeat per block), on the
+    # probe's poses as 3 repeats.
+    cull = {"seeded": cull_check(scene, renderer, poses_seeded, "seeded"),
+            "p2_1": cull_check(scene, slab_s1, poses_s1, "p2_1"),
+            "adversarial": cull_check(scene, renderer, probe[None], "adversarial")}
+    probe3 = probe[: 3 * LARGE_FRAME_ENVS].reshape(3, LARGE_FRAME_ENVS, 16)
+    large = {}
+    for key, cfg in (("config5_192", CONFIG5_WIDE), ("1cam_unpooled_124", CONFIG1_UNPOOLED)):
+        rnd = Renderer(cfg, dev)
+        large[key] = dict(
+            blocking=dict(zip(("reps", "staged"), slab_blocking(rnd.num_cams, rnd.n, 3))),
+            render_repeats=pixel_check(f"render_repeats_{key}", rnd.render_repeats(scene, probe3),
+                                       rnd.plain(scene, probe3)),
+            cull=cull_check(scene, rnd, probe3, key))
+        other_errs["render_repeats"][key] = large[key]["render_repeats"]["max_abs_err"]
     emit("parity_owed", physics_atol=PHYS_ATOL,
          one_cam_samples1=dict(envs=NUM_ENVS, p2=slab_s1.p2, n=slab_s1.n, **pix_s1),
          physics=dict(envs=OWED_PHYS_ENVS, step_substeps_max_abs_err=phys_8k["step_substeps"],
-                      step_repeats_max_abs_err=phys_8k["step_repeats"]))
+                      step_repeats_max_abs_err=phys_8k["step_repeats"]),
+         physics_ragged=dict(envs=RAGGED_ENVS,
+                             step_substeps_max_abs_err=phys_ragged["step_substeps"],
+                             step_repeats_max_abs_err=phys_ragged["step_repeats"]),
+         adversarial=dict(envs=PROBE_POSES, **pix_probe), cull=cull,
+         large_frames=dict(envs=LARGE_FRAME_ENVS, **large))
     del venv_s1, state_s1, obs_s1
 
     # 5. acting main path at config 5, full width
@@ -783,6 +979,18 @@ def run() -> int:
         launches_by_path[f"train_{name}"] = line["launches"]
         emit(f"train_{name}", **line)
 
+    # Poses from the end of the config-5 training row: its env states after
+    # the timed windows, stepped once under the seeded actor.
+    st5 = trained["2cam_samples2"]["state"]
+    with torch.no_grad():
+        force_te = cartpole.action_to_force(CONFIG5, act(st5.obs))
+    _, poses_te = soa.step_repeats_batched(scene, st5.env_states.rigid, force_te, spr, reps)
+    pix_te = pixel_check("render_repeats_training_end", renderer.render_repeats(scene, poses_te),
+                         renderer.plain(scene, poses_te))
+    cull["training_end"] = cull_check(scene, renderer, poses_te, "training_end")
+    other_errs["render_repeats"]["training_end"] = pix_te["max_abs_err"]
+    emit("parity_training_end", envs=NUM_ENVS, render_repeats=pix_te, cull=cull["training_end"])
+
     # 7. one TD3 segment at the 1cam_exact row
     td3_opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=True)
     td3_state = ddpg.init_state(td3_opts, CONFIG1_EXACT, venv1)
@@ -848,6 +1056,10 @@ def run() -> int:
     errs.update(mode_errs)
     errs.update(k6_errs)
     _, poses0 = cuda_step.step_repeats(scene, rigid0, force0, spr, reps)
+    cull["main_path"] = cull_check(scene, renderer, poses0, "main_path")
+    # K3/K4's work depends on the data: their bound is the census of the
+    # work these inputs need (needed_plain), the full-work census beside it.
+    full_ops = {}
     # name → (wrapper call or None, plain version, bytes, operations or None
     # for the census of the plain version)
     work = {
@@ -879,16 +1091,23 @@ def run() -> int:
         pack_ops = lambda pos, rnd=rnd: census(
             lambda: raycast.pack_setups(scene, rnd.cam_meta, pos)) if rnd.hoist else 0
         pos_b = raycast.poses_from_rigid(rig)[None]
+        ops_r = census(lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos)
+        ops_b = census(lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b)
+        if rnd.mode == SLAB:
+            full_ops["render_repeats"], full_ops["render_batched"] = ops_r, ops_b
+            needed = needed_plain(scene, rnd, pos), needed_plain(scene, rnd, pos_b)
+            for fn, p_in in zip(needed, (pos, pos_b)):
+                if not torch.equal(fn(), rnd.plain(scene, p_in)):
+                    raise AssertionError("needed_plain's frames differ from the plain version")
+            ops_r, ops_b = census(needed[0]), census(needed[1])
         work["render_repeats" + suffix] = (
             lambda rnd=rnd, pos=pos: rnd.render_repeats(scene, pos),
             lambda rnd=rnd, pos=pos: rnd.plain(scene, pos),
-            reps * e * in_width * 4 + ray_bytes + e * reps * frame_bytes,
-            census(lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos))
+            reps * e * in_width * 4 + ray_bytes + e * reps * frame_bytes, ops_r)
         work["render_batched" + suffix] = (
             lambda rnd=rnd, rig=rig: rnd.render_batched(scene, rig),
             lambda rnd=rnd, pos_b=pos_b: rnd.plain(scene, pos_b),
-            e * in_width * 4 + ray_bytes + e * frame_bytes,
-            census(lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b))
+            e * in_width * 4 + ray_bytes + e * frame_bytes, ops_b)
         if suffix:
             mode_raw = raw_launches(scene, rnd, rig, force0, pos, spr, n_push)
             raw.update({k + suffix: v for k, v in mode_raw.items() if k.startswith("render")})
@@ -908,6 +1127,10 @@ def run() -> int:
             mix, x, out, K6_ROW_ITERS)
     total_launches = {name: sum(p.get(name, 0) for p in launches_by_path.values())
                       for name, _, _ in KERNELS}
+    frames_te = torch.empty((e, reps, renderer.frame_width), dtype=torch.uint8, device=dev)
+    render_p, poses_te = renderer.kernel_params(scene), poses_te.contiguous()
+    k3_training_end_ms = time_ms(lambda: renderer.launch(render_p, poses_te, frames_te), reps=50)
+    usage = ptxas_usage(info["log"])
     rows = []
     with torch.no_grad():
         for name, source, replaces in KERNELS:
@@ -928,7 +1151,19 @@ def run() -> int:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None,
                 "census_ops": ops, "bytes": nbytes,
+                **usage_of(usage, name),
             })
+            if name in full_ops:
+                rows[-1]["bound_ms_full_work"] = max(
+                    t_bytes, full_ops[name] / PEAK_F32_OPS_PER_S * 1e3)
+                rows[-1]["census_ops_full_work"] = full_ops[name]
+                rows[-1]["skipped_cast_share"] = cull["main_path"]["skipped_cast_share"]
+            if name == "render_repeats":
+                rows[-1]["ms_training_end"] = k3_training_end_ms
+                rows[-1]["skipped_cast_share_training_end"] = (
+                    cull["training_end"]["skipped_cast_share"])
+            if name in other_errs:
+                rows[-1]["other_max_abs_err"] = other_errs[name]
     # Where a main-path step goes: the actor's forward at full width beside
     # the kernels' times and the measured wall time of a sim-only step.
     actor_ms = time_ms(lambda: act(obs0), reps=20)

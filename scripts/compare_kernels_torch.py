@@ -1,0 +1,260 @@
+#!/usr/bin/env python3
+"""Compare the port's K1-K4 kernels of two source trees on one GPU.
+
+    python3 scripts/compare_kernels_torch.py --parent DIR [--out DIR]
+
+``DIR`` holds another tree's ``cartpoleplusplus_tpu_torch`` package (for
+example the parent commit, unpacked with ``git archive <commit>
+cartpoleplusplus_tpu_torch | tar -x -C DIR``).  This tree's package makes
+the inputs on the card and saves them; then each tree is run in a process
+of its own, in the order parent, this tree, this tree, parent.  Each run
+builds its tree's kernels, launches K1 (``step_repeats``), K2
+(``step_substeps``), K3 (``render_repeats``) and K4 (``render_batched``) in
+the slab mode through the package's ``launch`` functions on every input
+set, keeps the outputs (states, poses, frames) and times each launch with
+CUDA events.  The script then checks that the two trees' outputs are equal
+byte for byte on every set, and that each tree repeats its own outputs.
+
+Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
+5 substeps, 3 solver iterations):
+
+- ``main_path``: 4096 envs' reset state, a seeded greedy actor's force, the
+  poses of one step of the plain physics;
+- ``training_end``: the env states after a few DDPG training segments at
+  4096 envs, stepped once under the same actor;
+- ``seeded``: 1024 states from the reset push and three random steps;
+- ``wide``: 8192 such states; ``ragged``: 4097 (K1/K2 only);
+- ``p2_1``: the 1cam_samples1 row's reset state and one step under a zero
+  force (one sample per pooled pixel; K3/K4 only);
+- ``adversarial``: 4096 poses of ``raycast.cull_probe_poses`` (K3/K4
+  only), seen by 2 cameras.
+
+For each K3/K4 set it prints the share of box casts that the slab kernel
+skips, by the plain cull predicate (``chip_smoke.cast_shares``).  Prints
+the result as one JSON line with the card's ``nvidia-smi`` name and power
+limit, and writes it to ``result.json`` in ``--out`` when given.  Exits nonzero where the trees'
+outputs differ or a tree does not repeat itself.  Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from types import SimpleNamespace
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+SEED = 0
+ENVS = 4096
+REPS = 50
+TRAIN_SEGMENTS = 3
+PHYS_SETS = ("main_path", "training_end", "seeded", "wide", "ragged")
+RENDER_SETS = ("main_path", "training_end", "seeded", "p2_1", "adversarial")
+
+
+def _configs():
+    from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
+    row = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
+               obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
+    return (CartpoleConfig(num_cameras=2, obs_samples=2, **row),
+            CartpoleConfig(num_cameras=1, obs_samples=1, **row))
+
+
+def make_inputs(path: str) -> dict:
+    """Every input set on the card, saved to ``path`` → cast shares."""
+    from cartpoleplusplus_tpu_torch.agents import ddpg
+    from cartpoleplusplus_tpu_torch.agents.common import make_venv
+    from cartpoleplusplus_tpu_torch.env import cartpole
+    from cartpoleplusplus_tpu_torch.models.networks import Actor
+    from cartpoleplusplus_tpu_torch.physics import soa
+    from cartpoleplusplus_tpu_torch.render import raycast
+    from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+
+    import chip_smoke
+
+    cfg5, cfg_s1 = _configs()
+    dev = torch.device("cuda")
+    scene = cartpole.scene_for(cfg5)
+    spr, reps = cfg5.steps_per_repeat, cfg5.action_repeats
+    actor = Actor(cfg5.obs_shape, use_raw_pixels=True, height=cfg5.obs_height,
+                  width=cfg5.obs_width, generator=torch.Generator().manual_seed(SEED))
+    act = ddpg.greedy_act(actor)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def stepped(rigid, force):
+        return soa.step_repeats_batched(scene, rigid, force, spr, reps)[1]
+
+    sets = {}
+    venv = make_venv(cfg5, ENVS)
+    state, obs = venv.reset(gen)
+    with torch.no_grad():
+        force = cartpole.action_to_force(cfg5, act(obs))
+    sets["main_path"] = (state.rigid, force, stepped(state.rigid, force))
+
+    opts = SimpleNamespace(seed=SEED, replay_capacity=8192, twin_critic=False)
+    st = ddpg.init_state(opts, cfg5, venv)
+    segment = ddpg.make_segment(venv, gamma=0.99, tau=0.005, batch_size=128, warmup_steps=0,
+                                steps_per_segment=20, ou_theta=0.15, ou_sigma=0.2)
+    for _ in range(TRAIN_SEGMENTS):
+        segment(st)
+    rigid = st.env_states.rigid
+    with torch.no_grad():
+        force = cartpole.action_to_force(cfg5, act(st.obs))
+    sets["training_end"] = (rigid, force, stepped(rigid, force))
+    for name, e in (("seeded", 1024), ("wide", 8192), ("ragged", 4097)):
+        rigid, force = chip_smoke.parity_inputs(scene, dev, e)
+        sets[name] = (rigid, force, stepped(rigid, force) if name == "seeded" else None)
+
+    venv_s1 = make_venv(cfg_s1, ENVS)
+    state, obs = venv_s1.reset(torch.Generator(device=dev).manual_seed(SEED))
+    force = torch.zeros((ENVS, 3), device=dev)
+    sets["p2_1"] = (state.rigid, force, stepped(state.rigid, force))
+    adv = raycast.cull_probe_poses(ENVS, SEED).to(dev)
+    sets["adversarial"] = (None, None, adv[None])
+
+    saved, shares = {}, {}
+    for name, (rigid, force, poses) in sets.items():
+        item = {}
+        if rigid is not None:
+            item["packed"] = soa.pack_state(rigid).contiguous()
+            item["force"] = force.t().contiguous()
+            item["poses_b"] = raycast.poses_from_rigid(rigid)[None].contiguous()
+        if poses is not None:
+            item["poses_r"] = poses.contiguous()
+            rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
+            shares[name] = chip_smoke.cast_shares(scene, rnd, poses)
+        saved[name] = item
+    torch.save(saved, path)
+    return shares
+
+
+def time_ms(fn) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(REPS):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / REPS
+
+
+def worker(tree: str, inputs: str, out: str) -> None:
+    """One tree's run: build, launch every kernel on every set, time."""
+    sys.path.insert(0, os.path.abspath(tree))
+    from cartpoleplusplus_tpu_torch import kernels
+    from cartpoleplusplus_tpu_torch.env import cartpole
+    from cartpoleplusplus_tpu_torch.physics import cuda_step
+    from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+
+    assert os.path.dirname(kernels.__file__).startswith(os.path.abspath(tree))
+    info = kernels.build()
+    cfg5, cfg_s1 = _configs()
+    dev = torch.device("cuda")
+    scene = cartpole.scene_for(cfg5)
+    spr, reps, n_push = cfg5.steps_per_repeat, cfg5.action_repeats, cfg5.initial_force_steps
+    phys_p = cuda_step.phys_params(scene)
+    sets = torch.load(inputs, map_location=dev)
+    outputs, ms = {}, {}
+    for name, item in sets.items():
+        if "packed" in item and name in PHYS_SETS:
+            packed, force = item["packed"], item["force"]
+            e = packed.shape[1]
+            s1, s2 = torch.empty_like(packed), torch.empty_like(packed)
+            poses = torch.empty((reps, e, 16), device=dev)
+            k1 = lambda: cuda_step.launch(phys_p, packed, force, s1, poses, reps, spr)
+            k2 = lambda: cuda_step.launch(phys_p, packed, force, s2, None, 1, n_push)
+            k1()
+            k2()
+            torch.cuda.synchronize()
+            outputs[f"{name}/step_repeats"] = (s1.cpu(), poses.cpu())
+            outputs[f"{name}/step_substeps"] = (s2.cpu(),)
+            ms[f"{name}/step_repeats"], ms[f"{name}/step_substeps"] = time_ms(k1), time_ms(k2)
+        if name in RENDER_SETS:
+            rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
+            params = rnd.kernel_params(scene)
+            for kernel, key in (("render_repeats", "poses_r"), ("render_batched", "poses_b")):
+                if key not in item:
+                    continue
+                p = item[key]
+                frames = torch.empty((p.shape[1], p.shape[0], rnd.frame_width), dtype=torch.uint8,
+                                     device=dev)
+                fn = lambda p=p, frames=frames: rnd.launch(params, p, frames)
+                fn()
+                torch.cuda.synchronize()
+                outputs[f"{name}/{kernel}"] = (frames.cpu(),)
+                ms[f"{name}/{kernel}"] = time_ms(fn)
+    torch.save({"outputs": outputs, "ms": ms, "ptxas": info["log"], "nvcc_s": info["nvcc_s"]},
+               out)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", help="directory holding the other tree's package")
+    ap.add_argument("--out", help="directory to write result.json into")
+    ap.add_argument("--worker", nargs=3, metavar=("TREE", "INPUTS", "OUT"), help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("compare_kernels_torch: no CUDA device", file=sys.stderr)
+        return 1
+    if args.worker:
+        worker(*args.worker)
+        return 0
+    if not args.parent:
+        ap.error("--parent is required")
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    t0 = time.monotonic()
+    trees = {"A": os.path.abspath(args.parent), "B": REPO}
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp:  # inputs and outputs: hundreds of MB
+        inputs = os.path.join(tmp, "inputs.pt")
+        shares = make_inputs(inputs)
+        for i, tag in enumerate("ABBA"):
+            out = os.path.join(tmp, f"run{i}_{tag}.pt")
+            subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[tag],
+                            inputs, out], check=True, timeout=900)
+            runs.append(torch.load(out))
+    equal, ok = {}, True
+    for key in runs[0]["outputs"]:
+        same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x["outputs"][key],
+                                                                  y["outputs"][key]))
+        equal[key] = {"a_vs_b": same(runs[0], runs[1]) and same(runs[3], runs[2]),
+                      "repeatable": same(runs[0], runs[3]) and same(runs[1], runs[2])}
+        ok = ok and all(equal[key].values())
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    ms = {k: [r["ms"][k] for r in runs] for k in runs[0]["ms"]}
+    result = {
+        "trees": trees, "order": "ABBA", "card": smi, "reps": REPS,
+        "ms": ms,
+        "ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in ms.items()},
+        "equal": equal, "skipped_cast_share": shares,
+        "ptxas": {tag: {k: v for k, v in chip_smoke.ptxas_usage(runs[i]["ptxas"]).items()
+                        if re.search(r"phys_kernel|render_slab_kernel|render_kernelILi0E", k)}
+                  for tag, i in (("A", 0), ("B", 1))},
+        "nvcc_s": {"A": runs[0]["nvcc_s"], "B": runs[1]["nvcc_s"]},
+        "seconds": time.monotonic() - t0, "ok": ok,
+    }
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "result.json"), "w") as f:
+            json.dump(result, f, indent=1)
+    print(json.dumps(result))
+    print(smi)
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())
