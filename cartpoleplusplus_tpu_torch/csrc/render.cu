@@ -13,8 +13,9 @@
 // (render.prefer_raster).  The other three modes are the JAX make_venv's
 // flags: RATIO (K5b, render_recip=False), RASTER_HOIST (K5c,
 // render_hoist=True) and MXU / MXU_HOIST (K5d, render_mxu=True).
-// render_slab_kernel serves SLAB; one template, render_kernel, serves RASTER,
-// RATIO and RASTER_HOIST; render_mxu_kernel serves K5d; pack_setups_kernel
+// render_slab_kernel serves SLAB, render_raster_kernel RASTER and
+// render_raster_mxu_kernel K5d (MXU, MXU_HOIST): the column-run kernels.  One
+// template, render_kernel, serves RATIO and RASTER_HOIST; pack_setups_kernel
 // is K5c's setup pass.
 //
 // What bounds it on this card: float32 operations per ray.  Each ray is
@@ -25,7 +26,7 @@
 // repeats x 4096 envs = 30.7 M rays per step; 1-camera exact: 1 camera x 4
 // sub-rays x 625 x 3 x 4096, the same 30.7 M).
 //
-// Common layout of the first port, which the raster and ratio modes keep:
+// Common layout of the first port, which the ratio mode and K5c keep:
 // one block per (env, repeat).  The per-env algebra of each box seen from
 // each camera is computed once per block into shared memory by 2*C threads.
 // Threads then run over the pooled pixels of all cameras; each thread casts
@@ -120,13 +121,61 @@
 // written (__fmul_rn/__fadd_rn, which nvcc never contracts into an FMA), so
 // the hit tests and depths follow the plain version's float32 arithmetic
 // operation for operation; the shading epilogue, shared with the slab mode,
-// keeps nvcc's FMA contraction and is held at the pixel tolerance.  The work is the same per
-// ray as the slab mode's before culling but cheaper (no reciprocals); p2 = 4
-// at obs_pool 2 doubles the sub-rays a thread sums per pooled pixel.  The
-// raster modes are not tuned yet: they cast every ray against both boxes,
-// and 256 threads over 625 pooled pixels leave the third pass of each block
-// two-fifths full.
-//
+// keeps nvcc's FMA contraction.  K5a's frames equal the plain version's.
+// - render_raster_kernel takes K3's layout: a block per env holding its
+//   repeats (SLAB_THREADS threads; 2*C*R of them compute raster_setup, with
+//   its exact divisions, into shared memory), warps of 32 pooled pixels
+//   taken column by column, the float4 ray table and the pixel table
+//   (rectangle, background sums, frame index), background sums for a warp
+//   that casts neither box, frames staged in shared memory where they fit
+//   (RASTER_FRAME_BYTES), else written straight to global memory, as K3's
+//   (cuda_render.slab_blocking chooses for both).
+// - The cull replaces K3's rectangle by a raster-native interval test,
+//   raster_may_hit, over the screen rectangle of a warp's whole run of
+//   pixels (a static table).  The warp tests 16 runs at once, one (run,
+//   box) per lane, then keeps the ballot: the test costs a lane one
+//   evaluation per 16 runs.  A test per pixel and a vote of the warp's
+//   lanes skips more casts (73 % / 88 % of cart / pole casts on main-path
+//   poses, against 67 % / 82 %) but costs each pixel about two fifths of
+//   its casts' work, and was slower (PERF.md).  A skipped box takes the
+//   cast's miss values (q = -BIG, hit false; the Lambert value of a miss is
+//   never read).  RenderParams.cull = 0 turns the cull off (every box is
+//   cast); the wrapper always sets 1.
+
+// Why the interval test is conservative (the plain version is
+// raycast.raster_may_hit; tests/test_torch_raster_cull.py holds it against
+// the cast).  For a sub-ray (px, py) inside a rectangle [xlo, xhi] x [ylo,
+// yhi] the cast computes, per axis k, w = (A + B px) + C py, a = w inv_u and
+// b = w inv_l, each product and sum rounded to nearest in float32, then
+// q_lo = max(a_k, lb_k) and q_hi = min(ub_k) with ub_k = ahead ? b : BIG,
+// lb_k = ahead ? -BIG : b, and reports a hit iff q_hi >= max(q_lo, 1e-30).
+// 1. Round-to-nearest is monotone: x <= y gives rn(x) <= rn(y); and rd(x)
+//    <= rn(x) <= ru(x).  So if the exact result of an operation lies in
+//    [lo, hi] for every input in the input intervals, its rounded value
+//    lies in [rd(lo), ru(hi)].
+// 2. B px over px in [xlo, xhi] is monotone in px: its least value is at
+//    xlo where B >= 0, at xhi where B < 0, so rd(B x_corner) bounds every
+//    rn(B px) from below, and likewise from above, and for C py.  A sum is
+//    monotone in both terms.  Carried through w's order of rounding, this
+//    bounds every float32 value of w the cast can compute in the rectangle
+//    by [w_lo, w_hi].
+// 3. inv_u = 1/U > 0 (U = |g| + he): a >= rd(w_lo inv_u).  inv_l > 0
+//    exactly where the near plane is ahead (L > 0 after the clamp; L = 0
+//    clamps to +1e-7), so then ub = b <= ru(w_hi inv_l), and elsewhere
+//    inv_l < 0 and lb = b >= rd(w_hi inv_l) = -ru(w_hi |inv_l|).  The ±BIG
+//    routes are constants.
+// 4. max and min of finite floats are exact: max(q_lo, 1e-30) >= q_lo_lo =
+//    max(1e-30, the lower bounds) and q_hi <= q_hi_hi = min(the upper
+//    bounds).  Where q_hi_hi < q_lo_lo, no sub-ray in the rectangle hits.
+//    A box whose A, B, C, 1/U or 1/L is not finite is never culled, and
+//    neither is one whose bounds hold a NaN (from an overflow of w; fminf
+//    and fmaxf would drop it, so it is tested for explicitly).
+// No margin enters: the bounds are those of the float32 values themselves,
+// whether or not the eye is inside a slab (K3's CULL_ZMIN rule has no
+// counterpart).  A pixel's table rectangle is the exact min/max of its
+// sub-rays' px and py, a run's the min/max over its pixels, so the warp
+// skips a box only where every sub-ray of every pixel it holds misses it.
+
 // Ratio mode (K5b, recip=False: pallas_kernel.py:210,313-316; math of
 // raycast._ray_obb_affine's division-free branch, raycast.py:260-285).  The
 // slab bounds stay ratios n/p with p > 0 and are compared by
@@ -145,23 +194,56 @@
 // launches.
 //
 // Bound planes on the tensor cores (K5d, raster + mxu:
-// pallas_kernel.py:248-295).  The 18 routed bound planes of both boxes
-// (a, ub, lb for 3 axes) are affine in (px, py, 1) with per-env
-// coefficients; the `ahead` routing folds into them (a scale on the px/py
-// columns, a +-BIG bias on the ones column).  Per camera the block builds
-// that (18, 8) left-hand side in shared memory, padded to two m16 tiles of
-// 32 rows; each warp takes 32 pooled pixels, and per sub-ray multiplies it
-// by four n8 tiles of rays (rows px, py, gval, smask, 1, 0, 0, 0; the ones
-// row is built in registers) with mma.sync m16n8k8 TF32.  TF32 keeps ~10
-// mantissa bits, so each operand is split into a TF32 high part and a TF32
-// residual, and hi*hi + hi*lo + lo*hi is accumulated in f32 (3xTF32, what
-// Precision.HIGHEST means on the TPU); lo*lo is dropped.  The accumulator's
-// rows and rays are spread over the lanes, so each 32x8 tile is staged in
-// shared memory before a lane reads its ray's 18 bounds, then runs K5a's
-// min/max cascade.  The bounds differ from K5a's by a few ulp (another
-// rounding order), so frames may differ on silhouette ties.  Where `ahead`
-// is 0 the bias 1e9 splits exactly (its residual fits in TF32), so ub is
-// exactly BIG there, as in K5a.
+// pallas_kernel.py:248-295).  The 18 routed bound planes of both boxes (a,
+// ub, lb for 3 axes) are affine in (px, py, 1) with per-env coefficients;
+// the `ahead` routing folds into them (a scale on the px/py columns, a ±BIG
+// bias on the ones column).  The TPU design moved 24 of 110 VPU operations
+// per ray to an idle matrix unit.  That premise does not hold here: the 18
+// planes of a ray cost about 36 FP32 operations, against 18 x 3 x 2 x 3 =
+// 324 TF32 flops of 3xTF32 products, and at 495 against 67 TFLOP/s the
+// tensor cores are no cheaper per ray even at their peak.  The aim is a
+// mode that costs about what K5a costs, its products beside the FP32 work.
+// - render_raster_mxu_kernel takes K5a's block, warp layout, tables and
+//   cull (the cull's bounds widened, below).  Per warp and sub-ray, the 32
+//   rays sit on the M side of mma.sync m16n8k4 TF32 products (two m-tiles,
+//   depth (px, py, 1, 0): no wasted depth), the planes on the N side (three
+//   n8 tiles: the cart's lower planes a_0..2, lb_0..2 and two copies of a_0;
+//   the pole's; the upper planes ub_0..2 and a copy of ub_2 of each box).
+//   TF32 keeps ~10 mantissa bits, so each operand is split into a TF32 high
+//   part and residual and lo*hi + hi*lo + hi*hi is accumulated in f32
+//   (3xTF32, Precision.HIGHEST on the TPU; lo*lo dropped): 2 x 3 x 3 = 18
+//   products per warp and sub-ray.  The plane operand is built and split
+//   once per (block, repeat, camera) and kept in registers; the rays' A
+//   operands come split from a static table.  The accumulator then holds
+//   each ray's 24 columns within one lane quad: each lane folds its share
+//   (the max over its lower planes, the first min over its upper ones with
+//   its Lambert value, ties to the lower column as in raster_cascade) and
+//   two __shfl_xor rounds finish the cascade, each halving the rays a lane
+//   holds, with no staging through shared memory.  A copied plane changes
+//   no max and no first min.  A warp that casts one box skips the other's
+//   lower-plane tile.
+// - wgmma is not the tool: its 64-row tiles, read from shared memory, do
+//   not fit the 32 rays a warp holds per sub-ray.
+// - The bounds differ from K5a's by a few ulp (another rounding order), so
+//   frames may differ on silhouette ties.  Where `ahead` is 0 the bias 1e9
+//   splits exactly (its residual fits in TF32), so ub is exactly BIG there.
+// - Why the widened cull is conservative.  Write u = 2^-24, S_k = |s|(|A| +
+//   |B| |px| + |C| |py|) for plane k (s = inv_u or inv_l) and T its exact
+//   value s (A + B px + C py) from the float32 setup.  (i) K5a's rounded
+//   value lies within 5u S of T (four roundings of w, one of the product).
+//   (ii) The product's value: each coefficient is one float32 rounding
+//   from exact (u S); the split leaves x = hi + lo + r with |r| <= 2^-22
+//   |x|, and dropping lo*lo and the residuals costs at most 3 x 2^-22 S;
+//   the f32 accumulation of 9 exact TF32 products through three mma.sync,
+//   whose rounding the hardware does not specify (truncation after
+//   aligning to the largest term is the worst found), at most 8 x 2^-22 S.
+//   So the product is within 12.5 x 2^-22 S < 2^-18 S of K5a's interval
+//   bounds.  Each plane's bound is widened by MXU_WIDEN = CULL_SAFETY x
+//   2^-18 = 2^-14 times S_k, S_k bounded with ray_abs >= |px|, |py|, rounded
+//   up (raster_block_setup).  The ±BIG routes have zero scale and split
+//   exactly: they need no widening.  tests/test_torch_raster_cull.py holds
+//   the widening against an emulation of the product under seven
+//   accumulation orders and roundings.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -171,8 +253,6 @@
 #define SLAB_W 15    // o_l(3) A(3) B(3) C(3) ldot(3)
 #define RASTER_W 22  // A(3) B(3) C(3) inv_u(3) inv_l(3) ahead(3) cand(3) inside(1)
 #define BIG 1e9f
-#define MXU_ROWS 32  // 18 bound planes padded to two m16 tiles
-#define STAGE_LD 40  // row stride (floats) of a warp's staged 18 x 32 bounds
 #define THREADS 256
 
 enum Mode { SLAB = 0, RASTER = 1, RATIO = 2, RASTER_HOIST = 3, MXU = 4, MXU_HOIST = 5 };
@@ -193,6 +273,7 @@ struct RenderParams {
   int n;                     // pooled pixels per camera
   float ray_abs;             // largest |px|, |py| of the ray table (slab culling;
                              // +inf widens every cull rectangle to the plane)
+  int cull;                  // the raster kernels' cull: 1 on, 0 off (every box cast)
 };
 
 __device__ __forceinline__ float rcp_approx(float x) {
@@ -448,44 +529,31 @@ __device__ __forceinline__ void store_pixel(const RenderParams& p, float fa, flo
   }
 }
 
-// Fills the block's per-box setup table of a raster or ratio mode: copied
-// from the packed table (the hoisted modes) or computed by 2*C threads.
-template <int MODE>
-__device__ __forceinline__ void block_setup(const RenderParams& p, const float* pose,
-                                            const float* setups, float* setup, int W, int E,
-                                            int rep, int e) {
-  if (MODE == RASTER_HOIST || MODE == MXU_HOIST) {
-    const int w = 2 * RASTER_W * p.num_cams;
-    const float* src = setups + ((size_t)rep * E + e) * w;
-    for (int i = threadIdx.x; i < w; i += blockDim.x) setup[i] = src[i];
-  } else if (threadIdx.x < 2 * p.num_cams) {
-    const int cam = threadIdx.x >> 1, box = threadIdx.x & 1;
-    float* su = setup + (cam * 2 + box) * W;
-    if (MODE == RASTER || MODE == MXU) {
-      raster_setup(p, cam, pose + 7 * box, p.he[box], su);
-    } else {
-      ratio_setup(p, cam, pose + 7 * box, su);
-    }
-  }
-}
-
 // poses: (R, E, 16) [cart pos quat | pole pos quat | 0 0];
 // rays: (4, C, p2, n) rows px, py, ground value, sky mask;
 // setups: (R, E, C*2*22) packed raster setups (RASTER_HOIST only);
-// out: (E, R, C*3*n) uint8.  Grid (E, R).  Modes RASTER, RATIO and
-// RASTER_HOIST.
+// out: (E, R, C*3*n) uint8.  Grid (E, R).  Modes RATIO and RASTER_HOIST.
 template <int MODE>
 __global__ void __launch_bounds__(THREADS) render_kernel(RenderParams p,
                                                         const float* __restrict__ poses,
                                                         const float* __restrict__ rays,
                                                         const float* __restrict__ setups,
                                                         uint8_t* __restrict__ out, int E, int R) {
-  constexpr bool RAS = MODE == RASTER || MODE == RASTER_HOIST;
+  constexpr bool RAS = MODE == RASTER_HOIST;
   constexpr int W = RAS ? RASTER_W : SLAB_W;
   const int e = blockIdx.x, rep = blockIdx.y;
   __shared__ float setup[MAX_CAMS][2][W];
   const float* pose = poses + ((size_t)rep * E + e) * 16;
-  block_setup<MODE>(p, pose, setups, &setup[0][0][0], W, E, rep, e);
+  // The per-box setup table: copied from the packed table (K5c) or
+  // computed by 2*C threads (K5b).
+  if (RAS) {
+    const int w = 2 * RASTER_W * p.num_cams;
+    const float* src = setups + ((size_t)rep * E + e) * w;
+    for (int i = threadIdx.x; i < w; i += blockDim.x) (&setup[0][0][0])[i] = src[i];
+  } else if (threadIdx.x < 2 * p.num_cams) {
+    const int cam = threadIdx.x >> 1, box = threadIdx.x & 1;
+    ratio_setup(p, cam, pose + 7 * box, setup[cam][box]);
+  }
   __syncthreads();
 
   const int n = p.n, p2 = p.p2, cams = p.num_cams;
@@ -750,22 +818,21 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) 
   lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
 }
 
-// d += a * b on the tensor cores: one m16n8k8 TF32 product, f32 accumulator.
-// Fragments (g = lane / 4, t = lane % 4): a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
-// a3 (g + 8, t + 4); b0 (k = t, n = g), b1 (k = t + 4, n = g); d0 (g, 2t),
-// d1 (g, 2t + 1), d2 (g + 8, 2t), d3 (g + 8, 2t + 1).
-__device__ __forceinline__ void mma_tf32(float d[4], const uint32_t a[4], const uint32_t b[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+// d += a * b on the tensor cores: one m16n8k4 TF32 product, f32 accumulator.
+// Fragments (g = lane / 4, t = lane % 4): a0 (row g, depth t), a1 (row g + 8,
+// depth t); b (depth t, column g); d0 (g, 2t), d1 (g, 2t + 1), d2 (g + 8, 2t),
+// d3 (g + 8, 2t + 1).
+__device__ __forceinline__ void mma_k4(float d[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      : "r"(a0), "r"(a1), "r"(b));
 }
 
-// One bound plane as a left-hand-side row over the rays' rows (px, py,
-// gval, smask, 1, 0, 0, 0) (raycast.bound_rows): row = 3*kind + k of a box,
-// kind 0 the far plane a = w*inv_u, 1 the upper bound ub = ahead ? w*inv_l
-// : BIG, 2 the lower bound lb = ahead ? -BIG : w*inv_l.
+// One bound plane as a row of coefficients over the rays' components (px,
+// py, gval, smask, 1, 0, 0, 0) (raycast.bound_rows): row = 3*kind + k of a
+// box, kind 0 the far plane a = w*inv_u, 1 the upper bound ub = ahead ?
+// w*inv_l : BIG, 2 the lower bound lb = ahead ? -BIG : w*inv_l.
 __device__ void bound_row(const float* su, int row, float* out) {
   const int kind = row / 3, k = row - 3 * kind;
   const float fa = su[15 + k];
@@ -785,158 +852,429 @@ __device__ void bound_row(const float* su, int row, float* out) {
   out[4] = kind == 0 ? mul(su[k], scale) : add(mul(su[k], scale), bias);
 }
 
-// K5d: the raster mode with its 18 routed bound planes per ray from
-// tensor-core products.  Arguments as render_kernel's; HOIST reads the
-// packed setups (K5c's table).  Grid (E, R), THREADS threads.
-template <bool HOIST>
-__global__ void __launch_bounds__(THREADS) render_mxu_kernel(RenderParams p,
-                                                            const float* __restrict__ poses,
-                                                            const float* __restrict__ rays,
-                                                            const float* __restrict__ setups,
-                                                            uint8_t* __restrict__ out, int E,
-                                                            int R) {
-  const int e = blockIdx.x, rep = blockIdx.y;
-  __shared__ float setup[MAX_CAMS][2][RASTER_W];
-  __shared__ float lhs[MAX_CAMS][MXU_ROWS][8];
-  __shared__ float stage[THREADS / 32][18 * STAGE_LD];
-  const float* pose = poses + ((size_t)rep * E + e) * 16;
-  block_setup<HOIST ? MXU_HOIST : MXU>(p, pose, setups, &setup[0][0][0], RASTER_W, E, rep, e);
-  __syncthreads();
-  const int n = p.n, p2 = p.p2, cams = p.num_cams;
-  for (int i = threadIdx.x; i < cams * MXU_ROWS; i += blockDim.x) {
-    const int cam = i / MXU_ROWS, row = i - cam * MXU_ROWS;
-    if (row < 18) {
-      bound_row(setup[cam][row / 9], row % 9, lhs[cam][row]);
-    } else {
-      for (int c = 0; c < 8; ++c) lhs[cam][row][c] = 0.0f;
-    }
-  }
-  __syncthreads();
+#define RASTER_SW 32  // floats per box of the raster kernels' setup: raster_setup's 22,
+                      // the cull flag [22], K5d's widenings [24..29]
+#define MXU_WIDEN 6.103515625e-05f  // 2^-14: CULL_SAFETY x the header's bound 2^-18
+// Static shared memory of the raster kernels (a block's repeats x cameras,
+// at most SLAB_MAX_REPS, x 2 boxes) and what is left of the default 48 KiB
+// for a block's frames (cuda_render.RASTER_FRAME_BYTES).
+#define RASTER_STATIC_BYTES (SLAB_MAX_REPS * 2 * RASTER_SW * 4)
+#define RASTER_FRAME_BYTES (48 * 1024 - RASTER_STATIC_BYTES)
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int nwarps = blockDim.x >> 5;
-  const size_t plane = (size_t)cams * p2 * n;
-  uint8_t* o = out + ((size_t)e * R + rep) * (cams * 3 * n);
-  float* st = stage[warp];
-  for (int cam = 0; cam < cams; ++cam) {
-    uint32_t a_hi[2][4], a_lo[2][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-      const float* l = &lhs[cam][mt * 16][0];
-      split_tf32(l[g * 8 + t], a_hi[mt][0], a_lo[mt][0]);
-      split_tf32(l[(g + 8) * 8 + t], a_hi[mt][1], a_lo[mt][1]);
-      split_tf32(l[g * 8 + t + 4], a_hi[mt][2], a_lo[mt][2]);
-      split_tf32(l[(g + 8) * 8 + t + 4], a_hi[mt][3], a_lo[mt][3]);
-    }
-    const float* su_c = setup[cam][0];
-    const float* su_p = setup[cam][1];
-    // Warp-uniform loop: every lane takes part in each mma; lanes past
-    // the last pixel cast a clamped ray and store nothing.
-    for (int base = warp * 32; base < n; base += nwarps * 32) {
-      const int j = base + lane;
-      const int jj = j < n ? j : n - 1;
-      float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
-      for (int sidx = 0; sidx < p2; ++sidx) {
-        const size_t row0 = ((size_t)cam * p2 + sidx) * n;
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          // B fragment: row t of ray (base + 8 nt + g); rows 4-7 are
-          // (1, 0, 0, 0), built here.
-          const int jc = min(base + 8 * nt + g, n - 1);
-          uint32_t b_hi[2], b_lo[2];
-          split_tf32(rays[t * plane + row0 + jc], b_hi[0], b_lo[0]);
-          b_hi[1] = t == 0 ? __float_as_uint(1.0f) : 0u;
-          b_lo[1] = 0u;
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-            mma_tf32(d, a_lo[mt], b_hi);
-            mma_tf32(d, a_hi[mt], b_lo);
-            mma_tf32(d, a_hi[mt], b_hi);
-            const int r0 = mt * 16 + g, col = 8 * nt + 2 * t;
-            if (r0 < 18) {
-              st[r0 * STAGE_LD + col] = d[0];
-              st[r0 * STAGE_LD + col + 1] = d[1];
-            }
-            if (r0 + 8 < 18) {
-              st[(r0 + 8) * STAGE_LD + col] = d[2];
-              st[(r0 + 8) * STAGE_LD + col + 1] = d[3];
-            }
-          }
-        }
-        __syncwarp();
-        float b[18];
-#pragma unroll
-        for (int r = 0; r < 18; ++r) b[r] = st[r * STAGE_LD + lane];
-        __syncwarp();
-        float qc, qp, lam_c, lam_p;
-        bool hit_c, hit_p;
-        raster_cascade(su_c, b, b + 3, b + 6, qc, lam_c, hit_c);
-        raster_cascade(su_p, b + 9, b + 12, b + 15, qp, lam_p, hit_p);
-        const bool sel_c = hit_c && (qc >= qp);
-        const size_t off = row0 + jj;
-        shade_fields(p, sel_c, hit_p, lam_c, lam_p, rays[2 * plane + off],
-                     rays[3 * plane + off], fa, fb, fg, fs);
-      }
-      if (j < n) store_pixel(p, fa, fb, fg, fs, o, cam, j);
+// The raster kernels' setup: thread t < nrep*C*2 computes (or, HOIST,
+// copies from K5c's packed table) the setup of box t & 1 seen from camera
+// (t >> 1) % C at repeat rl = (t >> 1) / C into setup[rl * C + cam][box],
+// then its cull flag (the cull on and A, B, C, 1/U, 1/L finite) and, for
+// K5d (WIDEN), the widening of each plane's bound, rounded up:
+// MXU_WIDEN |s| (|A| + ray_abs (|B| + |C|)), s = inv_u (far) or inv_l (near).
+template <bool HOIST, bool WIDEN>
+__device__ void raster_block_setup(const RenderParams& p, const float* __restrict__ poses,
+                                   const float* __restrict__ setups,
+                                   float (*setup)[2][RASTER_SW], int E, int e, int rep0,
+                                   int nrep) {
+  const int cams = p.num_cams, t = threadIdx.x;
+  if (t >= nrep * cams * 2) return;
+  const int box = t & 1, cam = (t >> 1) % cams, rl = (t >> 1) / cams;
+  float* su = setup[rl * cams + cam][box];
+  if (HOIST) {
+    const float* src = setups + ((size_t)(rep0 + rl) * E + e) * (2 * RASTER_W * cams) +
+                       (cam * 2 + box) * RASTER_W;
+    for (int i = 0; i < RASTER_W; ++i) su[i] = src[i];
+  } else {
+    raster_setup(p, cam, poses + ((size_t)(rep0 + rl) * E + e) * 16 + 7 * box, p.he[box], su);
+  }
+  bool finite = true;
+  for (int i = 0; i < 15; ++i) finite = finite && isfinite(su[i]);
+  su[22] = p.cull && finite ? 1.0f : 0.0f;
+  if (WIDEN) {
+    for (int k = 0; k < 3; ++k) {
+      const float s = __fadd_ru(fabsf(su[k]),
+                                __fmul_ru(p.ray_abs, __fadd_ru(fabsf(su[3 + k]), fabsf(su[6 + k]))));
+      su[24 + k] = __fmul_ru(MXU_WIDEN, __fmul_ru(fabsf(su[9 + k]), s));
+      su[27 + k] = __fmul_ru(MXU_WIDEN, __fmul_ru(fabsf(su[12 + k]), s));
     }
   }
 }
 
-// Launches the render kernel of `mode` (enum Mode) on `stream`.  `rays` is
-// the (4, C, p2, n) table, in the slab mode the (C, p2, n, 4) one; `setups`
-// is read by the hoisted modes only, `pixels` by the slab mode only.  The
-// slab mode renders `reps` repeats per block, staging its frames in shared
-// memory where `staged` (cuda_render.slab_blocking chooses both; a choice
-// the kernel cannot run is refused).  Returns cudaGetLastError() as an int.
-extern "C" int cp_render(const RenderParams* params, const float* poses, const float* rays,
-                         const float* setups, const float* pixels, uint8_t* out, int E, int R,
-                         int mode, int reps, int staged, void* stream) {
-  if (params->num_cams < 1 || params->num_cams > MAX_CAMS) return static_cast<int>(cudaErrorInvalidValue);
-  if ((mode == RASTER_HOIST || mode == MXU_HOIST) && setups == nullptr) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (mode == SLAB && pixels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(E, R);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case SLAB: {
-      const long frame_w = (long)params->num_cams * 3 * params->n;
-      if (reps < 1 || reps > min(R, SLAB_THREADS / (16 * params->num_cams)) ||
-          (staged && reps * frame_w > SLAB_FRAME_BYTES)) {
-        return static_cast<int>(cudaErrorInvalidValue);
-      }
-      const dim3 slab_grid(E, (R + reps - 1) / reps);
-      const float4* rays4 = reinterpret_cast<const float4*>(rays);
-      const float4* pixels4 = reinterpret_cast<const float4*>(pixels);
-      if (staged) {
-        render_slab_kernel<true><<<slab_grid, SLAB_THREADS, reps * frame_w, st>>>(
-            *params, poses, rays4, pixels4, out, E, R, reps);
-      } else {
-        render_slab_kernel<false><<<slab_grid, SLAB_THREADS, 0, st>>>(
-            *params, poses, rays4, pixels4, out, E, R, reps);
-      }
-      break;
+// Whether the raster cast of a box (su: its setup in the raster kernels'
+// layout) can hit a sub-ray in the screen rectangle r = (xlo, xhi, ylo,
+// yhi): false only where the interval argument of the header proves a miss
+// (a NaN bound casts: fminf/fmaxf drop a NaN operand, so it is caught
+// before them).  WIDEN: K5d's bounds, widened for its product.
+// raycast.raster_may_hit is the plain version.
+template <bool WIDEN>
+__device__ __forceinline__ bool raster_may_hit(const float* su, float4 r) {
+  if (su[22] < 0.5f) return true;
+  float q_lo = 1e-30f, q_hi = 0.0f;
+  bool nan = false;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float a = su[k], b = su[3 + k], c = su[6 + k];
+    const bool bp = b >= 0.0f, cp = c >= 0.0f;
+    const float w_lo = __fadd_rd(__fadd_rd(a, __fmul_rd(b, bp ? r.x : r.y)),
+                                 __fmul_rd(c, cp ? r.z : r.w));
+    const float w_hi = __fadd_ru(__fadd_ru(a, __fmul_ru(b, bp ? r.y : r.x)),
+                                 __fmul_ru(c, cp ? r.w : r.z));
+    float far = __fmul_rd(w_lo, su[9 + k]);            // a = w inv_u, inv_u > 0: from below
+    float near = __fmul_ru(w_hi, fabsf(su[12 + k]));   // |b| side of b = w inv_l: from above
+    if (WIDEN) {
+      far = __fsub_rd(far, su[24 + k]);
+      near = __fadd_ru(near, su[27 + k]);
     }
-    case RASTER:
-      render_kernel<RASTER><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
-      break;
-    case RATIO:
+    nan = nan || isnan(far) || isnan(near);
+    const bool ahead = su[15 + k] > 0.5f;  // inv_l > 0: b bounds q from above, else from below
+    const float ub = ahead ? near : BIG;
+    q_hi = k == 0 ? ub : fminf(q_hi, ub);
+    q_lo = fmaxf(q_lo, fmaxf(far, ahead ? -BIG : -near));
+  }
+  return nan || !(q_hi < q_lo);
+}
+
+// The sub-rays of one pooled pixel in K5a: cast against the boxes the warp
+// keeps (the others keep the cast's miss values), shaded and summed; as
+// slab_pixel.
+template <bool CART, bool POLE>
+__device__ __forceinline__ void raster_pixel(const RenderParams& p, const float* su_c,
+                                             const float* su_p, const float4* __restrict__ rays,
+                                             float& fa, float& fb, float& fg, float& fs) {
+  for (int sidx = 0; sidx < p.p2; ++sidx) {
+    const float4 ray = rays[sidx * p.n];
+    float qc = -BIG, qp = -BIG, lam_c = 0.0f, lam_p = 0.0f;
+    bool hit_c = false, hit_p = false;
+    if (CART) raster_cast(su_c, ray.x, ray.y, qc, lam_c, hit_c);
+    if (POLE) raster_cast(su_p, ray.x, ray.y, qp, lam_p, hit_p);
+    const bool sel_c = hit_c && (qc >= qp);  // inverse depth: larger is nearer
+    shade_fields(p, sel_c, hit_p, lam_c, lam_p, ray.z, ray.w, fa, fb, fg, fs);
+  }
+}
+
+// The warp's decision to cast the cart and the pole for the pixels of its
+// i-th run (run = warp + i * nwarps of ceil(n / 32), in the tables'
+// order): every 16 runs the warp tests the next 16 at once, lane l the box
+// l & 1 of run warp + (i + l / 2) * nwarps, against the rectangle of the
+// run's sub-rays (runs_c: the camera's row of the run table), and keeps
+// the ballot in `votes`.  Warp-uniform; every lane must call it.
+template <bool WIDEN>
+__device__ __forceinline__ void warp_votes(const float* su_c, const float* su_p,
+                                           const float4* __restrict__ runs_c, int nruns, int i,
+                                           unsigned& votes, bool& cart, bool& pole) {
+  const int lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  if ((i & 15) == 0) {
+    const int run = (threadIdx.x >> 5) + (i + (lane >> 1)) * nwarps;
+    votes = __ballot_sync(0xffffffffu, run < nruns && raster_may_hit<WIDEN>(
+                                                          lane & 1 ? su_p : su_c, runs_c[run]));
+  }
+  cart = (votes >> (2 * (i & 15))) & 1u;
+  pole = (votes >> (2 * (i & 15) + 1)) & 1u;
+}
+
+// K5a, the raster mode with culling.  poses: (R, E, 16); rays and pixels:
+// render_slab_kernel's tables; runs: (C, ceil(n / 32)) float4, per run of
+// 32 pixels in the tables' order (the last run of a camera shorter) the
+// rectangle (xlo, xhi, ylo, yhi) of its pixels' sub-rays; out: (E, R,
+// C*3*n) uint8.  Grid (E, ceil(R / reps)), SLAB_THREADS threads; a block
+// renders `reps` repeats of one env, its frames staged in shared memory
+// where STAGED (as render_slab_kernel's).  Each warp tests its run's
+// rectangle (warp_votes) unless p.cull is 0.
+template <bool STAGED>
+__global__ void __launch_bounds__(SLAB_THREADS) render_raster_kernel(
+    RenderParams p, const float* __restrict__ poses, const float4* __restrict__ rays,
+    const float4* __restrict__ pixels, const float4* __restrict__ runs,
+    uint8_t* __restrict__ out, int E, int R, int reps) {
+  const int e = blockIdx.x, rep0 = blockIdx.y * reps;
+  const int nrep = min(reps, R - rep0), cams = p.num_cams;
+  __shared__ float setup[SLAB_MAX_REPS][2][RASTER_SW];
+  static_assert(sizeof(setup) == RASTER_STATIC_BYTES, "RASTER_STATIC_BYTES");
+  extern __shared__ uint8_t frames[];  // nrep frames, as in out, where staged
+  raster_block_setup<false, false>(p, poses, nullptr, setup, E, e, rep0, nrep);
+  __syncthreads();
+
+  const int n = p.n, p2 = p.p2, n_pad = (n + 31) & ~31, nruns = n_pad >> 5;
+  const int frame_w = cams * 3 * n;
+  uint8_t* o = out + ((size_t)e * R + rep0) * frame_w;
+  for (int rl = 0; rl < nrep; ++rl) {
+    uint8_t* dst = (STAGED ? frames : o) + rl * frame_w;
+    for (int cam = 0; cam < cams; ++cam) {
+      const float* su_c = setup[rl * cams + cam][0];
+      const float* su_p = setup[rl * cams + cam][1];
+      unsigned votes = 0;
+      for (int q = threadIdx.x, i = 0; q < n_pad; q += blockDim.x, ++i) {
+        bool cart, pole;
+        warp_votes<false>(su_c, su_p, runs + cam * nruns, nruns, i, votes, cart, pole);
+        if (q >= n) continue;
+        const float4 bg = pixels[2 * (cam * n + q) + 1];
+        const float4* ray = rays + cam * p2 * n + q;
+        float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
+        if (cart && pole) {
+          raster_pixel<true, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else if (cart) {
+          raster_pixel<true, false>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else if (pole) {
+          raster_pixel<false, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+        } else {
+          fg = bg.x;
+          fs = bg.y;
+        }
+        store_pixel(p, fa, fb, fg, fs, dst, cam, static_cast<int>(bg.z));
+      }
+    }
+  }
+  if (!STAGED) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrep * frame_w; i += blockDim.x) o[i] = frames[i];
+}
+
+// This lane's B operand of K5d's product for one (repeat, camera): column
+// g of each n-tile at depth t of (px, py, 1, 0), split into TF32 parts, and
+// the Lambert candidates of its two columns of n-tile 2.  The columns:
+// n-tiles 0 and 1 the cart's and the pole's lower planes a_0..2, lb_0..2
+// and two copies of a_0; n-tile 2 the cart's upper planes ub_0..2 and a
+// copy of ub_2, then the pole's.  A copy changes no max or first min.
+__device__ void mxu_operand(const float* su_c, const float* su_p, uint32_t bh[3],
+                            uint32_t bl[3], float& cand_a, float& cand_b) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 3; ++nt) {
+    const int box = nt < 2 ? nt : g >> 2;
+    const int row = nt < 2 ? (g < 3 ? g : g < 6 ? g + 3 : 0) : 3 + min(g & 3, 2);
+    float coef[8];
+    bound_row(box ? su_p : su_c, row, coef);
+    split_tf32(t == 0 ? coef[0] : t == 1 ? coef[1] : t == 2 ? coef[4] : 0.0f, bh[nt], bl[nt]);
+  }
+  const float* su = t & 2 ? su_p : su_c;
+  cand_a = su[18 + 2 * (t & 1)];
+  cand_b = su[18 + min(2 * (t & 1) + 1, 2)];
+}
+
+// The p2 sub-rays of a warp's 32 pooled pixels through K5d's product.  Per
+// sub-ray: 2 m-tiles of 16 rays x 3 n-tiles of 8 planes, each three
+// m16n8k4 products (lo*hi, hi*lo, hi*hi, the 3xTF32 sum); lane (g, t) then
+// holds columns 2t, 2t+1 of every n-tile for rays j = 0..3 (pixels g + 8j).
+// It folds them (the max over its lower planes, the first min over its
+// upper ones with its Lambert value), two __shfl_xor rounds finish the
+// cascade (t ^ 1: the same box's upper planes, the even lane's columns
+// first; t ^ 2: the other box's), each round halving the rays a lane holds,
+// and lane (g, t) shades pixel g + 8t.  Skipped boxes take the cast's miss
+// values, and their lower planes are not multiplied.  frag: the lane's A
+// operand of sub-ray 0; ray: its pixel's first sub-ray.
+template <bool CART, bool POLE>
+__device__ __forceinline__ void mxu_pixel(const RenderParams& p, const float* su_c,
+                                          const float* su_p, const uint32_t bh[3],
+                                          const uint32_t bl[3], float cand_a, float cand_b,
+                                          const float4* __restrict__ ray,
+                                          const float4* __restrict__ frag, int frag_stride,
+                                          float& fa, float& fb, float& fg, float& fs) {
+  const unsigned full = 0xffffffffu;
+  const int t = threadIdx.x & 3;
+  const bool odd = t & 1, upper = t & 2;
+  for (int sidx = 0; sidx < p.p2; ++sidx) {
+    const float4 hi4 = frag[sidx * frag_stride], lo4 = frag[sidx * frag_stride + 1];
+    const float4 own = ray[sidx * p.n];
+    const uint32_t ah[4] = {__float_as_uint(hi4.x), __float_as_uint(hi4.y),
+                            __float_as_uint(hi4.z), __float_as_uint(hi4.w)};
+    const uint32_t al[4] = {__float_as_uint(lo4.x), __float_as_uint(lo4.y),
+                            __float_as_uint(lo4.z), __float_as_uint(lo4.w)};
+    float d[2][3][4] = {};
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int nt = 0; nt < 3; ++nt) {
+        if ((nt == 0 && !CART) || (nt == 1 && !POLE)) continue;
+        mma_k4(d[mt][nt], al[2 * mt], al[2 * mt + 1], bh[nt]);
+        mma_k4(d[mt][nt], ah[2 * mt], ah[2 * mt + 1], bl[nt]);
+        mma_k4(d[mt][nt], ah[2 * mt], ah[2 * mt + 1], bh[nt]);
+      }
+    }
+    // The lane's share, per ray j (m-tile j / 2, row half j % 2).
+    float lc[4], lp[4], hq[4], hl[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int mt = j >> 1, h = 2 * (j & 1);
+      lc[j] = fmaxf(d[mt][0][h], d[mt][0][h + 1]);
+      lp[j] = fmaxf(d[mt][1][h], d[mt][1][h + 1]);
+      hl[j] = d[mt][2][h + 1] < d[mt][2][h] ? cand_b : cand_a;
+      hq[j] = fminf(d[mt][2][h], d[mt][2][h + 1]);
+    }
+    // Round 1, with lane t ^ 1: keep rays 2i + odd, send rays 2i + !odd.
+    float lc2[2], lp2[2], hq2[2], hl2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int a = 2 * i, b = 2 * i + 1;
+      if (CART) lc2[i] = fmaxf(odd ? lc[b] : lc[a], __shfl_xor_sync(full, odd ? lc[a] : lc[b], 1));
+      if (POLE) lp2[i] = fmaxf(odd ? lp[b] : lp[a], __shfl_xor_sync(full, odd ? lp[a] : lp[b], 1));
+      const float kq = odd ? hq[b] : hq[a], kl = odd ? hl[b] : hl[a];
+      const float rq = __shfl_xor_sync(full, odd ? hq[a] : hq[b], 1);
+      const float rl = __shfl_xor_sync(full, odd ? hl[a] : hl[b], 1);
+      hl2[i] = (odd ? rq <= kq : rq < kq) ? rl : kl;
+      hq2[i] = fminf(kq, rq);
+    }
+    // Round 2, with lane t ^ 2: keep ray t.
+    float q_lo_c = 0.0f, q_lo_p = 0.0f;
+    if (CART) q_lo_c = fmaxf(upper ? lc2[1] : lc2[0],
+                             __shfl_xor_sync(full, upper ? lc2[0] : lc2[1], 2));
+    if (POLE) q_lo_p = fmaxf(upper ? lp2[1] : lp2[0],
+                             __shfl_xor_sync(full, upper ? lp2[0] : lp2[1], 2));
+    const float kq = upper ? hq2[1] : hq2[0], kl = upper ? hl2[1] : hl2[0];
+    const float rq = __shfl_xor_sync(full, upper ? hq2[0] : hq2[1], 2);
+    const float rl = __shfl_xor_sync(full, upper ? hl2[0] : hl2[1], 2);
+    const float q_hi_c = upper ? rq : kq, lam_c = upper ? rl : kl;
+    const float q_hi_p = upper ? kq : rq, lam_p = upper ? kl : rl;
+    const bool hit_c = CART && q_hi_c >= fmaxf(q_lo_c, 1e-30f);
+    const bool hit_p = POLE && q_hi_p >= fmaxf(q_lo_p, 1e-30f);
+    const float qc = hit_c ? (su_c[21] > 0.5f ? q_lo_c : q_hi_c) : -BIG;
+    const float qp = hit_p ? (su_p[21] > 0.5f ? q_lo_p : q_hi_p) : -BIG;
+    const bool sel_c = hit_c && (qc >= qp);
+    shade_fields(p, sel_c, hit_p, lam_c, lam_p, own.z, own.w, fa, fb, fg, fs);
+  }
+}
+
+// K5d, the raster mode with its bound planes from tensor-core products:
+// K5a's block, tables and cull (its bounds widened).  frags: (C, p2,
+// ceil(n / 32), 32, 8) float32, per run, sub-ray and lane (g, t) the A
+// operand: the TF32 high parts, then the residuals, of component t of (px,
+// py, 1, 0) of the run's rays g, g + 8, g + 16, g + 24
+// (cuda_render.mxu_fragment_table).  Lane 4g + t renders the run's pixel
+// g + 8t.  HOIST reads the setups from K5c's packed table.  Other
+// arguments as render_raster_kernel's.
+template <bool HOIST, bool STAGED>
+__global__ void __launch_bounds__(SLAB_THREADS) render_raster_mxu_kernel(
+    RenderParams p, const float* __restrict__ poses, const float* __restrict__ setups,
+    const float4* __restrict__ rays, const float4* __restrict__ pixels,
+    const float4* __restrict__ runs, const float4* __restrict__ frags,
+    uint8_t* __restrict__ out, int E, int R, int reps) {
+  const int e = blockIdx.x, rep0 = blockIdx.y * reps;
+  const int nrep = min(reps, R - rep0), cams = p.num_cams;
+  __shared__ float setup[SLAB_MAX_REPS][2][RASTER_SW];
+  extern __shared__ uint8_t frames[];
+  raster_block_setup<HOIST, true>(p, poses, setups, setup, E, e, rep0, nrep);
+  __syncthreads();
+
+  const int n = p.n, p2 = p.p2, n_pad = (n + 31) & ~31, nruns = n_pad >> 5;
+  const int frame_w = cams * 3 * n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, nwarps = blockDim.x >> 5;
+  const int slot = (lane >> 2) + 8 * (lane & 3);  // this lane's pixel in its run
+  const int frag_stride = 2 * nruns * 32;         // float4s from one sub-ray to the next
+  uint8_t* o = out + ((size_t)e * R + rep0) * frame_w;
+  for (int rl = 0; rl < nrep; ++rl) {
+    uint8_t* dst = (STAGED ? frames : o) + rl * frame_w;
+    for (int cam = 0; cam < cams; ++cam) {
+      const float* su_c = setup[rl * cams + cam][0];
+      const float* su_p = setup[rl * cams + cam][1];
+      uint32_t bh[3], bl[3];
+      float cand_a, cand_b;
+      mxu_operand(su_c, su_p, bh, bl, cand_a, cand_b);
+      unsigned votes = 0;
+      // Warp-uniform: every lane takes part in each product; a lane past
+      // the camera's last pixel renders the last one and stores nothing.
+      for (int run = warp, i = 0; run < nruns; run += nwarps, ++i) {
+        const int q = run * 32 + slot, qq = min(q, n - 1);
+        const float4 bg = pixels[2 * (cam * n + qq) + 1];
+        bool cart, pole;
+        warp_votes<true>(su_c, su_p, runs + cam * nruns, nruns, i, votes, cart, pole);
+        const float4* ray = rays + cam * p2 * n + qq;
+        const float4* frag = frags + 2 * (((size_t)cam * p2 * nruns + run) * 32 + lane);
+        float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
+        if (cart && pole) {
+          mxu_pixel<true, true>(p, su_c, su_p, bh, bl, cand_a, cand_b, ray, frag, frag_stride,
+                                fa, fb, fg, fs);
+        } else if (cart) {
+          mxu_pixel<true, false>(p, su_c, su_p, bh, bl, cand_a, cand_b, ray, frag, frag_stride,
+                                 fa, fb, fg, fs);
+        } else if (pole) {
+          mxu_pixel<false, true>(p, su_c, su_p, bh, bl, cand_a, cand_b, ray, frag, frag_stride,
+                                 fa, fb, fg, fs);
+        } else {
+          fg = bg.x;
+          fs = bg.y;
+        }
+        if (q < n) store_pixel(p, fa, fb, fg, fs, dst, cam, static_cast<int>(bg.z));
+      }
+    }
+  }
+  if (!STAGED) return;
+  __syncthreads();
+  for (int i = threadIdx.x; i < nrep * frame_w; i += blockDim.x) o[i] = frames[i];
+}
+
+// Launches the render kernel of `mode` (enum Mode) on `stream`.  `rays` is
+// the (4, C, p2, n) table for K5b and K5c, the (C, p2, n, 4) one in the
+// tables' order for the column-run kernels (K3/K4, K5a, K5d), which also
+// read `pixels`; the raster ones (K5a, K5d) read `runs`, K5d `frags`, the
+// hoisted modes `setups`.  The column-run kernels render `reps` repeats per
+// block, staging their frames in shared memory where `staged`
+// (cuda_render.slab_blocking chooses both; a choice the kernel cannot run
+// is refused).  Returns cudaGetLastError() as an int.
+extern "C" int cp_render(const RenderParams* params, const float* poses, const float* rays,
+                         const float* setups, const float* pixels, const float* runs,
+                         const float* frags, uint8_t* out, int E, int R, int mode, int reps,
+                         int staged, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  if (params->num_cams < 1 || params->num_cams > MAX_CAMS) return bad;
+  if (params->cull != 0 && params->cull != 1) return bad;
+  const bool mxu = mode == MXU || mode == MXU_HOIST;
+  const bool raster = mode == RASTER || mxu;
+  const bool columns = mode == SLAB || raster;
+  if ((mode == RASTER_HOIST || mode == MXU_HOIST) && setups == nullptr) return bad;
+  if (columns && pixels == nullptr) return bad;
+  if (raster && runs == nullptr) return bad;
+  if (mxu && frags == nullptr) return bad;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!columns) {
+    const dim3 grid(E, R);
+    if (mode == RATIO) {
       render_kernel<RATIO><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
-      break;
-    case RASTER_HOIST:
+    } else if (mode == RASTER_HOIST) {
       render_kernel<RASTER_HOIST><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out,
                                                             E, R);
-      break;
-    case MXU:
-      render_mxu_kernel<false><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
-      break;
-    case MXU_HOIST:
-      render_mxu_kernel<true><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
-      break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    } else {
+      return bad;
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+  const long frame_w = (long)params->num_cams * 3 * params->n;
+  const long budget = mode == SLAB ? SLAB_FRAME_BYTES : RASTER_FRAME_BYTES;
+  if (reps < 1 || reps > min(R, SLAB_THREADS / (16 * params->num_cams)) ||
+      (staged && reps * frame_w > budget)) {
+    return bad;
+  }
+  const dim3 grid(E, (R + reps - 1) / reps);
+  const size_t smem = staged ? reps * frame_w : 0;
+  const float4* rays4 = reinterpret_cast<const float4*>(rays);
+  const float4* pixels4 = reinterpret_cast<const float4*>(pixels);
+  const float4* runs4 = reinterpret_cast<const float4*>(runs);
+  const float4* frags4 = reinterpret_cast<const float4*>(frags);
+  const RenderParams& p = *params;
+  if (mode == SLAB) {
+    if (staged) {
+      render_slab_kernel<true><<<grid, SLAB_THREADS, smem, st>>>(p, poses, rays4, pixels4, out,
+                                                                E, R, reps);
+    } else {
+      render_slab_kernel<false><<<grid, SLAB_THREADS, 0, st>>>(p, poses, rays4, pixels4, out, E,
+                                                              R, reps);
+    }
+  } else if (mode == RASTER) {
+    if (staged) {
+      render_raster_kernel<true><<<grid, SLAB_THREADS, smem, st>>>(p, poses, rays4, pixels4,
+                                                                  runs4, out, E, R, reps);
+    } else {
+      render_raster_kernel<false><<<grid, SLAB_THREADS, 0, st>>>(p, poses, rays4, pixels4, runs4,
+                                                                out, E, R, reps);
+    }
+  } else {
+#define MXU_LAUNCH(H, S)                                                                    \
+  render_raster_mxu_kernel<H, S><<<grid, SLAB_THREADS, smem, st>>>(                         \
+      p, poses, setups, rays4, pixels4, runs4, frags4, out, E, R, reps)
+    const bool hoist = mode == MXU_HOIST;
+    if (hoist && staged) {
+      MXU_LAUNCH(true, true);
+    } else if (hoist) {
+      MXU_LAUNCH(true, false);
+    } else if (staged) {
+      MXU_LAUNCH(false, true);
+    } else {
+      MXU_LAUNCH(false, false);
+    }
+#undef MXU_LAUNCH
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -148,7 +148,8 @@ def library() -> ctypes.CDLL:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     lib.cp_physics_step.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, ptr]
     lib.cp_physics_step.restype = i32
-    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
+    lib.cp_render.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32,
+                              ptr]
     lib.cp_render.restype = i32
     lib.cp_pack_setups.argtypes = [ptr, ptr, ptr, i32, i32, ptr]
     lib.cp_pack_setups.restype = i32

@@ -1,8 +1,9 @@
 """Wrappers of the CUDA render kernels (csrc/render.cu): K3/K4 in the slab
 mode (which skips the box casts its cull rectangles rule out), K5a in the
-raster mode, and the three other modes of the JAX render
-kernel: K5b (division-free ratio slab), K5c (raster from a hoisted setup
-table) and K5d (raster with its bound planes on the tensor cores).
+raster mode (which skips the box casts its interval bounds rule out), and
+the three other modes of the JAX render kernel: K5b (division-free ratio
+slab), K5c (raster from a hoisted setup table) and K5d (raster with its
+bound planes on the tensor cores, culled as K5a).
 
 Counterparts of cartpoleplusplus_tpu.render.pallas_kernel's
 ``make_render_repeats`` (K3's launch) and ``make_render_batched`` (K4's
@@ -45,6 +46,7 @@ class RenderParams(ctypes.Structure):
         ("p2", ctypes.c_int),
         ("n", ctypes.c_int),
         ("ray_abs", ctypes.c_float),
+        ("cull", ctypes.c_int),  # the raster kernels' cull: 1 on (always, here), 0 off
     ]
 
 
@@ -65,25 +67,64 @@ def slab_pixel_table(planes: np.ndarray, order: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(table[:, order])
 
 
-SLAB_THREADS = 128  # the slab kernel's block (csrc/render.cu)
+def tf32_split(x: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """float32 x → (hi, lo), float32 values that TF32 holds: hi = x rounded
+    to TF32 (nearest, ties away from zero: ``cvt.rna.tf32.f32``), lo = the
+    float32 residual x - hi (exact) rounded the same way (the 3xTF32
+    split)."""
+
+    def rna(v):
+        bits = np.asarray(v, np.float32).view(np.uint32).astype(np.uint64)
+        return ((bits + 0x1000) & 0xFFFFE000).astype(np.uint32).view(np.float32)
+
+    x = np.asarray(x, np.float32)
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def mxu_fragment_table(planes: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """K5d's A operands: planes (4, C, p2, n) → float32 (C, p2, ceil(n /
+    32), 32, 8).  Per run of 32 pixels in ``order`` (the last padded with
+    the last pixel), sub-ray and lane (g = lane // 4, t = lane % 4): the
+    TF32 high parts of component t of (px, py, 1, 0) of the run's pixels
+    g, g + 8, g + 16, g + 24, then their residuals (:func:`tf32_split`)."""
+    _, c, p2, n = planes.shape
+    runs = -(-n // raycast.WARP)
+    idx = np.minimum(np.arange(runs * raycast.WARP), n - 1)
+    px, py = planes[0][..., order][..., idx], planes[1][..., order][..., idx]
+    comps = np.stack([px, py, np.ones_like(px), np.zeros_like(px)])  # (4, C, p2, runs*32)
+    comps = comps.reshape(4, c, p2, runs, raycast.WARP)
+    lane = np.arange(raycast.WARP)
+    g, t = lane // 4, lane % 4
+    vals = np.stack([comps[t, :, :, :, g + 8 * j] for j in range(4)], -1)  # (32, C, p2, runs, 4)
+    hi, lo = tf32_split(np.moveaxis(vals, 0, -2))  # (C, p2, runs, 32, 4)
+    return np.ascontiguousarray(np.concatenate([hi, lo], -1))
+
+
+SLAB_THREADS = 128  # the column-run kernels' block (csrc/render.cu)
 # Shared memory for a block's frames in the slab kernel: the default 48 KiB
 # a block may use, less its setups and cull rectangles (SLAB_THREADS / 16
 # repeats x MAX_CAMS cameras x 2 boxes x (15 + 4) floats); render.cu's
-# SLAB_FRAME_BYTES.
+# SLAB_FRAME_BYTES.  The raster kernels (K5a, K5d) keep 32 floats per
+# (repeat x camera, at most SLAB_THREADS / 16, and box): RASTER_FRAME_BYTES.
 SLAB_FRAME_BYTES = 48 * 1024 - SLAB_THREADS // 16 * MAX_CAMS * 2 * (15 + 4) * 4
+RASTER_FRAME_BYTES = 48 * 1024 - SLAB_THREADS // 16 * 2 * 32 * 4
 
 
-def slab_blocking(num_cams: int, n: int, r: int) -> tuple[int, bool]:
-    """The slab kernel's repeats per block and whether it stages them in
-    shared memory, for ``r`` repeats of ``num_cams`` frames of ``n`` pooled
-    pixels: as many repeats as 16 setup lanes per (repeat, camera) allow,
-    cut to those whose frames fit in ``SLAB_FRAME_BYTES``; where one frame
-    does not fit, the kernel writes its pixels straight to global memory."""
+def slab_blocking(num_cams: int, n: int, r: int,
+                  frame_bytes: int = SLAB_FRAME_BYTES) -> tuple[int, bool]:
+    """A column-run kernel's repeats per block and whether it stages them
+    in shared memory, for ``r`` repeats of ``num_cams`` frames of ``n``
+    pooled pixels: as many repeats as 16 setup lanes per (repeat, camera)
+    allow, cut to those whose frames fit in ``frame_bytes`` (the slab
+    kernel's ``SLAB_FRAME_BYTES``, the raster kernels'
+    ``RASTER_FRAME_BYTES``); where one frame does not fit, the kernel
+    writes its pixels straight to global memory."""
     reps = min(r, SLAB_THREADS // (16 * num_cams))
     frame_w = num_cams * 3 * n
-    if frame_w > SLAB_FRAME_BYTES:
+    if frame_w > frame_bytes:
         return reps, False
-    return min(reps, SLAB_FRAME_BYTES // frame_w), True
+    return min(reps, frame_bytes // frame_w), True
 
 
 class Renderer:
@@ -125,11 +166,20 @@ class Renderer:
         self.num_cams = len(self.cam_meta)
         self.frame_width = self.num_cams * 3 * self.n
         self.setup_width = self.num_cams * 2 * raycast.SETUP_W
-        if self.mode == SLAB:  # the slab kernel's own layouts of the static rows
-            order = raycast.slab_order(self.n, self.width)
-            self.slab_rays = torch.from_numpy(
-                np.ascontiguousarray(planes[..., order].transpose(1, 2, 3, 0))).to(device)
-            self.slab_pixels = torch.from_numpy(slab_pixel_table(planes, order)).to(device)
+        # The column-run kernels (K3/K4, K5a, K5d) read the static rows in
+        # their own order and layouts; the raster ones a run table too, K5d
+        # its A operands.
+        self.columns = self.mode in (SLAB, RASTER, MXU, MXU_HOIST)
+        self.slab_pixels = self.runs = self.mxu_frags = None
+        if self.columns:
+            self.order = raycast.slab_order(self.n, self.width)
+            self.slab_rays = torch.from_numpy(np.ascontiguousarray(
+                planes[..., self.order].transpose(1, 2, 3, 0))).to(device)
+            self.slab_pixels = torch.from_numpy(slab_pixel_table(planes, self.order)).to(device)
+        if self.columns and self.raster:
+            self.runs = torch.from_numpy(raycast.run_rects(planes, self.order)).to(device)
+        if self.mxu:
+            self.mxu_frags = torch.from_numpy(mxu_fragment_table(planes, self.order)).to(device)
 
     def plain(self, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
         """Plain PyTorch version: poses (R, E, 16) → uint8 (E, R, C·3·n)."""
@@ -158,6 +208,7 @@ class Renderer:
         p.sky_color[:] = list(raycast.SKY_COLOR)
         p.num_cams, p.p2, p.n = self.num_cams, self.p2, self.n
         p.ray_abs = self.ray_abs
+        p.cull = 1
         return p
 
     def _launch(self, name: str, scene: SceneParams, poses: torch.Tensor) -> torch.Tensor:
@@ -204,14 +255,17 @@ class Renderer:
         if self.hoist and setups is None:
             raise ValueError("the hoisted raster reads a setup table")
         r, e = poses.shape[0], poses.shape[1]
-        slab = self.mode == SLAB
-        reps, staged = slab_blocking(self.num_cams, self.n, r) if slab else (0, False)
+        reps, staged = 0, False
+        if self.columns:
+            reps, staged = slab_blocking(self.num_cams, self.n, r,
+                                         RASTER_FRAME_BYTES if self.raster else SLAB_FRAME_BYTES)
+        ptr = lambda t: None if t is None else t.data_ptr()
         err = kernels.library().cp_render(
             ctypes.addressof(params), poses.data_ptr(),
-            (self.slab_rays if slab else self.planes).data_ptr(),
-            setups.data_ptr() if self.hoist else None,
-            self.slab_pixels.data_ptr() if slab else None, out.data_ptr(), e, r, self.mode,
-            reps, int(staged), torch.cuda.current_stream(poses.device).cuda_stream,
+            (self.slab_rays if self.columns else self.planes).data_ptr(),
+            ptr(setups if self.hoist else None), ptr(self.slab_pixels), ptr(self.runs),
+            ptr(self.mxu_frags), out.data_ptr(), e, r, self.mode, reps, int(staged),
+            torch.cuda.current_stream(poses.device).cuda_stream,
         )
         kernels.check(err, "render")
 

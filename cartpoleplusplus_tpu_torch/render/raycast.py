@@ -286,6 +286,21 @@ def slab_pixel_rects(planes: np.ndarray) -> np.ndarray:
     return np.stack([px.min(1), px.max(1), py.min(1), py.max(1)], -1).astype(np.float32)
 
 
+def run_rects(planes: np.ndarray, order: np.ndarray) -> np.ndarray:
+    """The raster kernels' run table: planes (4, C, p2, n) → float32
+    (C, ceil(n / 32), 4), per run of 32 pooled pixels in ``order`` (a
+    warp's pixels; the last run of a camera shorter) the rectangle (xlo,
+    xhi, ylo, yhi) of its pixels' sub-rays."""
+    n = planes.shape[-1]
+    rects = slab_pixel_rects(planes)[:, order]  # (C, n, 4)
+    runs = -(-n // WARP)
+    padded = np.concatenate([rects, np.repeat(rects[:, -1:], runs * WARP - n, 1)], 1)
+    padded = padded.reshape(rects.shape[0], runs, WARP, 4)
+    return np.ascontiguousarray(np.stack(
+        [padded[..., 0].min(2), padded[..., 1].max(2), padded[..., 2].min(2),
+         padded[..., 3].max(2)], -1), np.float32)
+
+
 def slab_order(n: int, width: int) -> np.ndarray:
     """The slab kernel's order of a camera's pooled pixels: column by
     column of the row-major (n / width, width) frame, so that a warp's run
@@ -349,6 +364,154 @@ def slab_cull_violations(scene: SceneParams, poses: torch.Tensor, planes: torch.
             setup64 = tuple(tuple(x.double() for x in v) for v in setup)
             hit = (_slab_cast(rows[0], rows[1], setup, he)[3]
                    | _slab_cast(rows[0].double(), rows[1].double(), setup64, he)[3])
+            count += int((hit & ~mask[:, c, :, b]).sum())
+    return count
+
+
+# The raster cull (csrc/render.cu, whose header gives the argument): per
+# warp's run of pooled pixels, interval bounds with directed rounding of
+# every value the raster cast computes for a sub-ray in the run's
+# rectangle; a box is skipped where the bounds show that its cast misses.  The kernel rounds
+# down and up in float32 (__fmul_rd, __fadd_ru, ...); here that is done
+# from float64, where the product of two float32 values is exact.
+MXU_WIDEN = 2.0**-14  # K5d: CULL_SAFETY x 2^-18, relative to |s|·S (render.cu's header)
+
+
+def _mul_dir(a: torch.Tensor, b: torch.Tensor, up: bool) -> torch.Tensor:
+    """float32 a·b rounded down or up (the float64 product is exact)."""
+    return _round_f32(a.double() * b.double(), up)
+
+
+def _add_dir(a: torch.Tensor, b: torch.Tensor, up: bool) -> torch.Tensor:
+    """float32 a + b rounded down or up.  The float64 sum s is exact where
+    the exponents lie within 29 bits of each other.  Elsewhere TwoSum gives
+    its residual, and the result moves one more float32 ulp outward where
+    s is itself a float32 value and the exact sum lies beyond it; where s
+    is not, the exact sum and s round alike (they lie within half a
+    float64 ulp of each other, and s at least one from any float32)."""
+    a, b = a.double(), b.double()
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    r = _round_f32(s, up)
+    beyond = (err > 0 if up else err < 0) & (r.double() == s)
+    toward = torch.full_like(r, float("inf") if up else -float("inf"))
+    return torch.where(beyond, torch.nextafter(r, toward), r)
+
+
+def mxu_widening(setup, ray_abs: float):
+    """K5d's widening of each bound plane of one box, rounded up as the
+    kernel computes it: ``MXU_WIDEN · |s| · (|A| + ray_abs·(|B| + |C|))``
+    with s = inv_u (far planes) and s = inv_l (near planes) → two
+    3-tuples of float32 (E, 1) columns."""
+    A, B, C, inv_u, inv_l = setup[:5]
+    ra = torch.tensor(ray_abs, dtype=torch.float32, device=A[0].device)
+    widen = torch.tensor(MXU_WIDEN, dtype=torch.float32, device=A[0].device)
+    far, near = [], []
+    for k in range(3):
+        s = _add_dir(A[k].abs(), _mul_dir(ra, _add_dir(B[k].abs(), C[k].abs(), True), True), True)
+        far.append(_mul_dir(widen, _mul_dir(inv_u[k].abs(), s, True), True))
+        near.append(_mul_dir(widen, _mul_dir(inv_l[k].abs(), s, True), True))
+    return tuple(far), tuple(near)
+
+
+def raster_may_hit(setup, rects, widen=None) -> torch.Tensor:
+    """Whether the raster cast of one box can hit a sub-ray in each screen
+    rectangle: False only where interval bounds of the cast's values prove
+    a miss (render.cu's ``raster_may_hit``).
+
+    ``setup``: :func:`_obb_q_setup`'s tuple of float32 (E, 1) columns;
+    ``rects``: (xlo, xhi, ylo, yhi), float32 (m,) each (a warp's run of
+    pixels, :func:`run_rects`, or any rectangle of sub-rays); ``widen``:
+    K5d's widening (:func:`mxu_widening`), or None for K5a.  Returns bool
+    (E, m): False where the least upper bound of q lies below max(the
+    greatest lower bound, 1e-30) (:func:`raster_q_bounds`), the cast's hit
+    test.  A setup that is not finite, or a bound that is NaN, is never
+    skipped."""
+    A, B, C, inv_u, inv_l = setup[:5]
+    q_lo, q_hi = raster_q_bounds(setup, rects, widen)
+    finite = torch.stack([torch.isfinite(x) for x in (*A, *B, *C, *inv_u, *inv_l)]).all(0)
+    return ~finite | ~(q_hi < q_lo)
+
+
+def raster_q_bounds(setup, rects, widen=None):
+    """Bounds of the raster cast's inverse-depth cascade over each
+    rectangle, as the kernels compute them → float32 (q_lo, q_hi), (E, m)
+    each (NaN where a bound is): q_lo at most max(1e-30, the cast's q_lo) and q_hi at least its
+    q_hi, for every sub-ray in the rectangle (arguments as
+    :func:`raster_may_hit`'s).  Per axis k, with the rectangle's corner
+    picked by the signs of B and C, ``w = (A + B·px) + C·py`` is bounded
+    below and above in the cast's order of rounding; the far plane ``a =
+    w·inv_u`` from below, the near plane ``b = w·inv_l`` from above where
+    it is an upper bound (ahead) and from below where it is a lower one."""
+    A, B, C, inv_u, inv_l, ahead, _, _ = setup
+    xlo, xhi, ylo, yhi = rects
+    big = torch.tensor(_BIG, dtype=torch.float32, device=xlo.device)
+    q_lo = torch.tensor(1e-30, dtype=torch.float32, device=xlo.device)
+    for k in range(3):
+        bp, cp = B[k] >= 0.0, C[k] >= 0.0
+        w_lo = _add_dir(_add_dir(A[k], _mul_dir(B[k], torch.where(bp, xlo, xhi), False), False),
+                        _mul_dir(C[k], torch.where(cp, ylo, yhi), False), False)
+        w_hi = _add_dir(_add_dir(A[k], _mul_dir(B[k], torch.where(bp, xhi, xlo), True), True),
+                        _mul_dir(C[k], torch.where(cp, yhi, ylo), True), True)
+        far = _mul_dir(w_lo, inv_u[k], False)
+        near = _mul_dir(w_hi, inv_l[k].abs(), True)
+        if widen is not None:
+            far = _add_dir(far, -widen[0][k], False)
+            near = _add_dir(near, widen[1][k], True)
+        ub = torch.where(ahead[k], near, big)
+        q_hi = ub if k == 0 else torch.minimum(q_hi, ub)
+        q_lo = torch.maximum(q_lo, torch.maximum(far, torch.where(ahead[k], -big, -near)))
+    return q_lo, q_hi
+
+
+def raster_cast_mask(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta,
+                     p2: int, n: int, order: np.ndarray, mxu: bool = False) -> torch.Tensor:
+    """The casts the raster kernels make (K5a; K5d with ``mxu``): poses
+    (E, 16) → bool (E, C, p2·n, 2), the layout of :func:`slab_cast_mask`.
+    A warp holds a run of 32 pooled pixels in ``order`` (:func:`slab_order`)
+    and casts a box for every sub-ray of its pixels where
+    :func:`raster_may_hit` holds for the rectangle of its run
+    (:func:`run_rects`), else for none of them."""
+    ray_abs = float(planes[:2].abs().max())
+    rects = torch.from_numpy(run_rects(planes.cpu().numpy(), order)).to(poses.device)
+    run = torch.empty(n, dtype=torch.long, device=poses.device)
+    run[torch.from_numpy(order).to(poses.device)] = torch.arange(n, device=poses.device) // WARP
+    masks = []
+    for c, (basis, eye) in enumerate(cam_meta):
+        r = rects[c]
+        per_box = []
+        for center, quat, he in pose_boxes(scene, poses):
+            setup = _obb_q_setup(basis, eye, center, quat, he, LIGHT_DIR)
+            widen = mxu_widening(setup, ray_abs) if mxu else None
+            may = raster_may_hit(setup, (r[:, 0], r[:, 1], r[:, 2], r[:, 3]), widen)
+            per_box.append(may[:, run].repeat(1, p2))  # (E, p2·n): the p2 blocks of n
+        masks.append(torch.stack(per_box, dim=-1))
+    return torch.stack(masks, dim=1)
+
+
+def raster_cull_violations(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor,
+                           cam_meta, p2: int, n: int, order: np.ndarray,
+                           mxu: bool = False) -> int:
+    """How many (sub-ray, box) casts that :func:`raster_cast_mask` skips on
+    poses (E, 16) the raster cast hits, in float32 or in float64 from the
+    same setup (:func:`_obb_q_cast`), or, with ``mxu``, from the bound
+    planes as one float32 product (:func:`bound_planes`): 0 where the cull
+    is conservative on these poses."""
+    mask = raster_cast_mask(scene, poses, planes, cam_meta, p2, n, order, mxu)
+    count = 0
+    for c, (basis, eye) in enumerate(cam_meta):
+        rows = planes[:, c].reshape(4, 1, p2 * n)
+        setups = [_obb_q_setup(basis, eye, center, quat, he, LIGHT_DIR)
+                  for center, quat, he in pose_boxes(scene, poses)]
+        products = bound_planes(planes[:, c].reshape(4, p2 * n), *setups) if mxu else (None, None)
+        for b, setup in enumerate(setups):
+            setup64 = tuple(tuple(x.double() if x.is_floating_point() else x for x in v)
+                            if isinstance(v, tuple) else v for v in setup)
+            hit = (_obb_q_cast(rows[0], rows[1], setup)[2]
+                   | _obb_q_cast(rows[0].double(), rows[1].double(), setup64)[2])
+            if mxu:
+                hit = hit | _obb_q_cast(rows[0], rows[1], setup, products[b])[2]
             count += int((hit & ~mask[:, c, :, b]).sum())
     return count
 
@@ -526,6 +689,22 @@ def _obb_q_cast(px, py, setup, bounds=None):
     return q, lam, hit
 
 
+def _obb_q_cast_where(px, py, setup, mask):
+    """:func:`_obb_q_cast` of the (env, ray) pairs of ``mask`` (E, P) only,
+    the others a miss (q = -_BIG, hit false, lambert 0): the same values
+    where it casts, so the same frames, and the operations of only those
+    casts."""
+    ie, ip = mask.nonzero(as_tuple=True)
+    sub = tuple(tuple(col[ie, 0] for col in v) if isinstance(v, tuple) else v[ie, 0]
+                for v in setup)
+    q, lam, hit = _obb_q_cast(px[0, ip], py[0, ip], sub)
+    q_all = torch.full(mask.shape, -_BIG, dtype=torch.float32, device=mask.device)
+    lam_all = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
+    hit_all = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
+    q_all[ie, ip], lam_all[ie, ip], hit_all[ie, ip] = q, lam, hit
+    return q_all, lam_all, hit_all
+
+
 SETUP_W = 22  # per box: A(3) B(3) C(3) inv_u(3) inv_l(3) ahead(3) cand(3) inside
 
 
@@ -619,9 +798,11 @@ def render_frames(
       (:func:`bound_planes`).  ``recip`` is ignored.
     - else the slab cascade: with ``recip`` an exact reciprocal, else the
       division-free ratio cascade ordered by ``nc·dp ≤ np·dc``.  ``hoist``
-      and ``mxu`` are ignored.  With ``recip``, ``cast_mask`` (E, C, p2·n,
-      2) from :func:`slab_cast_mask` casts only the (ray, box) pairs it
-      holds and takes a miss elsewhere, as the slab kernel culls.
+      and ``mxu`` are ignored.
+
+    ``cast_mask`` (E, C, p2·n, 2), from :func:`slab_cast_mask` (slab with
+    ``recip``) or :func:`raster_cast_mask` (raster), casts only the (ray,
+    box) pairs it holds and takes a miss elsewhere, as the kernels cull.
     """
     col = lambda j: poses[:, j : j + 1].to(torch.float32)
     cart_c, cart_q = (col(0), col(1), col(2)), (col(3), col(4), col(5), col(6))
@@ -639,11 +820,20 @@ def render_frames(
             else:
                 su_c = _obb_q_setup(basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR)
                 su_p = _obb_q_setup(basis, eye, pole_c, pole_q, scene.pole_half_extents, LIGHT_DIR)
-            b_c = b_p = None
-            if mxu:
-                b_c, b_p = bound_planes(planes[:, c].reshape(4, p2 * n), su_c, su_p)
-            qc, lam_c, hit_c = _obb_q_cast(px, py, su_c, b_c)
-            qp, lam_p, hit_p = _obb_q_cast(px, py, su_p, b_p)
+            if cast_mask is not None and not mxu:
+                qc, lam_c, hit_c = _obb_q_cast_where(px, py, su_c, cast_mask[:, c, :, 0])
+                qp, lam_p, hit_p = _obb_q_cast_where(px, py, su_p, cast_mask[:, c, :, 1])
+            else:
+                b_c = b_p = None
+                if mxu:
+                    b_c, b_p = bound_planes(planes[:, c].reshape(4, p2 * n), su_c, su_p)
+                qc, lam_c, hit_c = _obb_q_cast(px, py, su_c, b_c)
+                qp, lam_p, hit_p = _obb_q_cast(px, py, su_p, b_p)
+                if cast_mask is not None:  # the product's casts, the skipped ones taken as misses
+                    big = torch.tensor(-_BIG, dtype=torch.float32, device=qc.device)
+                    mc, mp = cast_mask[:, c, :, 0], cast_mask[:, c, :, 1]
+                    qc, hit_c = torch.where(mc, qc, big), hit_c & mc
+                    qp, hit_p = torch.where(mp, qp, big), hit_p & mp
             sel_c = hit_c & (qc >= qp)
         elif recip and cast_mask is not None:
             nc, dc, lam_c, hit_c = _slab_cast_where(

@@ -37,11 +37,18 @@ acting steps and of one training segment per row give the card's busy
 share and the learner's share of it.  On every slab pose set the cull is
 checked where it could fail (``cull_check``: no skipped cast that the
 plain cast hits, frames byte-equal to the kernel's own with culling off)
-and the share of box casts it skips is printed.  Each phase prints one
-JSON line with the elapsed seconds; the line before the last two holds
-every kernel's launches, error, time, bound, registers and spills (K3/K4's
-bound counts the work these inputs need, with the full-work bound beside
-it); the last line is ``{"ok": true, "device": {...}}``.
+and the share of box casts it skips is printed; likewise K5a's and K5d's
+cull on every raster pose set (``raster_cull_check`` in
+``parity_raster_cull`` and ``parity_training_end``: the 1cam_exact row's
+main-path and training-end poses, seeded states and the probe's poses
+seen by 2 cameras, the probe's seen by 1, and a frame too large to stage
+in shared memory), where K5a must also equal the plain raster byte for
+byte and K5d keep the silhouette rule against K5a and its plain version.  Each phase
+prints one JSON line with the elapsed seconds; the line before the last
+two holds every kernel's launches, error, time, bound, registers and
+spills (the culled kernels' bound, K3/K4, K5a and K5d, counts the work
+these inputs need, with the full-work bound beside it); the last line is
+``{"ok": true, "device": {...}}``.
 
 A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
 Without CUDA, or without the port beside it, the script fails before
@@ -76,7 +83,8 @@ from cartpoleplusplus_tpu_torch.models.networks import Actor
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
-from cartpoleplusplus_tpu_torch.render.cuda_render import SLAB, Renderer, slab_blocking
+from cartpoleplusplus_tpu_torch.render.cuda_render import (
+    MXU, RASTER, RASTER_FRAME_BYTES, SLAB, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import roofline
 
@@ -130,6 +138,10 @@ CONFIG5_WIDE = CartpoleConfig(num_cameras=2, obs_samples=2,
                               **{**_ROW, "render_width": 192, "render_height": 192})
 CONFIG1_UNPOOLED = CartpoleConfig(num_cameras=1, obs_samples=1, **{
     **_ROW, "render_width": 124, "render_height": 124, "obs_pool": 1})
+# A raster frame over RASTER_FRAME_BYTES: 2 cameras exact at 192 x 192
+# (written straight to global memory).
+CONFIG2_EXACT_WIDE = CartpoleConfig(num_cameras=2, obs_samples=0,
+                                    **{**_ROW, "render_width": 192, "render_height": 192})
 LARGE_FRAME_ENVS = 256
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
@@ -281,13 +293,22 @@ def pixel_check(name: str, got: torch.Tensor, want: torch.Tensor) -> dict:
     return res
 
 
+def cast_mask(scene, rnd, poses) -> torch.Tensor:
+    """The plain predicate of the casts ``rnd``'s kernel makes on poses
+    (E, 16) (``raycast.slab_cast_mask``, or ``raster_cast_mask`` for K5a
+    and K5d)."""
+    args = (scene, poses, rnd.planes, rnd.cam_meta, rnd.p2, rnd.n)
+    if rnd.raster:
+        return raycast.raster_cast_mask(*args, rnd.order, mxu=rnd.mxu)
+    return raycast.slab_cast_mask(*args, rnd.width)
+
+
 def cast_shares(scene, rnd, poses) -> dict:
-    """Share of box casts the slab kernel's cull skips on poses (R, E, 16),
-    for the cart and the pole: of all (sub-ray, box) casts, those in warps
-    that skip the box (the plain predicate, ``raycast.slab_cast_mask``)."""
+    """Share of box casts a column-run kernel's cull skips on poses (R, E,
+    16), for the cart and the pole: of all (sub-ray, box) casts, those in
+    warps that skip the box (the plain predicate, :func:`cast_mask`)."""
     skipped = torch.stack([
-        1.0 - raycast.slab_cast_mask(scene, poses[r], rnd.planes, rnd.cam_meta, rnd.p2, rnd.n,
-                                     rnd.width).float().mean(dim=(0, 1, 2))
+        1.0 - cast_mask(scene, rnd, poses[r]).float().mean(dim=(0, 1, 2))
         for r in range(poses.shape[0])]).mean(0)
     return {"cart": float(skipped[0]), "pole": float(skipped[1])}
 
@@ -318,16 +339,70 @@ def cull_check(scene, rnd, poses, name: str) -> dict:
             "skipped_cast_share": cast_shares(scene, rnd, poses)}
 
 
+def raster_cull_check(scene, cfg, poses, name: str) -> dict:
+    """K5a's and K5d's cull on poses (R, E, 16) seen by ``cfg``'s cameras,
+    where it could fail: no skipped cast that the plain cast hits
+    (``raycast.raster_cull_violations``, which must be 0), and each
+    kernel's frames byte-equal to its own with the cull off
+    (``RenderParams.cull`` = 0).  K5a's frames
+    must equal the plain raster's; K5d's keep the silhouette rule against
+    K5a's and against its plain version.  Plus the share of casts skipped."""
+    dev, r = poses.device, poses.shape[0]
+    k5a, k5d = Renderer(cfg, dev, raster=True), Renderer(cfg, dev, raster=True, mxu=True)
+    out, frames = {}, {}
+    for key, rnd in (("k5a", k5a), ("k5d", k5d)):
+        by_cull = []
+        for cull in (1, 0):
+            params = rnd.kernel_params(scene)
+            params.cull = cull
+            by_cull.append(torch.empty((poses.shape[1], r, rnd.frame_width), dtype=torch.uint8,
+                                       device=dev))
+            rnd.launch(params, poses.contiguous(), by_cull[-1])
+        violations = sum(raycast.raster_cull_violations(
+            scene, poses[i], rnd.planes, rnd.cam_meta, rnd.p2, rnd.n, rnd.order, rnd.mxu)
+            for i in range(r))
+        differ = int((by_cull[0] != by_cull[1]).sum())
+        if violations or differ:
+            raise AssertionError(f"{name} {key}: the cull skipped {violations} hitting casts; "
+                                 f"{differ} bytes differ from the frames without culling")
+        frames[key] = by_cull[0]
+        out[key] = {"violations": violations, "bytes_differing_from_uncull": differ,
+                    "skipped_cast_share": cast_shares(scene, rnd, poses)}
+    if not torch.equal(frames["k5a"], k5a.plain(scene, poses)):
+        raise AssertionError(f"{name}: K5a's frames differ from the plain raster's")
+    h, w = cfg.obs_height, cfg.obs_width
+    out["k5a"]["levels_vs_plain"] = 0
+    out["k5d"]["silhouette_vs_k5a"] = silhouette_check(f"{name} k5d vs k5a", frames["k5d"],
+                                                       frames["k5a"], h, w)
+    out["k5d"]["silhouette_vs_plain"] = silhouette_check(f"{name} k5d", frames["k5d"],
+                                                         k5d.plain(scene, poses), h, w)
+    return out
+
+
 def needed_plain(scene, rnd, poses):
-    """The slab mode's plain version doing only the work these inputs need,
-    as a function of poses (R, E, 16): each box cast only for the sub-rays
-    it hits, a pooled pixel shaded and pooled only where a sub-ray of it
-    hits a box, every other pixel the background colour of its static ray
-    rows (a table, no operation).  The hits and indices are found here,
-    outside the function, by the plain cast.  Its op census is the work
-    these inputs need; its frames are the plain version's."""
+    """The plain version of the slab mode, or of the raster (``rnd.raster``;
+    K5d's work is K5a's), doing only the work these inputs need, as a
+    function of poses (R, E, 16): each box cast only for the sub-rays it
+    hits, a pooled pixel shaded and pooled only where a sub-ray of it hits
+    a box, every other pixel the background colour of its static ray rows
+    (a table, no operation).  The hits and indices are found here, outside
+    the function, by the plain cast.  Its op census is the work these
+    inputs need; its frames are the plain version's."""
     p2, n = rnd.p2, rnd.n
     e = poses.shape[1]
+    if rnd.raster:
+        setup = lambda basis, eye, center, quat, he: raycast._obb_q_setup(
+            basis, eye, center, quat, he, raycast.LIGHT_DIR)
+        hits_of = lambda rows, su, he: raycast._obb_q_cast(rows[0], rows[1], su)[2]
+        cast_where = lambda rows, su, he, m: raycast._obb_q_cast_where(rows[0], rows[1], su, m)
+        nearer = lambda dc, dp: dc >= dp  # inverse depth
+    else:
+        setup = lambda basis, eye, center, quat, he: raycast._slab_setup(
+            basis, eye, center, quat, raycast.LIGHT_DIR)
+        hits_of = lambda rows, su, he: raycast._slab_cast(rows[0], rows[1], su, he)[3]
+        cast_where = lambda rows, su, he, m: (lambda t, _, lam, hit: (t, lam, hit))(
+            *raycast._slab_cast_where(rows[0], rows[1], su, he, m))
+        nearer = lambda dc, dp: dc <= dp  # depth
     miss = torch.zeros((1, p2 * n), dtype=torch.bool, device=poses.device)
     zeros = torch.zeros((1, p2 * n), device=poses.device)
     plan, background = [], []
@@ -337,9 +412,8 @@ def needed_plain(scene, rnd, poses):
     for r in range(poses.shape[0]):
         for c, (basis, eye) in enumerate(rnd.cam_meta):
             rows = rnd.planes[:, c].reshape(4, 1, p2 * n)
-            hits = [raycast._slab_cast(rows[0], rows[1], raycast._slab_setup(
-                basis, eye, center, quat, raycast.LIGHT_DIR), he)[3]
-                for center, quat, he in raycast.pose_boxes(scene, poses[r])]
+            hits = [hits_of(rows, setup(basis, eye, center, quat, he), he)
+                    for center, quat, he in raycast.pose_boxes(scene, poses[r])]
             ie, ij = (hits[0] | hits[1]).reshape(e, p2, n).any(1).nonzero(as_tuple=True)
             sub = (torch.arange(p2, device=poses.device)[:, None] * n + ij).reshape(-1)
             plan.append((hits, ie, ij, ie.repeat(p2), sub))
@@ -352,13 +426,12 @@ def needed_plain(scene, rnd, poses):
                 hits, ie, ij, ie_sub, sub = plan[i]
                 i += 1
                 rows = rnd.planes[:, c].reshape(4, 1, p2 * n)
-                (tc, _, lc, hc), (tp, _, lp, hp) = (
-                    raycast._slab_cast_where(rows[0], rows[1], raycast._slab_setup(
-                        basis, eye, center, quat, raycast.LIGHT_DIR), he, hit)
+                (tc, lc, hc), (tp, lp, hp) = (
+                    cast_where(rows, setup(basis, eye, center, quat, he), he, hit)
                     for (center, quat, he), hit in zip(boxes, hits))
                 at = lambda t: t[ie_sub, sub][None]  # the hit pixels' sub-rays, p2 blocks
-                colors = raycast.shade_pool(at(hc) & (at(tc) <= at(tp)), at(hp), at(lc), at(lp),
-                                            rows[2][:, sub], rows[3][:, sub], p2, len(ie))
+                colors = raycast.shade_pool(at(hc) & nearer(at(tc), at(tp)), at(hp), at(lc),
+                                            at(lp), rows[2][:, sub], rows[3][:, sub], p2, len(ie))
                 for k in range(3):
                     plane = background[c][k].expand(e, n).clone()
                     plane[ie, ij] = colors[k][0]
@@ -381,13 +454,14 @@ def probe_rigid(poses: torch.Tensor) -> RigidState:
 PTXAS_NAMES = {
     "step_repeats": "phys_kernelILb1E", "step_substeps": "phys_kernelILb0E",
     "render_repeats": "render_slab_kernelILb1E", "render_batched": "render_slab_kernelILb1E",
-    "render_repeats_raster": "render_kernelILi1E", "render_batched_raster": "render_kernelILi1E",
+    "render_repeats_raster": "render_raster_kernelILb1E",
+    "render_batched_raster": "render_raster_kernelILb1E",
     "render_repeats_ratio": "render_kernelILi2E", "render_batched_ratio": "render_kernelILi2E",
     "pack_setups": "pack_setups_kernel",
     "render_repeats_raster_hoist": "render_kernelILi3E",
     "render_batched_raster_hoist": "render_kernelILi3E",
-    "render_repeats_raster_mxu": "render_mxu_kernelILb0E",
-    "render_batched_raster_mxu": "render_mxu_kernelILb0E",
+    "render_repeats_raster_mxu": "render_raster_mxu_kernelILb0ELb1E",
+    "render_batched_raster_mxu": "render_raster_mxu_kernelILb0ELb1E",
 }
 
 
@@ -449,10 +523,10 @@ def raw_launches(scene, renderer, rigid, force, poses, spr, n_push):
     }
 
 
-def silhouette_check(name: str, got: torch.Tensor, want: torch.Tensor, h: int, w: int) -> dict:
-    """Frames (…, C·3·h·w) of a product-rounded render against another:
-    under SIL_SHARE of bytes differ, every differing pixel within one pixel
-    of an edge of more than SIL_EDGE levels in either; raises otherwise."""
+def silhouette_stats(got: torch.Tensor, want: torch.Tensor, h: int, w: int) -> dict:
+    """Frames (…, C·3·h·w) of a product-rounded render against another: the
+    share of bytes that differ and how many differing pixels lie further
+    than one pixel from an edge of more than SIL_EDGE levels in either."""
     g, v = (x.int().reshape(-1, h, w) for x in (got, want))
 
     def edges(img):
@@ -472,8 +546,14 @@ def silhouette_check(name: str, got: torch.Tensor, want: torch.Tensor, h: int, w
     near[..., :, :-1] |= zone[..., :, 1:]
     near[..., :, 1:] |= zone[..., :, :-1]
     diff = g != v
-    res = {"share_bytes_differing": float(diff.float().mean()),
-           "differing_off_silhouette": int((diff & ~near).sum())}
+    return {"share_bytes_differing": float(diff.float().mean()),
+            "differing_off_silhouette": int((diff & ~near).sum())}
+
+
+def silhouette_check(name: str, got: torch.Tensor, want: torch.Tensor, h: int, w: int) -> dict:
+    """:func:`silhouette_stats`, which must show under SIL_SHARE of bytes
+    differing and every differing pixel on a silhouette; raises otherwise."""
+    res = silhouette_stats(got, want, h, w)
     if res["differing_off_silhouette"] or res["share_bytes_differing"] >= SIL_SHARE:
         raise AssertionError(f"{name} breaks the silhouette rule: {res}")
     return res
@@ -711,8 +791,8 @@ def training_profile(st, segment, step_ms: float) -> dict:
     total_us = sum(by_name.values())
     ours_us = sum(v for k, v in by_name.items()
                   if any(n in k for n in ("render_kernel", "render_slab_kernel",
-                                          "render_mxu_kernel", "phys_kernel",
-                                          "pack_setups_kernel")))
+                                          "render_raster_kernel", "render_raster_mxu_kernel",
+                                          "phys_kernel", "pack_setups_kernel")))
     per_step = lambda us: us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
@@ -908,6 +988,27 @@ def run() -> int:
          large_frames=dict(envs=LARGE_FRAME_ENVS, **large))
     del venv_s1, state_s1, obs_s1
 
+    # 4d. K5a's and K5d's cull where it could fail: the 1cam_exact row's
+    # main-path poses, the seeded states seen by 2 cameras, the probe's
+    # poses seen by 1 and by 2 cameras, and a frame over the shared memory
+    # left for staging (2 cameras exact at 192 x 192, written straight to
+    # global memory).
+    raster_cull = {
+        "main_path": raster_cull_check(scene, CONFIG1_EXACT, poses1, "main_path"),
+        "seeded_2cam": raster_cull_check(scene, CONFIG2_EXACT, poses_seeded, "seeded_2cam"),
+        "probe_1cam": raster_cull_check(scene, CONFIG1_EXACT, probe[None], "probe_1cam"),
+        "probe_2cam": raster_cull_check(scene, CONFIG2_EXACT, probe[None], "probe_2cam"),
+        "2cam_exact_192": raster_cull_check(scene, CONFIG2_EXACT_WIDE, probe3, "2cam_exact_192"),
+    }
+    wide = Renderer(CONFIG2_EXACT_WIDE, dev, raster=True)
+    blocking = dict(zip(("reps", "staged"),
+                        slab_blocking(wide.num_cams, wide.n, 3, RASTER_FRAME_BYTES)))
+    if blocking["staged"]:
+        raise AssertionError("2cam_exact_192: expected a frame too large to stage")
+    emit("parity_raster_cull", envs_main_path=NUM_ENVS, envs_seeded=PARITY_ENVS,
+         envs_probe=PROBE_POSES, envs_large=LARGE_FRAME_ENVS, large_blocking=blocking,
+         sets=raster_cull)
+
     # 5. acting main path at config 5, full width
     with torch.no_grad():  # the actor's first call sets up cuBLAS: keep it out of the timing
         act(venv.reset(gen)[1])
@@ -989,7 +1090,16 @@ def run() -> int:
                          renderer.plain(scene, poses_te))
     cull["training_end"] = cull_check(scene, renderer, poses_te, "training_end")
     other_errs["render_repeats"]["training_end"] = pix_te["max_abs_err"]
-    emit("parity_training_end", envs=NUM_ENVS, render_repeats=pix_te, cull=cull["training_end"])
+    # The raster cull on poses from the end of the 1cam_exact training row,
+    # stepped once under its seeded actor.
+    st1 = trained["1cam_exact"]["state"]
+    with torch.no_grad():
+        force_te1 = cartpole.action_to_force(CONFIG1_EXACT, actor1(st1.obs))
+    _, poses_te1 = soa.step_repeats_batched(scene, st1.env_states.rigid, force_te1, spr, reps)
+    raster_cull["training_end"] = raster_cull_check(scene, CONFIG1_EXACT, poses_te1,
+                                                    "training_end")
+    emit("parity_training_end", envs=NUM_ENVS, render_repeats=pix_te, cull=cull["training_end"],
+         raster_cull=raster_cull["training_end"])
 
     # 7. one TD3 segment at the 1cam_exact row
     td3_opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=True)
@@ -1057,8 +1167,13 @@ def run() -> int:
     errs.update(k6_errs)
     _, poses0 = cuda_step.step_repeats(scene, rigid0, force0, spr, reps)
     cull["main_path"] = cull_check(scene, renderer, poses0, "main_path")
-    # K3/K4's work depends on the data: their bound is the census of the
-    # work these inputs need (needed_plain), the full-work census beside it.
+    raster_main = raster_cull["main_path"]
+    skipped_main = {"": cull["main_path"]["skipped_cast_share"],
+                    "_raster": raster_main["k5a"]["skipped_cast_share"],
+                    "_raster_mxu": raster_main["k5d"]["skipped_cast_share"]}
+    # The culled kernels' work (K3/K4, K5a, K5d) depends on the data: their
+    # bound is the census of the work these inputs need (needed_plain), the
+    # full-work census beside it.
     full_ops = {}
     # name → (wrapper call or None, plain version, bytes, operations or None
     # for the census of the plain version)
@@ -1093,11 +1208,12 @@ def run() -> int:
         pos_b = raycast.poses_from_rigid(rig)[None]
         ops_r = census(lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos)
         ops_b = census(lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b)
-        if rnd.mode == SLAB:
-            full_ops["render_repeats"], full_ops["render_batched"] = ops_r, ops_b
-            needed = needed_plain(scene, rnd, pos), needed_plain(scene, rnd, pos_b)
+        if rnd.mode in (SLAB, RASTER, MXU):  # the culled kernels
+            full_ops["render_repeats" + suffix] = ops_r
+            full_ops["render_batched" + suffix] = ops_b
+            needed = needed_plain(scene, ops_rnd, pos), needed_plain(scene, ops_rnd, pos_b)
             for fn, p_in in zip(needed, (pos, pos_b)):
-                if not torch.equal(fn(), rnd.plain(scene, p_in)):
+                if not torch.equal(fn(), ops_rnd.plain(scene, p_in)):
                     raise AssertionError("needed_plain's frames differ from the plain version")
             ops_r, ops_b = census(needed[0]), census(needed[1])
         work["render_repeats" + suffix] = (
@@ -1157,7 +1273,8 @@ def run() -> int:
                 rows[-1]["bound_ms_full_work"] = max(
                     t_bytes, full_ops[name] / PEAK_F32_OPS_PER_S * 1e3)
                 rows[-1]["census_ops_full_work"] = full_ops[name]
-                rows[-1]["skipped_cast_share"] = cull["main_path"]["skipped_cast_share"]
+                rows[-1]["skipped_cast_share"] = skipped_main[name.removeprefix(
+                    "render_repeats").removeprefix("render_batched")]
             if name == "render_repeats":
                 rows[-1]["ms_training_end"] = k3_training_end_ms
                 rows[-1]["skipped_cast_share_training_end"] = (

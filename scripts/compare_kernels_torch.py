@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the port's K1-K4 kernels of two source trees on one GPU.
+"""Compare the port's K1-K4, K5a and K5d kernels of two source trees on one GPU.
 
     python3 scripts/compare_kernels_torch.py --parent DIR [--out DIR]
 
@@ -11,9 +11,16 @@ of its own, in the order parent, this tree, this tree, parent.  Each run
 builds its tree's kernels, launches K1 (``step_repeats``), K2
 (``step_substeps``), K3 (``render_repeats``) and K4 (``render_batched``) in
 the slab mode through the package's ``launch`` functions on every input
-set, keeps the outputs (states, poses, frames) and times each launch with
-CUDA events.  The script then checks that the two trees' outputs are equal
-byte for byte on every set, and that each tree repeats its own outputs.
+set, and K5a (``render_*_raster``) and K5d (``render_*_raster_mxu``, and
+from K5c's packed setups ``render_*_raster_hoist_mxu``) on every raster
+set; it keeps the outputs (states, poses, frames) and times each launch
+with CUDA events.  The script then checks that the two trees' outputs are
+equal byte for byte on every set, K5d's excepted (its product may round a
+bound otherwise: it reports how many bytes differ and whether each lies
+on a silhouette edge, ``chip_smoke.silhouette_stats``), and that each
+tree repeats its own outputs.  A tree whose render kernels have a cull
+switch (``RenderParams.cull``) also times K5a and K5d with their cull on
+and off (``variants_ms``).
 
 Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
 5 substeps, 3 solver iterations):
@@ -29,8 +36,19 @@ Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
 - ``adversarial``: 4096 poses of ``raycast.cull_probe_poses`` (K3/K4
   only), seen by 2 cameras.
 
-For each K3/K4 set it prints the share of box casts that the slab kernel
-skips, by the plain cull predicate (``chip_smoke.cast_shares``).  Prints
+Raster sets (K5a, K5d; 1 camera exact unless named, ``obs_samples`` 0):
+
+- ``raster_main_path``: the 1cam_exact row's reset state and one step
+  under a seeded actor; ``raster_training_end``: its env states after a
+  few DDPG training segments, stepped once;
+- ``raster_seeded_2cam``: the 1024 seeded states seen by 2 cameras;
+- ``raster_probe_1cam``, ``raster_probe_2cam``: the 4096 probe poses;
+- ``raster_large``: 3 x 128 probe poses seen by 2 cameras at 192 x 192, a
+  frame too large to stage in shared memory (written straight to global
+  memory).
+
+For each render set it prints the share of box casts that the culled
+kernel skips, by the plain predicate (``chip_smoke.cast_shares``).  Prints
 the result as one JSON line with the card's ``nvidia-smi`` name and power
 limit, and writes it to ``result.json`` in ``--out`` when given.  Exits nonzero where the trees'
 outputs differ or a tree does not repeat itself.  Needs a CUDA card.
@@ -58,14 +76,26 @@ REPS = 50
 TRAIN_SEGMENTS = 3
 PHYS_SETS = ("main_path", "training_end", "seeded", "wide", "ragged")
 RENDER_SETS = ("main_path", "training_end", "seeded", "p2_1", "adversarial")
+# raster set → its config's key in _configs()
+RASTER_SETS = {"raster_main_path": "exact1", "raster_training_end": "exact1",
+               "raster_seeded_2cam": "exact2", "raster_probe_1cam": "exact1",
+               "raster_probe_2cam": "exact2", "raster_large": "exact2_192"}
+# kernel suffix → Renderer options
+RASTER_KERNELS = {"_raster": dict(raster=True), "_raster_mxu": dict(raster=True, mxu=True),
+                  "_raster_hoist_mxu": dict(raster=True, hoist=True, mxu=True)}
+LARGE_ENVS = 128
 
 
 def _configs():
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     row = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
                obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
-    return (CartpoleConfig(num_cameras=2, obs_samples=2, **row),
-            CartpoleConfig(num_cameras=1, obs_samples=1, **row))
+    return {"cfg5": CartpoleConfig(num_cameras=2, obs_samples=2, **row),
+            "s1": CartpoleConfig(num_cameras=1, obs_samples=1, **row),
+            "exact1": CartpoleConfig(num_cameras=1, obs_samples=0, **row),
+            "exact2": CartpoleConfig(num_cameras=2, obs_samples=0, **row),
+            "exact2_192": CartpoleConfig(num_cameras=2, obs_samples=0, **{
+                **row, "render_width": 192, "render_height": 192})}
 
 
 def make_inputs(path: str) -> dict:
@@ -80,7 +110,8 @@ def make_inputs(path: str) -> dict:
 
     import chip_smoke
 
-    cfg5, cfg_s1 = _configs()
+    cfgs = _configs()
+    cfg5, cfg_s1 = cfgs["cfg5"], cfgs["s1"]
     dev = torch.device("cuda")
     scene = cartpole.scene_for(cfg5)
     spr, reps = cfg5.steps_per_repeat, cfg5.action_repeats
@@ -120,6 +151,27 @@ def make_inputs(path: str) -> dict:
     adv = raycast.cull_probe_poses(ENVS, SEED).to(dev)
     sets["adversarial"] = (None, None, adv[None])
 
+    exact1 = cfgs["exact1"]
+    actor1 = Actor(exact1.obs_shape, use_raw_pixels=True, height=exact1.obs_height,
+                   width=exact1.obs_width, generator=torch.Generator().manual_seed(SEED))
+    venv1 = make_venv(exact1, ENVS)
+    state, obs = venv1.reset(torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        force = cartpole.action_to_force(exact1, actor1(obs))
+    sets["raster_main_path"] = (state.rigid, force, stepped(state.rigid, force))
+    st = ddpg.init_state(opts, exact1, venv1)
+    segment = ddpg.make_segment(venv1, gamma=0.99, tau=0.005, batch_size=128, warmup_steps=0,
+                                steps_per_segment=20, ou_theta=0.15, ou_sigma=0.2)
+    for _ in range(TRAIN_SEGMENTS):
+        segment(st)
+    with torch.no_grad():
+        force = cartpole.action_to_force(exact1, actor1(st.obs))
+    sets["raster_training_end"] = (st.env_states.rigid, force,
+                                   stepped(st.env_states.rigid, force))
+    sets["raster_seeded_2cam"] = (sets["seeded"][0], sets["seeded"][1], sets["seeded"][2])
+    sets["raster_probe_1cam"] = sets["raster_probe_2cam"] = (None, None, adv[None])
+    sets["raster_large"] = (None, None, adv[: 3 * LARGE_ENVS].reshape(3, LARGE_ENVS, 16))
+
     saved, shares = {}, {}
     for name, (rigid, force, poses) in sets.items():
         item = {}
@@ -129,8 +181,13 @@ def make_inputs(path: str) -> dict:
             item["poses_b"] = raycast.poses_from_rigid(rigid)[None].contiguous()
         if poses is not None:
             item["poses_r"] = poses.contiguous()
-            rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
-            shares[name] = chip_smoke.cast_shares(scene, rnd, poses)
+            if name in RASTER_SETS:
+                cfg = cfgs[RASTER_SETS[name]]
+                shares[name] = {k: chip_smoke.cast_shares(scene, Renderer(cfg, dev, **opt), poses)
+                                for k, opt in RASTER_KERNELS.items() if "hoist" not in k}
+            else:
+                rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
+                shares[name] = chip_smoke.cast_shares(scene, rnd, poses)
         saved[name] = item
     torch.save(saved, path)
     return shares
@@ -155,11 +212,13 @@ def worker(tree: str, inputs: str, out: str) -> None:
     from cartpoleplusplus_tpu_torch import kernels
     from cartpoleplusplus_tpu_torch.env import cartpole
     from cartpoleplusplus_tpu_torch.physics import cuda_step
+    from cartpoleplusplus_tpu_torch.render import cuda_render
     from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 
     assert os.path.dirname(kernels.__file__).startswith(os.path.abspath(tree))
     info = kernels.build()
-    cfg5, cfg_s1 = _configs()
+    cfgs = _configs()
+    cfg5, cfg_s1 = cfgs["cfg5"], cfgs["s1"]
     dev = torch.device("cuda")
     scene = cartpole.scene_for(cfg5)
     spr, reps, n_push = cfg5.steps_per_repeat, cfg5.action_repeats, cfg5.initial_force_steps
@@ -194,8 +253,43 @@ def worker(tree: str, inputs: str, out: str) -> None:
                 torch.cuda.synchronize()
                 outputs[f"{name}/{kernel}"] = (frames.cpu(),)
                 ms[f"{name}/{kernel}"] = time_ms(fn)
-    torch.save({"outputs": outputs, "ms": ms, "ptxas": info["log"], "nvcc_s": info["nvcc_s"]},
-               out)
+    # The cull on and off, where this tree's kernels have the switch.
+    culls = {}
+    if "cull" in dict(cuda_render.RenderParams._fields_):
+        culls = {"on": 1, "off": 0}
+    shapes, variants = {}, {}
+    for name, cfg_key in RASTER_SETS.items():
+        item = sets[name]
+        for suffix, opts in RASTER_KERNELS.items():
+            rnd = Renderer(cfgs[cfg_key], dev, **opts)
+            shapes[name] = (cfgs[cfg_key].obs_height, cfgs[cfg_key].obs_width)
+            params = rnd.kernel_params(scene)
+            for kernel, key in (("render_repeats", "poses_r"), ("render_batched", "poses_b")):
+                if key not in item:
+                    continue
+                p = item[key]
+                setups = None
+                if rnd.hoist:  # the setup pass once, outside the timing
+                    setups = torch.empty((*p.shape[:2], rnd.setup_width), device=dev)
+                    rnd.launch_pack(params, p, setups)
+                frames = torch.empty((p.shape[1], p.shape[0], rnd.frame_width), dtype=torch.uint8,
+                                     device=dev)
+                fn = lambda params=params, p=p, frames=frames, setups=setups: rnd.launch(
+                    params, p, frames, setups)
+                fn()
+                torch.cuda.synchronize()
+                label = f"{name}/{kernel}{suffix}"
+                outputs[label] = (frames.cpu(),)
+                ms[label] = time_ms(fn)
+                if rnd.hoist:
+                    continue
+                for form, cull in culls.items():
+                    vp = rnd.kernel_params(scene)
+                    vp.cull = cull
+                    variants[f"{label}@{form}"] = time_ms(
+                        lambda vp=vp, p=p, frames=frames: rnd.launch(vp, p, frames))
+    torch.save({"outputs": outputs, "ms": ms, "variants_ms": variants, "shapes": shapes,
+                "ptxas": info["log"], "nvcc_s": info["nvcc_s"]}, out)
 
 
 def main() -> int:
@@ -226,13 +320,20 @@ def main() -> int:
             subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[tag],
                             inputs, out], check=True, timeout=900)
             runs.append(torch.load(out))
-    equal, ok = {}, True
+    equal, mxu_vs_a, ok = {}, {}, True
     for key in runs[0]["outputs"]:
         same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x["outputs"][key],
                                                                   y["outputs"][key]))
         equal[key] = {"a_vs_b": same(runs[0], runs[1]) and same(runs[3], runs[2]),
                       "repeatable": same(runs[0], runs[3]) and same(runs[1], runs[2])}
-        ok = ok and all(equal[key].values())
+        if key.endswith("_mxu"):  # K5d: where its frames differ from the other tree's
+            h, w = runs[1]["shapes"][key.split("/")[0]]
+            got, want = runs[1]["outputs"][key][0], runs[0]["outputs"][key][0]
+            mxu_vs_a[key] = {"bytes_differing": int((got != want).sum()),
+                             **chip_smoke.silhouette_stats(got, want, h, w)}
+            ok = ok and equal[key]["repeatable"]
+        else:
+            ok = ok and all(equal[key].values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     ms = {k: [r["ms"][k] for r in runs] for k in runs[0]["ms"]}
@@ -240,9 +341,11 @@ def main() -> int:
         "trees": trees, "order": "ABBA", "card": smi, "reps": REPS,
         "ms": ms,
         "ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in ms.items()},
-        "equal": equal, "skipped_cast_share": shares,
+        "equal": equal, "k5d_b_vs_a": mxu_vs_a, "skipped_cast_share": shares,
+        "variants_ms": {tag: runs[i]["variants_ms"] for tag, i in (("A", 0), ("B", 1))},
         "ptxas": {tag: {k: v for k, v in chip_smoke.ptxas_usage(runs[i]["ptxas"]).items()
-                        if re.search(r"phys_kernel|render_slab_kernel|render_kernelILi0E", k)}
+                        if re.search(r"phys_kernel|render_slab_kernel|render_kernelILi1E|"
+                                     r"render_mxu_kernel|render_raster", k)}
                   for tag, i in (("A", 0), ("B", 1))},
         "nvcc_s": {"A": runs[0]["nvcc_s"], "B": runs[1]["nvcc_s"]},
         "seconds": time.monotonic() - t0, "ok": ok,
