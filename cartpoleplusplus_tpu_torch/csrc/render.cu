@@ -12,11 +12,10 @@
 // the projective inverse-depth rasterizer the exact configs use
 // (render.prefer_raster).  The other three modes are the JAX make_venv's
 // flags: RATIO (K5b, render_recip=False), RASTER_HOIST (K5c,
-// render_hoist=True) and MXU / MXU_HOIST (K5d, render_mxu=True).
-// render_slab_kernel serves SLAB, render_raster_kernel RASTER and
-// render_raster_mxu_kernel K5d (MXU, MXU_HOIST): the column-run kernels.  One
-// template, render_kernel, serves RATIO and RASTER_HOIST; pack_setups_kernel
-// is K5c's setup pass.
+// render_hoist=True) and MXU / MXU_HOIST (K5d, render_mxu=True).  Three
+// column-run kernels serve them all: render_slab_kernel SLAB and RATIO,
+// render_raster_kernel RASTER and RASTER_HOIST, render_raster_mxu_kernel MXU
+// and MXU_HOIST; pack_setups_kernel is K5c's setup pass.
 //
 // What bounds it on this card: float32 operations per ray.  Each ray is
 // cast against two oriented boxes, depth-ordered, shaded and pooled: on the
@@ -26,15 +25,14 @@
 // repeats x 4096 envs = 30.7 M rays per step; 1-camera exact: 1 camera x 4
 // sub-rays x 625 x 3 x 4096, the same 30.7 M).
 //
-// Common layout of the first port, which the ratio mode and K5c keep:
-// one block per (env, repeat).  The per-env algebra of each box seen from
-// each camera is computed once per block into shared memory by 2*C threads.
-// Threads then run over the pooled pixels of all cameras; each thread casts
-// its pixel's p2 sub-rays, sums their four colour fields (cart shade, pole
-// shade, ground value, sky mask) in registers, and writes three uint8
-// channels straight into the obs slab at width n: the TPU's 128-lane padding
-// does not exist here.  Static per-ray rows (px, py, ground value, sky mask)
-// are read coalesced from a (4, C, p2, n) table.
+// Common to every mode: the per-env algebra of each box seen from each
+// camera (its setup) is computed once per block into shared memory; a
+// thread casts its pooled pixel's p2 sub-rays, sums their four colour fields
+// (cart shade, pole shade, ground value, sky mask) in registers, and writes
+// three uint8 channels into the frame at width n: the TPU's 128-lane
+// padding does not exist here.  The layout around that (blocks, warps,
+// tables, cull, staging) is the slab mode's, below; the other kernels take
+// it over.
 //
 // Slab mode (K3/K4, render_slab_kernel): the setup is the box-local eye o,
 // the direction coefficients A/B/C and the Lambert dots (15 floats per box
@@ -96,7 +94,9 @@
 //    rectangle; X of the hit point is inside it.  A box with a corner nearer
 //    than that (eye inside or near a slab, the pole crossing the camera
 //    plane) has an unbounded image and is never culled: its rectangle is
-//    (-inf, inf).  Likewise where |e| |A^| > 1/4 or anything is not finite.
+//    (-inf, inf).  Likewise where |e| |A^| > 1/4, anything is not finite,
+//    or S or some he_k + |o_k| exceeds CULL_BIG = 1e18 (so that no product
+//    of the ratio cast's compares, below, can overflow).
 // 4. Margin.  The rectangle of the corners is widened by the bound of 2 on
 //    each side, and both the growth of 1 and that margin are taken
 //    CULL_SAFETY = 16 times over, plus 1e-6 screen units.  It is computed in
@@ -129,7 +129,8 @@
 //   (rectangle, background sums, frame index), background sums for a warp
 //   that casts neither box, frames staged in shared memory where they fit
 //   (RASTER_FRAME_BYTES), else written straight to global memory, as K3's
-//   (cuda_render.slab_blocking chooses for both).
+//   (cuda_render.slab_blocking chooses for both).  With HOIST (K5c) the
+//   block copies its rows of the packed setup table instead (below).
 // - The cull replaces K3's rectangle by a raster-native interval test,
 //   raster_may_hit, over the screen rectangle of a warp's whole run of
 //   pixels (a static table).  The warp tests 16 runs at once, one (run,
@@ -177,21 +178,70 @@
 // skips a box only where every sub-ray of every pixel it holds misses it.
 
 // Ratio mode (K5b, recip=False: pallas_kernel.py:210,313-316; math of
-// raycast._ray_obb_affine's division-free branch, raycast.py:260-285).  The
-// slab bounds stay ratios n/p with p > 0 and are compared by
-// cross-multiplying; the boxes are ordered by nc*dp <= np*dc.  Its setup
-// (ratio_setup) and cast round every step as written, like the raster's, so
-// the cross-multiplied compares flip no tie against the plain version: the
-// mode is exact and free of division.  The slab setup box_setup and K3's
-// instructions are left as they were.
+// raycast._ray_obb_affine's division-free branch).  The slab bounds stay
+// ratios n/p with p > 0 and are compared by cross-multiplying; the boxes are
+// ordered by nc*dp <= np*dc.  Its setup (ratio_setup) and cast (ratio_cast)
+// round every step as written, like the raster's, so the cross-multiplied
+// compares flip no tie against the plain version: the mode is exact and
+// free of division.  It runs in render_slab_kernel<RATIO>: K3's block, warps,
+// tables, staging and cull rectangle, with ratio_setup in place of box_setup
+// (the 16 setup lanes compute it; the rectangle is cull_rect of its floats)
+// and ratio_cast in place of cast.  A skipped cast takes the ratio cast's
+// miss values (num = BIG, den = 1, hit false), so the order compare and the
+// shading see what they see on a miss.
+//
+// Why K3's rectangle is conservative for the ratio cast.  Per axis k the
+// cast forms d = (A + B px) + C py rounded as written (|d - d_exact| <= 3
+// eps S + O(eps^2), S as in K3's step 1), s = sign(d), p = max(|d|, 1e-9)
+// and the sums n_lo = rn(-he - s o), n_hi = rn(he - s o) (s o is exact).
+// Write D_k = s p_k, N_k = he_k + |o_k|, and L_k = n_lo/p, H_k = n_hi/p
+// (exact ratios of the floats).
+// 1. Direction.  |D_k - d_exact,k| <= 3 eps S + 1e-9: within K3's bound on
+//    |e_k| (6 eps S + 1.01e-9); the 1e-9 floor plays the part of K3's
+//    s*1e-9 bias.
+// 2. Slabs.  For p > 0 the slab interval of direction component D_k for
+//    half extent h is exactly [(-h - s o)/p, (h - s o)/p], and n_lo, n_hi
+//    lie within eps N_k of -he - s o and he - s o.
+// 3. Compares.  Every product the cascade compares is 0 or a normal float
+//    (while he_k >= 1e-20; none overflows, by K3's step 3), so |rn(z) - z|
+//    <= eps |z|, and rn(x) > rn(y) decides as x > y wherever |x - y| > eps
+//    (|x| + |y|).  Divided by its positive denominators, a compare errs only
+//    between ratios a, b with |a - b| <= eps (|a| + |b|), which share their
+//    sign and agree to 2.01 eps |a|; a chain of two compares to 4.04 eps.
+//    So the entry the cascade keeps, t_e = n/pd, has L_k <= t_e + 4.04 eps
+//    |L_k| for every k, and the exit t_x = m/q has H_k >= t_x - 4.04 eps
+//    |H_k|.
+// 4. Hit.  A reported hit is rn(m pd) >= rn(n q) and m > 0: t_x > 0, t_e
+//    <= t_x + 2.01 eps t_x, and (by 3) H_k > 0 with t_x <= H_k (1 + 4.04
+//    eps).  Take t = t_x.  Since |n_lo|, |n_hi| <= N_k (1 + eps), t_x p_k
+//    <= (1 + 6 eps) N_k, so (L_k - t) p_k <= (4.05 + 2.02) eps N_k and (t -
+//    H_k) p_k <= 4.05 eps N_k.  With step 2, the exact ray o + t D, t > 0,
+//    lies in the box grown by 7.1 eps N_k < 8 eps N_k on every axis.
+// K3's steps 2-5 then hold as they stand: cull_rect grows the box by
+// CULL_SAFETY x 4 eps N_k = 64 eps N_k, eight times the 8 eps needed here,
+// and widens the rectangle for K3's bound on the direction, which covers
+// step 1 twice over.  ratio_setup's floats are raycast._slab_setup's bit
+// for bit, so raycast.slab_cull_rect and slab_cast_mask are K5b's plain
+// predicate; tests/test_torch_cull.py holds them against the ratio cast.
 //
 // Hoisted raster (K5c, raster + hoist: pallas_kernel.py:111-161 packing,
-// :226-237 reading, :393-409 and :489-499 launches).  pack_setups_kernel
-// runs raster_setup once per (repeat, env, camera, box), one thread each,
-// into a packed (R, E, C*2*22) table; the raster kernel then copies its
-// env's row into shared memory in place of computing it.  Same function,
-// same rounding: the frames are byte-equal to K5a's.  A render is two
-// launches.
+// :226-237 reading, :393-409 and :489-499 launches).  A render is two
+// launches.  pack_setups_kernel computes raster_setup for every (repeat,
+// env, camera, box) into a packed (R, E, C*2*22) table, per camera the cart
+// then the pole; render_raster_kernel<HOIST> is K5a's kernel with the setup
+// copied from that table, coalesced, in place of computed: the cull, run
+// votes, tables and staging are K5a's, and so are the bits of the setup, so
+// the frames are K5a's byte for byte.
+// - The setup pass is bound by latency, not work (each box runs six exact
+//   divisions in a serial chain; the table is 88 bytes per box), and at the
+//   main path's size by little more than a launch's fixed cost.  Four
+//   lanes per box: lanes 0-2 compute axes 0-2 of raster_setup (the rotation
+//   and the eye offset in each, then the axis's terms, raster_setup_axis:
+//   the same operations, so the same bits), lane 3 the inside flag from the
+//   three axes' `ahead` by one ballot.  A block of PACK_THREADS takes 64
+//   consecutive rows of the table, so its poses and its output are each one
+//   contiguous range: the poses are read as float4s into shared memory, the
+//   rows written into shared memory and out as float4s.
 //
 // Bound planes on the tensor cores (K5d, raster + mxu:
 // pallas_kernel.py:248-295).  The 18 routed bound planes of both boxes (a,
@@ -253,7 +303,6 @@
 #define SLAB_W 15    // o_l(3) A(3) B(3) C(3) ldot(3)
 #define RASTER_W 22  // A(3) B(3) C(3) inv_u(3) inv_l(3) ahead(3) cand(3) inside(1)
 #define BIG 1e9f
-#define THREADS 256
 
 enum Mode { SLAB = 0, RASTER = 1, RATIO = 2, RASTER_HOIST = 3, MXU = 4, MXU_HOIST = 5 };
 
@@ -342,37 +391,57 @@ __device__ __forceinline__ float dot_col(const float r[3][3], int k, const float
   return add(add(mul(r[0][k], v[0]), mul(r[1][k], v[1])), mul(r[2][k], v[2]));
 }
 
-// Per-env setup of one box seen from one camera for the raster mode
-// (raycast._obb_q_setup, rounded as the plain version rounds it).
-// pose: [pos(3) quat(4)] of the box; he: its half extents.
-__device__ void raster_setup(const RenderParams& p, int cam, const float* pose,
-                             const float he[3], float* out) {
-  float r[3][3];
-  rot_rn(pose, r);
+// Axis k of the raster setup of one box seen from camera `cam`
+// (raycast._obb_q_setup, rounded as the plain version rounds it): writes
+// out[k], out[3 + k], ..., out[18 + k] and returns whether the near plane
+// lies ahead.  col: column k of the box's rotation (rot_rn); rel: the box's
+// centre less the eye; he_k: its half extent on the axis.
+__device__ __forceinline__ bool raster_setup_axis(const RenderParams& p, int cam,
+                                                  const float col[3], const float rel[3],
+                                                  float he_k, int k, float* out) {
   const float* fwd = p.basis[cam];
   const float* right = p.basis[cam] + 3;
   const float* up = p.basis[cam] + 6;
-  float rel[3];
+  const auto dot = [&](const float* v) {
+    return add(add(mul(col[0], v[0]), mul(col[1], v[1])), mul(col[2], v[2]));
+  };
+  const float g = dot(rel);
+  const float sg = sign(g);
+  const float ga = mul(sg, g);
+  float lo = sub(ga, he_k);
+  const float hi = add(ga, he_k);
+  const float sl = sign(lo);
+  lo = mul(sl, fmaxf(mul(sl, lo), 1e-7f));
+  const bool ahead = lo > 0.0f;
+  out[k] = mul(sg, dot(fwd));
+  out[3 + k] = mul(sg, dot(right));
+  out[6 + k] = mul(sg, dot(up));
+  out[9 + k] = 1.0f / hi;   // exact division (nvcc's default -prec-div=true)
+  out[12 + k] = 1.0f / lo;
+  out[15 + k] = ahead ? 1.0f : 0.0f;
+  out[18 + k] = mul(-sg, dot(p.light));
+  return ahead;
+}
+
+// The box's centre less the eye of camera `cam`, rounded as written.
+__device__ __forceinline__ void eye_offset(const RenderParams& p, int cam, const float* pose,
+                                           float rel[3]) {
   for (int i = 0; i < 3; ++i) rel[i] = sub(pose[i], p.eye[cam][i]);
+}
+
+// Per-env setup of one box seen from one camera for the raster mode: its
+// three axes (raster_setup_axis), then the eye-inside flag.  pose: [pos(3)
+// quat(4)] of the box; he: its half extents.
+__device__ void raster_setup(const RenderParams& p, int cam, const float* pose,
+                             const float he[3], float* out) {
+  float r[3][3], rel[3];
+  rot_rn(pose, r);
+  eye_offset(p, cam, pose, rel);
   bool any_ahead = false;
+#pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float g = dot_col(r, k, rel);
-    const float sg = sign(g);
-    const float ga = mul(sg, g);
-    float lo = sub(ga, he[k]);
-    const float hi = add(ga, he[k]);
-    const float sl = sign(lo);
-    lo = mul(sl, fmaxf(mul(sl, lo), 1e-7f));
-    const bool ahead = lo > 0.0f;
-    any_ahead = any_ahead || ahead;
-    out[k] = mul(sg, dot_col(r, k, fwd));
-    out[3 + k] = mul(sg, dot_col(r, k, right));
-    out[6 + k] = mul(sg, dot_col(r, k, up));
-    out[9 + k] = 1.0f / hi;   // exact division (nvcc's default -prec-div=true)
-    out[12 + k] = 1.0f / lo;
-    out[15 + k] = ahead ? 1.0f : 0.0f;
-    out[18 + k] = mul(-sg, add(add(mul(p.light[0], r[0][k]), mul(p.light[1], r[1][k])),
-                               mul(p.light[2], r[2][k])));
+    const float col[3] = {r[0][k], r[1][k], r[2][k]};
+    any_ahead = raster_setup_axis(p, cam, col, rel, he[k], k, out) || any_ahead;
   }
   out[21] = any_ahead ? 0.0f : 1.0f;
 }
@@ -529,66 +598,11 @@ __device__ __forceinline__ void store_pixel(const RenderParams& p, float fa, flo
   }
 }
 
-// poses: (R, E, 16) [cart pos quat | pole pos quat | 0 0];
-// rays: (4, C, p2, n) rows px, py, ground value, sky mask;
-// setups: (R, E, C*2*22) packed raster setups (RASTER_HOIST only);
-// out: (E, R, C*3*n) uint8.  Grid (E, R).  Modes RATIO and RASTER_HOIST.
-template <int MODE>
-__global__ void __launch_bounds__(THREADS) render_kernel(RenderParams p,
-                                                        const float* __restrict__ poses,
-                                                        const float* __restrict__ rays,
-                                                        const float* __restrict__ setups,
-                                                        uint8_t* __restrict__ out, int E, int R) {
-  constexpr bool RAS = MODE == RASTER_HOIST;
-  constexpr int W = RAS ? RASTER_W : SLAB_W;
-  const int e = blockIdx.x, rep = blockIdx.y;
-  __shared__ float setup[MAX_CAMS][2][W];
-  const float* pose = poses + ((size_t)rep * E + e) * 16;
-  // The per-box setup table: copied from the packed table (K5c) or
-  // computed by 2*C threads (K5b).
-  if (RAS) {
-    const int w = 2 * RASTER_W * p.num_cams;
-    const float* src = setups + ((size_t)rep * E + e) * w;
-    for (int i = threadIdx.x; i < w; i += blockDim.x) (&setup[0][0][0])[i] = src[i];
-  } else if (threadIdx.x < 2 * p.num_cams) {
-    const int cam = threadIdx.x >> 1, box = threadIdx.x & 1;
-    ratio_setup(p, cam, pose + 7 * box, setup[cam][box]);
-  }
-  __syncthreads();
-
-  const int n = p.n, p2 = p.p2, cams = p.num_cams;
-  const size_t plane = (size_t)cams * p2 * n;
-  const int frame_w = cams * 3 * n;
-  uint8_t* o = out + ((size_t)e * R + rep) * frame_w;
-  for (int idx = threadIdx.x; idx < cams * n; idx += blockDim.x) {
-    const int cam = idx / n, j = idx - cam * n;
-    float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
-    for (int sidx = 0; sidx < p2; ++sidx) {
-      const size_t off = ((size_t)cam * p2 + sidx) * n + j;
-      const float px = rays[off], py = rays[plane + off];
-      const float gval = rays[2 * plane + off], smask = rays[3 * plane + off];
-      float dc, dp, lam_c, lam_p;
-      bool hit_c, hit_p, sel_c;
-      if (RAS) {
-        raster_cast(setup[cam][0], px, py, dc, lam_c, hit_c);
-        raster_cast(setup[cam][1], px, py, dp, lam_p, hit_p);
-        sel_c = hit_c && (dc >= dp);  // inverse depth: larger is nearer
-      } else {
-        float den_c, den_p;
-        ratio_cast(setup[cam][0], p.he[0], px, py, dc, den_c, lam_c, hit_c);
-        ratio_cast(setup[cam][1], p.he[1], px, py, dp, den_p, lam_p, hit_p);
-        sel_c = hit_c && (mul(dc, den_p) <= mul(dp, den_c));
-      }
-      shade_fields(p, sel_c, hit_p, lam_c, lam_p, gval, smask, fa, fb, fg, fs);
-    }
-    store_pixel(p, fa, fb, fg, fs, o, cam, j);
-  }
-}
-
 #define CULL_EPS 5.9604644775390625e-8  // 2^-24, float32's unit roundoff
 #define CULL_SAFETY 16.0
 #define CULL_ZMIN 1e-3   // metres: nearest corner depth for which a box is culled
 #define CULL_FLOOR 1e-6  // screen units added to the margin
+#define CULL_BIG 1e18    // largest S and he_k + |o_k| for which a box is culled
 
 __device__ __forceinline__ void cross_d(const double a[3], const double b[3], double o[3]) {
   o[0] = a[1] * b[2] - a[2] * b[1];
@@ -603,9 +617,10 @@ __device__ __forceinline__ double dot_d(const double a[3], const double b[3]) {
 __device__ __forceinline__ double norm_d(const double a[3]) { return sqrt(dot_d(a, a)); }
 
 // The screen rectangle (xlo, xhi, ylo, yhi) of one box seen from one camera
-// outside which its slab cast is a miss (the argument is in the header;
-// raycast.slab_cull_rect is the plain version).  su: box_setup's floats
-// (o, A, B, C); he: the box's half extents.  Called by 8 lanes of a group
+// outside which its slab cast, reciprocal or ratio, is a miss (the argument
+// is in the header; raycast.slab_cull_rect is the plain version).  su:
+// box_setup's or ratio_setup's floats (o, A, B, C); he: the box's half
+// extents.  Called by 8 lanes of a group
 // aligned to 8 lanes, `corner` = the lane's index in it; every lane of the
 // warp must call it (the reductions shuffle over the full mask).
 __device__ void cull_rect(const float* su, const float he[3], float ray_abs, int corner,
@@ -634,16 +649,18 @@ __device__ void cull_rect(const float* su, const float he[3], float ray_abs, int
   const double e = 1.7320508075688772 * (6.0 * CULL_EPS * s + 1.01e-9);  // sqrt(3) max |e_k|
   const double ea = e * norm_d(ah), eb = e * norm_d(bh), ec = e * norm_d(ch);
   double v[3];
+  bool small = s <= CULL_BIG;
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
     const double h = (double)he[k];
     const double grown = h + CULL_SAFETY * 4.0 * CULL_EPS * (h + fabs(o[k]));
     const bool plus = (corner >> k) & 1;
     v[k] = (plus ? grown : -grown) - o[k];
+    small = small && h + fabs(o[k]) <= CULL_BIG;
   }
   const double z = dot_d(v, ah);
   const double x = dot_d(v, bh) / z, y = dot_d(v, ch) / z;
-  bool ok = z >= CULL_ZMIN && ea <= 0.25 && isfinite(x) && isfinite(y);
+  bool ok = z >= CULL_ZMIN && ea <= 0.25 && small && isfinite(x) && isfinite(y);
   double xlo = x, xhi = x, ylo = y, yhi = y;
 #pragma unroll
   for (int m = 1; m < 8; m <<= 1) {
@@ -668,10 +685,11 @@ __device__ __forceinline__ bool meets(const float a[4], const float b[4]) {
 }
 
 // The sub-rays of one pooled pixel: cast against the boxes the warp keeps
-// (the others keep the cast's miss values), shaded and summed.  rays: the
-// pixel's first sub-ray in the (C, p2, n) table of (px, py, ground value,
-// sky mask).
-template <bool CART, bool POLE>
+// (the others keep the cast's miss values), shaded and summed.  MODE: SLAB
+// (the reciprocal cast, ordered by depth) or RATIO (the ratio cast, ordered
+// by nc*dp <= np*dc).  rays: the pixel's first sub-ray in the (C, p2, n)
+// table of (px, py, ground value, sky mask).
+template <int MODE, bool CART, bool POLE>
 __device__ __forceinline__ void slab_pixel(const RenderParams& p, const float* su_c,
                                            const float* su_p, const float4* __restrict__ rays,
                                            float& fa, float& fb, float& fg, float& fs) {
@@ -679,10 +697,17 @@ __device__ __forceinline__ void slab_pixel(const RenderParams& p, const float* s
     const float4 ray = rays[sidx * p.n];
     const float px = ray.x, py = ray.y, gval = ray.z, smask = ray.w;
     float dc = 1e9f, dp = 1e9f, lam_c = 0.0f, lam_p = 0.0f;
-    bool hit_c = false, hit_p = false;
-    if (CART) cast(su_c, p.he[0], px, py, dc, lam_c, hit_c);
-    if (POLE) cast(su_p, p.he[1], px, py, dp, lam_p, hit_p);
-    const bool sel_c = hit_c && (dc <= dp);
+    bool hit_c = false, hit_p = false, sel_c;
+    if (MODE == RATIO) {
+      float den_c = 1.0f, den_p = 1.0f;
+      if (CART) ratio_cast(su_c, p.he[0], px, py, dc, den_c, lam_c, hit_c);
+      if (POLE) ratio_cast(su_p, p.he[1], px, py, dp, den_p, lam_p, hit_p);
+      sel_c = hit_c && (mul(dc, den_p) <= mul(dp, den_c));
+    } else {
+      if (CART) cast(su_c, p.he[0], px, py, dc, lam_c, hit_c);
+      if (POLE) cast(su_p, p.he[1], px, py, dp, lam_p, hit_p);
+      sel_c = hit_c && (dc <= dp);
+    }
     shade_fields(p, sel_c, hit_p, lam_c, lam_p, gval, smask, fa, fb, fg, fs);
   }
 }
@@ -709,8 +734,10 @@ __device__ __forceinline__ void slab_pixel(const RenderParams& p, const float* s
 // frame too large for SLAB_FRAME_BYTES) each pixel's bytes go straight to
 // out.  The values are the same either way.  (A template, not a runtime
 // flag: through a pointer that may be either, the pixel stores lose their
-// shared-memory instructions and the kernel 8 % of its speed.)
-template <bool STAGED>
+// shared-memory instructions and the kernel 8 % of its speed.)  MODE: SLAB
+// (K3/K4: box_setup, the reciprocal cast) or RATIO (K5b: ratio_setup, the
+// ratio cast); the cull rectangle is cull_rect of the setup's floats in both.
+template <int MODE, bool STAGED>
 __global__ void __launch_bounds__(SLAB_THREADS) render_slab_kernel(
     RenderParams p, const float* __restrict__ poses, const float4* __restrict__ rays,
     const float4* __restrict__ pixels, uint8_t* __restrict__ out, int E, int R, int reps) {
@@ -731,7 +758,11 @@ __global__ void __launch_bounds__(SLAB_THREADS) render_slab_kernel(
     const int corner = t & 7, box = (t >> 3) & 1, cam = (t >> 4) % cams, rl = (t >> 4) / cams;
     const float* pose = poses + ((size_t)(rep0 + rl) * E + e) * 16;
     float su[SLAB_W], r[4];
-    box_setup(p, cam, pose + 7 * box, su);
+    if (MODE == RATIO) {
+      ratio_setup(p, cam, pose + 7 * box, su);
+    } else {
+      box_setup(p, cam, pose + 7 * box, su);
+    }
     cull_rect(su, p.he[box], p.ray_abs, corner, r);
     if (threadIdx.x < nsetup && corner == 0) {
 #pragma unroll
@@ -770,11 +801,11 @@ __global__ void __launch_bounds__(SLAB_THREADS) render_slab_kernel(
         const float4* ray = rays + cam * p2 * n + q;
         float fa = 0.0f, fb = 0.0f, fg = 0.0f, fs = 0.0f;
         if (cart && pole) {
-          slab_pixel<true, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+          slab_pixel<MODE, true, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
         } else if (cart) {
-          slab_pixel<true, false>(p, su_c, su_p, ray, fa, fb, fg, fs);
+          slab_pixel<MODE, true, false>(p, su_c, su_p, ray, fa, fb, fg, fs);
         } else if (pole) {
-          slab_pixel<false, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
+          slab_pixel<MODE, false, true>(p, su_c, su_p, ray, fa, fb, fg, fs);
         } else {
           // Every sub-ray misses both boxes: the fields are the background
           // sums, the values the loop would add up.
@@ -792,17 +823,50 @@ __global__ void __launch_bounds__(SLAB_THREADS) render_slab_kernel(
   for (int i = threadIdx.x; i < nrep * frame_w; i += blockDim.x) o[i] = frames[i];
 }
 
-// K5c's setup pass: raster_setup of every (repeat, env, camera, box), one
-// thread each → setups (R, E, C*2*22), per camera the cart then the pole
-// (raycast.pack_setups' layout).
-__global__ void pack_setups_kernel(RenderParams p, const float* __restrict__ poses,
-                                   float* __restrict__ setups, int E, int R) {
-  const int cams = p.num_cams;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= R * E * cams * 2) return;
-  const int box = idx & 1, cam = (idx >> 1) % cams, re = (idx >> 1) / cams;
-  raster_setup(p, cam, poses + (size_t)re * 16 + 7 * box, p.he[box],
-               setups + ((size_t)re * cams + cam) * 2 * RASTER_W + box * RASTER_W);
+#define PACK_THREADS 256
+#define PACK_ROWS (PACK_THREADS / 4)  // rows of the setup table per block, 4 lanes each
+
+// K5c's setup pass: poses (R, E, 16) → setups (R, E, C*2*22), row (re * C +
+// cam) * 2 + box the raster setup of box `box` seen from camera `cam` at
+// (repeat, env) re (raycast.pack_setups' layout).  A block takes PACK_ROWS
+// consecutive rows; PACK_ROWS is a multiple of 2 * C, so they are whole
+// (repeat, env) pose rows.  Lane 4b + k of the block computes axis k of row
+// b (k < 3) or its inside flag (k = 3).  `rows` = R * E * C * 2; both
+// arrays are contiguous (16-byte aligned rows).
+__global__ void __launch_bounds__(PACK_THREADS) pack_setups_kernel(
+    RenderParams p, const float4* __restrict__ poses, float4* __restrict__ setups, int rows) {
+  __shared__ float4 pose_s[PACK_ROWS / 2 * 4];          // at C = 1: 32 pose rows of 16 floats
+  __shared__ float4 out_s[PACK_ROWS * RASTER_W / 4];    // the block's rows of the table
+  const int cams = p.num_cams, per_pose = 2 * cams;
+  const int row0 = blockIdx.x * PACK_ROWS, nrows = min(PACK_ROWS, rows - row0);
+  const int pose0 = row0 / per_pose;
+  for (int i = threadIdx.x; i < nrows / per_pose * 4; i += PACK_THREADS) {
+    pose_s[i] = poses[(size_t)pose0 * 4 + i];
+  }
+  __syncthreads();
+  const int b = threadIdx.x >> 2, k = threadIdx.x & 3;
+  float* out = reinterpret_cast<float*>(out_s) + b * RASTER_W;
+  bool ahead = false;
+  if (b < nrows && k < 3) {
+    const int row = row0 + b, box = row & 1, cam = (row >> 1) % cams;
+    const float* pose = reinterpret_cast<const float*>(pose_s) + (row / per_pose - pose0) * 16 +
+                        7 * box;
+    float r[3][3], rel[3];
+    rot_rn(pose, r);
+    eye_offset(p, cam, pose, rel);
+    // Column k of the rotation, picked without indexing a register array.
+    float col[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) col[i] = k == 0 ? r[i][0] : k == 1 ? r[i][1] : r[i][2];
+    ahead = raster_setup_axis(p, cam, col, rel, p.he[box][k], k, out);
+  }
+  // The row's three axes vote: its lanes are bits 4b'..4b'+2 of the ballot
+  // (b' the row's place in the warp).
+  const unsigned votes = __ballot_sync(0xffffffffu, ahead);
+  if (b < nrows && k == 3) out[21] = (votes >> (threadIdx.x & 28)) & 7u ? 0.0f : 1.0f;
+  __syncthreads();
+  float4* dst = setups + (size_t)row0 * RASTER_W / 4;
+  for (int i = threadIdx.x; i < nrows * RASTER_W / 4; i += PACK_THREADS) dst[i] = out_s[i];
 }
 
 // Round to TF32 (round to nearest, ties away), as a .b32 operand of mma.
@@ -861,26 +925,33 @@ __device__ void bound_row(const float* su, int row, float* out) {
 #define RASTER_STATIC_BYTES (SLAB_MAX_REPS * 2 * RASTER_SW * 4)
 #define RASTER_FRAME_BYTES (48 * 1024 - RASTER_STATIC_BYTES)
 
-// The raster kernels' setup: thread t < nrep*C*2 computes (or, HOIST,
-// copies from K5c's packed table) the setup of box t & 1 seen from camera
-// (t >> 1) % C at repeat rl = (t >> 1) / C into setup[rl * C + cam][box],
-// then its cull flag (the cull on and A, B, C, 1/U, 1/L finite) and, for
-// K5d (WIDEN), the widening of each plane's bound, rounded up:
-// MXU_WIDEN |s| (|A| + ray_abs (|B| + |C|)), s = inv_u (far) or inv_l (near).
+// The raster kernels' setup, into setup[rl * C + cam][box] for repeat rl,
+// camera cam and box: computed by thread t = (rl * C + cam) * 2 + box (t <
+// nrep*C*2), or, HOIST, copied from K5c's packed table by the whole block,
+// coalesced (a repeat's C*2*22 floats are contiguous there), with a barrier
+// after.  Then thread t computes the box's cull flag (the cull on and A, B,
+// C, 1/U, 1/L finite) and, for K5d (WIDEN), the widening of each plane's
+// bound, rounded up: MXU_WIDEN |s| (|A| + ray_abs (|B| + |C|)), s = inv_u
+// (far) or inv_l (near).  Every thread of the block must call it.
 template <bool HOIST, bool WIDEN>
 __device__ void raster_block_setup(const RenderParams& p, const float* __restrict__ poses,
                                    const float* __restrict__ setups,
                                    float (*setup)[2][RASTER_SW], int E, int e, int rep0,
                                    int nrep) {
   const int cams = p.num_cams, t = threadIdx.x;
+  if (HOIST) {
+    const int w = 2 * RASTER_W * cams;
+    for (int i = t; i < nrep * w; i += blockDim.x) {
+      const int rl = i / w, j = i - rl * w, row = j / RASTER_W;
+      setup[rl * cams + (row >> 1)][row & 1][j - row * RASTER_W] =
+          setups[((size_t)(rep0 + rl) * E + e) * w + j];
+    }
+    __syncthreads();
+  }
   if (t >= nrep * cams * 2) return;
   const int box = t & 1, cam = (t >> 1) % cams, rl = (t >> 1) / cams;
   float* su = setup[rl * cams + cam][box];
-  if (HOIST) {
-    const float* src = setups + ((size_t)(rep0 + rl) * E + e) * (2 * RASTER_W * cams) +
-                       (cam * 2 + box) * RASTER_W;
-    for (int i = 0; i < RASTER_W; ++i) su[i] = src[i];
-  } else {
+  if (!HOIST) {
     raster_setup(p, cam, poses + ((size_t)(rep0 + rl) * E + e) * 16 + 7 * box, p.he[box], su);
   }
   bool finite = true;
@@ -968,25 +1039,26 @@ __device__ __forceinline__ void warp_votes(const float* su_c, const float* su_p,
   pole = (votes >> (2 * (i & 15) + 1)) & 1u;
 }
 
-// K5a, the raster mode with culling.  poses: (R, E, 16); rays and pixels:
-// render_slab_kernel's tables; runs: (C, ceil(n / 32)) float4, per run of
-// 32 pixels in the tables' order (the last run of a camera shorter) the
-// rectangle (xlo, xhi, ylo, yhi) of its pixels' sub-rays; out: (E, R,
-// C*3*n) uint8.  Grid (E, ceil(R / reps)), SLAB_THREADS threads; a block
-// renders `reps` repeats of one env, its frames staged in shared memory
-// where STAGED (as render_slab_kernel's).  Each warp tests its run's
-// rectangle (warp_votes) unless p.cull is 0.
-template <bool STAGED>
+// K5a (HOIST false) and K5c (HOIST), the raster mode with culling.  poses:
+// (R, E, 16); setups: K5c's packed table (R, E, C*2*22), read where HOIST
+// in place of the poses; rays and pixels: render_slab_kernel's tables;
+// runs: (C, ceil(n / 32)) float4, per run of 32 pixels in the tables' order
+// (the last run of a camera shorter) the rectangle (xlo, xhi, ylo, yhi) of
+// its pixels' sub-rays; out: (E, R, C*3*n) uint8.  Grid (E, ceil(R /
+// reps)), SLAB_THREADS threads; a block renders `reps` repeats of one env,
+// its frames staged in shared memory where STAGED (as render_slab_kernel's).
+// Each warp tests its run's rectangle (warp_votes) unless p.cull is 0.
+template <bool HOIST, bool STAGED>
 __global__ void __launch_bounds__(SLAB_THREADS) render_raster_kernel(
-    RenderParams p, const float* __restrict__ poses, const float4* __restrict__ rays,
-    const float4* __restrict__ pixels, const float4* __restrict__ runs,
-    uint8_t* __restrict__ out, int E, int R, int reps) {
+    RenderParams p, const float* __restrict__ poses, const float* __restrict__ setups,
+    const float4* __restrict__ rays, const float4* __restrict__ pixels,
+    const float4* __restrict__ runs, uint8_t* __restrict__ out, int E, int R, int reps) {
   const int e = blockIdx.x, rep0 = blockIdx.y * reps;
   const int nrep = min(reps, R - rep0), cams = p.num_cams;
   __shared__ float setup[SLAB_MAX_REPS][2][RASTER_SW];
   static_assert(sizeof(setup) == RASTER_STATIC_BYTES, "RASTER_STATIC_BYTES");
   extern __shared__ uint8_t frames[];  // nrep frames, as in out, where staged
-  raster_block_setup<false, false>(p, poses, nullptr, setup, E, e, rep0, nrep);
+  raster_block_setup<HOIST, false>(p, poses, setups, setup, E, e, rep0, nrep);
   __syncthreads();
 
   const int n = p.n, p2 = p.p2, n_pad = (n + 31) & ~31, nruns = n_pad >> 5;
@@ -1196,14 +1268,13 @@ __global__ void __launch_bounds__(SLAB_THREADS) render_raster_mxu_kernel(
   for (int i = threadIdx.x; i < nrep * frame_w; i += blockDim.x) o[i] = frames[i];
 }
 
-// Launches the render kernel of `mode` (enum Mode) on `stream`.  `rays` is
-// the (4, C, p2, n) table for K5b and K5c, the (C, p2, n, 4) one in the
-// tables' order for the column-run kernels (K3/K4, K5a, K5d), which also
-// read `pixels`; the raster ones (K5a, K5d) read `runs`, K5d `frags`, the
-// hoisted modes `setups`.  The column-run kernels render `reps` repeats per
-// block, staging their frames in shared memory where `staged`
-// (cuda_render.slab_blocking chooses both; a choice the kernel cannot run
-// is refused).  Returns cudaGetLastError() as an int.
+// Launches the render kernel of `mode` (enum Mode) on `stream`.  Every mode
+// reads `rays`, the (C, p2, n, 4) table in the tables' order, and `pixels`;
+// the raster ones (K5a, K5c, K5d) read `runs`, K5d `frags`, the hoisted
+// modes `setups`.  The kernels render `reps` repeats per block, staging
+// their frames in shared memory where `staged` (cuda_render.slab_blocking
+// chooses both; a choice the kernel cannot run is refused).  Returns
+// cudaGetLastError() as an int.
 extern "C" int cp_render(const RenderParams* params, const float* poses, const float* rays,
                          const float* setups, const float* pixels, const float* runs,
                          const float* frags, uint8_t* out, int E, int R, int mode, int reps,
@@ -1211,32 +1282,21 @@ extern "C" int cp_render(const RenderParams* params, const float* poses, const f
   const int bad = static_cast<int>(cudaErrorInvalidValue);
   if (params->num_cams < 1 || params->num_cams > MAX_CAMS) return bad;
   if (params->cull != 0 && params->cull != 1) return bad;
+  if (mode < SLAB || mode > MXU_HOIST) return bad;
+  const bool slab = mode == SLAB || mode == RATIO;
+  const bool hoist = mode == RASTER_HOIST || mode == MXU_HOIST;
   const bool mxu = mode == MXU || mode == MXU_HOIST;
-  const bool raster = mode == RASTER || mxu;
-  const bool columns = mode == SLAB || raster;
-  if ((mode == RASTER_HOIST || mode == MXU_HOIST) && setups == nullptr) return bad;
-  if (columns && pixels == nullptr) return bad;
-  if (raster && runs == nullptr) return bad;
+  if (hoist && setups == nullptr) return bad;
+  if (rays == nullptr || pixels == nullptr) return bad;
+  if (!slab && runs == nullptr) return bad;
   if (mxu && frags == nullptr) return bad;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!columns) {
-    const dim3 grid(E, R);
-    if (mode == RATIO) {
-      render_kernel<RATIO><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out, E, R);
-    } else if (mode == RASTER_HOIST) {
-      render_kernel<RASTER_HOIST><<<grid, THREADS, 0, st>>>(*params, poses, rays, setups, out,
-                                                            E, R);
-    } else {
-      return bad;
-    }
-    return static_cast<int>(cudaGetLastError());
-  }
   const long frame_w = (long)params->num_cams * 3 * params->n;
-  const long budget = mode == SLAB ? SLAB_FRAME_BYTES : RASTER_FRAME_BYTES;
+  const long budget = slab ? SLAB_FRAME_BYTES : RASTER_FRAME_BYTES;
   if (reps < 1 || reps > min(R, SLAB_THREADS / (16 * params->num_cams)) ||
       (staged && reps * frame_w > budget)) {
     return bad;
   }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(E, (R + reps - 1) / reps);
   const size_t smem = staged ? reps * frame_w : 0;
   const float4* rays4 = reinterpret_cast<const float4*>(rays);
@@ -1244,48 +1304,46 @@ extern "C" int cp_render(const RenderParams* params, const float* poses, const f
   const float4* runs4 = reinterpret_cast<const float4*>(runs);
   const float4* frags4 = reinterpret_cast<const float4*>(frags);
   const RenderParams& p = *params;
-  if (mode == SLAB) {
-    if (staged) {
-      render_slab_kernel<true><<<grid, SLAB_THREADS, smem, st>>>(p, poses, rays4, pixels4, out,
-                                                                E, R, reps);
-    } else {
-      render_slab_kernel<false><<<grid, SLAB_THREADS, 0, st>>>(p, poses, rays4, pixels4, out, E,
-                                                              R, reps);
-    }
-  } else if (mode == RASTER) {
-    if (staged) {
-      render_raster_kernel<true><<<grid, SLAB_THREADS, smem, st>>>(p, poses, rays4, pixels4,
-                                                                  runs4, out, E, R, reps);
-    } else {
-      render_raster_kernel<false><<<grid, SLAB_THREADS, 0, st>>>(p, poses, rays4, pixels4, runs4,
-                                                                out, E, R, reps);
-    }
-  } else {
+#define SLAB_LAUNCH(M, S)                                                                   \
+  render_slab_kernel<M, S><<<grid, SLAB_THREADS, smem, st>>>(p, poses, rays4, pixels4, out, E, \
+                                                             R, reps)
+#define RASTER_LAUNCH(H, S)                                                                 \
+  render_raster_kernel<H, S><<<grid, SLAB_THREADS, smem, st>>>(p, poses, setups, rays4,    \
+                                                               pixels4, runs4, out, E, R, reps)
 #define MXU_LAUNCH(H, S)                                                                    \
   render_raster_mxu_kernel<H, S><<<grid, SLAB_THREADS, smem, st>>>(                         \
       p, poses, setups, rays4, pixels4, runs4, frags4, out, E, R, reps)
-    const bool hoist = mode == MXU_HOIST;
-    if (hoist && staged) {
-      MXU_LAUNCH(true, true);
-    } else if (hoist) {
-      MXU_LAUNCH(true, false);
-    } else if (staged) {
-      MXU_LAUNCH(false, true);
-    } else {
-      MXU_LAUNCH(false, false);
-    }
-#undef MXU_LAUNCH
+#define BY_STAGING(LAUNCH, A) \
+  if (staged) {               \
+    LAUNCH(A, true);          \
+  } else {                    \
+    LAUNCH(A, false);         \
   }
+  switch (mode) {
+    case SLAB: BY_STAGING(SLAB_LAUNCH, SLAB) break;
+    case RATIO: BY_STAGING(SLAB_LAUNCH, RATIO) break;
+    case RASTER: BY_STAGING(RASTER_LAUNCH, false) break;
+    case RASTER_HOIST: BY_STAGING(RASTER_LAUNCH, true) break;
+    case MXU: BY_STAGING(MXU_LAUNCH, false) break;
+    default: BY_STAGING(MXU_LAUNCH, true) break;
+  }
+#undef BY_STAGING
+#undef MXU_LAUNCH
+#undef RASTER_LAUNCH
+#undef SLAB_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 
 // Launches K5c's setup pass on `stream`: poses (R, E, 16) → setups
-// (R, E, C*2*22).  Returns cudaGetLastError() as an int.
+// (R, E, C*2*22), both contiguous.  Returns cudaGetLastError() as an int.
 extern "C" int cp_pack_setups(const RenderParams* params, const float* poses, float* setups,
                               int E, int R, void* stream) {
-  if (params->num_cams < 1 || params->num_cams > MAX_CAMS) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = R * E * params->num_cams * 2;
-  pack_setups_kernel<<<(threads + 127) / 128, 128, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params, poses, setups, E, R);
+  if (params->num_cams < 1 || params->num_cams > MAX_CAMS || E < 1 || R < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int rows = R * E * params->num_cams * 2;
+  pack_setups_kernel<<<(rows + PACK_ROWS - 1) / PACK_ROWS, PACK_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      *params, reinterpret_cast<const float4*>(poses), reinterpret_cast<float4*>(setups), rows);
   return static_cast<int>(cudaGetLastError());
 }

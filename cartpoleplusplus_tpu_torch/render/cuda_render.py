@@ -1,9 +1,9 @@
 """Wrappers of the CUDA render kernels (csrc/render.cu): K3/K4 in the slab
-mode (which skips the box casts its cull rectangles rule out), K5a in the
-raster mode (which skips the box casts its interval bounds rule out), and
-the three other modes of the JAX render kernel: K5b (division-free ratio
-slab), K5c (raster from a hoisted setup table) and K5d (raster with its
-bound planes on the tensor cores, culled as K5a).
+mode and K5b in the division-free ratio slab mode (both skip the box casts
+their cull rectangles rule out), K5a in the raster mode (which skips the box
+casts its interval bounds rule out), K5c (the raster from a hoisted setup
+table, culled as K5a) and K5d (raster with its bound planes on the tensor
+cores, culled as K5a).
 
 Counterparts of cartpoleplusplus_tpu.render.pallas_kernel's
 ``make_render_repeats`` (K3's launch) and ``make_render_batched`` (K4's
@@ -101,19 +101,20 @@ def mxu_fragment_table(planes: np.ndarray, order: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.concatenate([hi, lo], -1))
 
 
-SLAB_THREADS = 128  # the column-run kernels' block (csrc/render.cu)
-# Shared memory for a block's frames in the slab kernel: the default 48 KiB
-# a block may use, less its setups and cull rectangles (SLAB_THREADS / 16
-# repeats x MAX_CAMS cameras x 2 boxes x (15 + 4) floats); render.cu's
-# SLAB_FRAME_BYTES.  The raster kernels (K5a, K5d) keep 32 floats per
-# (repeat x camera, at most SLAB_THREADS / 16, and box): RASTER_FRAME_BYTES.
+SLAB_THREADS = 128  # the render kernels' block (csrc/render.cu)
+# Shared memory for a block's frames in the slab kernel (K3/K4, K5b): the
+# default 48 KiB a block may use, less its setups and cull rectangles
+# (SLAB_THREADS / 16 repeats x MAX_CAMS cameras x 2 boxes x (15 + 4)
+# floats); render.cu's SLAB_FRAME_BYTES.  The raster kernels (K5a, K5c,
+# K5d) keep 32 floats per (repeat x camera, at most SLAB_THREADS / 16, and
+# box): RASTER_FRAME_BYTES.
 SLAB_FRAME_BYTES = 48 * 1024 - SLAB_THREADS // 16 * MAX_CAMS * 2 * (15 + 4) * 4
 RASTER_FRAME_BYTES = 48 * 1024 - SLAB_THREADS // 16 * 2 * 32 * 4
 
 
 def slab_blocking(num_cams: int, n: int, r: int,
                   frame_bytes: int = SLAB_FRAME_BYTES) -> tuple[int, bool]:
-    """A column-run kernel's repeats per block and whether it stages them
+    """A render kernel's repeats per block and whether it stages them
     in shared memory, for ``r`` repeats of ``num_cams`` frames of ``n``
     pooled pixels: as many repeats as 16 setup lanes per (repeat, camera)
     allow, cut to those whose frames fit in ``frame_bytes`` (the slab
@@ -138,7 +139,9 @@ class Renderer:
     package, ``recip`` acts only in the slab mode, ``hoist`` and ``mxu``
     only in the raster mode.
 
-    Holds the static ray table (4, C, p2, n) on ``device``.  Frames are
+    Holds the static ray table (4, C, p2, n) for the plain version and the
+    kernels' tables (``slab_rays``, ``slab_pixels``, in ``order``; the
+    raster modes' ``runs``, K5d's ``mxu_frags``) on ``device``.  Frames are
     uint8, plane-major per camera, ``n`` pooled pixels per plane.  Launches
     count under ``render_repeats``/``render_batched`` plus the mode's
     suffix (``_ratio``, ``_raster``, ``_raster_hoist``, ``_raster_mxu``,
@@ -166,17 +169,15 @@ class Renderer:
         self.num_cams = len(self.cam_meta)
         self.frame_width = self.num_cams * 3 * self.n
         self.setup_width = self.num_cams * 2 * raycast.SETUP_W
-        # The column-run kernels (K3/K4, K5a, K5d) read the static rows in
-        # their own order and layouts; the raster ones a run table too, K5d
-        # its A operands.
-        self.columns = self.mode in (SLAB, RASTER, MXU, MXU_HOIST)
-        self.slab_pixels = self.runs = self.mxu_frags = None
-        if self.columns:
-            self.order = raycast.slab_order(self.n, self.width)
-            self.slab_rays = torch.from_numpy(np.ascontiguousarray(
-                planes[..., self.order].transpose(1, 2, 3, 0))).to(device)
-            self.slab_pixels = torch.from_numpy(slab_pixel_table(planes, self.order)).to(device)
-        if self.columns and self.raster:
+        # The kernels read the static rows in their own order and layouts
+        # (``planes`` serves the plain version); the raster ones a run table
+        # too, K5d its A operands.
+        self.order = raycast.slab_order(self.n, self.width)
+        self.slab_rays = torch.from_numpy(np.ascontiguousarray(
+            planes[..., self.order].transpose(1, 2, 3, 0))).to(device)
+        self.slab_pixels = torch.from_numpy(slab_pixel_table(planes, self.order)).to(device)
+        self.runs = self.mxu_frags = None
+        if self.raster:
             self.runs = torch.from_numpy(raycast.run_rects(planes, self.order)).to(device)
         if self.mxu:
             self.mxu_frags = torch.from_numpy(mxu_fragment_table(planes, self.order)).to(device)
@@ -237,7 +238,10 @@ class Renderer:
         """Launch the setup pass of the hoisted raster on prepared CUDA
         buffers: contiguous float32 ``poses`` (R, E, 16) → float32
         ``setups`` (R, E, C·2·22), the layout of ``raycast.pack_setups``.
-        Counts nothing: the wrappers count."""
+        Both 16-byte aligned (the kernel moves float4s).  Counts nothing:
+        the wrappers count."""
+        if poses.data_ptr() % 16 or setups.data_ptr() % 16:
+            raise ValueError("pack_setups: poses and setups must be 16-byte aligned")
         r, e = poses.shape[0], poses.shape[1]
         err = kernels.library().cp_pack_setups(
             ctypes.addressof(params), poses.data_ptr(), setups.data_ptr(), e, r,
@@ -250,19 +254,18 @@ class Renderer:
         """Launch the render kernel of this mode on prepared CUDA buffers:
         contiguous float32 ``poses`` (R, E, 16) → uint8 ``out``
         (E, R, C·3·n); the hoisted modes read ``setups`` (R, E, C·2·22)
-        from :meth:`launch_pack` instead of computing the setup.  Counts
-        nothing: the wrappers count."""
+        from :meth:`launch_pack` instead of computing the setup.  Every
+        mode culls: ``params.ray_abs`` = inf turns the slab modes' cull off,
+        ``params.cull`` = 0 the raster modes'.  Counts nothing: the wrappers
+        count."""
         if self.hoist and setups is None:
             raise ValueError("the hoisted raster reads a setup table")
         r, e = poses.shape[0], poses.shape[1]
-        reps, staged = 0, False
-        if self.columns:
-            reps, staged = slab_blocking(self.num_cams, self.n, r,
-                                         RASTER_FRAME_BYTES if self.raster else SLAB_FRAME_BYTES)
+        reps, staged = slab_blocking(self.num_cams, self.n, r,
+                                     RASTER_FRAME_BYTES if self.raster else SLAB_FRAME_BYTES)
         ptr = lambda t: None if t is None else t.data_ptr()
         err = kernels.library().cp_render(
-            ctypes.addressof(params), poses.data_ptr(),
-            (self.slab_rays if self.columns else self.planes).data_ptr(),
+            ctypes.addressof(params), poses.data_ptr(), self.slab_rays.data_ptr(),
             ptr(setups if self.hoist else None), ptr(self.slab_pixels), ptr(self.runs),
             ptr(self.mxu_frags), out.data_ptr(), e, r, self.mode, reps, int(staged),
             torch.cuda.current_stream(poses.device).cuda_stream,

@@ -220,6 +220,7 @@ CULL_EPS = 2.0**-24   # float32's unit roundoff
 CULL_SAFETY = 16.0    # how many times over the rounding bounds are taken
 CULL_ZMIN = 1e-3      # metres: nearest corner depth for which a box is culled
 CULL_FLOOR = 1e-6     # screen units added to the margin
+CULL_BIG = 1e18       # largest S and he_k + |o_k| for which a box is culled
 
 
 def _round_f32(x: torch.Tensor, up: bool) -> torch.Tensor:
@@ -232,8 +233,9 @@ def _round_f32(x: torch.Tensor, up: bool) -> torch.Tensor:
 
 def slab_cull_rect(setup, half_extents, ray_abs: float):
     """The screen rectangle outside which the slab cast of a ray against
-    one box is a miss, in the kernel's float32 arithmetic (rcp.approx,
-    contracted FMAs) as well as exactly.
+    one box is a miss, in the kernels' float32 arithmetic (K3's rcp.approx
+    and contracted FMAs; K5b's ratio cascade, rounded as written) as well
+    as exactly.
 
     ``setup``: :func:`_slab_setup`'s tuple for one box and camera (E, 1)
     columns; ``ray_abs``: the largest |px|, |py| of the ray table.  Returns
@@ -243,14 +245,19 @@ def slab_cull_rect(setup, half_extents, ray_abs: float):
     ``CULL_SAFETY`` times the cast's rounding, its eight corners projected
     through the dual basis of (A, B, C), their bounding rectangle widened
     by ``CULL_SAFETY`` times the bound of the direction's rounding plus
-    ``CULL_FLOOR``."""
+    ``CULL_FLOOR``; (-inf, inf) too where S or some he_k + |o_k| exceeds
+    ``CULL_BIG``."""
     o, a, b, c = (tuple(x.to(torch.float64) for x in v) for v in setup[:4])
     dot = lambda u, v: u[0] * v[0] + u[1] * v[1] + u[2] * v[2]
     norm = lambda u: torch.sqrt(dot(u, u))
     bxc, cxa, axb = soa.v_cross(b, c), soa.v_cross(c, a), soa.v_cross(a, b)
     inv_det = 1.0 / dot(a, bxc)
     ah, bh, ch = (tuple(x * inv_det for x in v) for v in (bxc, cxa, axb))
-    e = 1.7320508075688772 * (6.0 * CULL_EPS * (norm(a) + ray_abs * (norm(b) + norm(c))) + 1.01e-9)
+    s = norm(a) + ray_abs * (norm(b) + norm(c))
+    small = s <= CULL_BIG
+    for k in range(3):
+        small = small & (float(half_extents[k]) + o[k].abs() <= CULL_BIG)
+    e = 1.7320508075688772 * (6.0 * CULL_EPS * s + 1.01e-9)
     ea, eb, ec = e * norm(ah), e * norm(bh), e * norm(ch)
     grown = tuple(float(half_extents[k]) + CULL_SAFETY * 4.0 * CULL_EPS
                   * (float(half_extents[k]) + o[k].abs()) for k in range(3))
@@ -262,7 +269,7 @@ def slab_cull_rect(setup, half_extents, ray_abs: float):
         xs.append(dot(v, bh) / z)
         ys.append(dot(v, ch) / z)
     z, x, y = (torch.cat(t, dim=1) for t in (zs, xs, ys))
-    ok = ((z >= CULL_ZMIN).all(1, keepdim=True) & (ea <= 0.25)
+    ok = ((z >= CULL_ZMIN).all(1, keepdim=True) & (ea <= 0.25) & small
           & torch.isfinite(x).all(1, keepdim=True) & torch.isfinite(y).all(1, keepdim=True))
     xlo, xhi = x.amin(1, keepdim=True), x.amax(1, keepdim=True)
     ylo, yhi = y.amin(1, keepdim=True), y.amax(1, keepdim=True)
@@ -319,7 +326,9 @@ def pose_boxes(scene: SceneParams, poses: torch.Tensor):
 
 def slab_cast_mask(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor, cam_meta,
                    p2: int, n: int, width: int) -> torch.Tensor:
-    """The casts the slab kernel makes: poses (E, 16) → bool (E, C, p2·n, 2).
+    """The casts the slab kernel makes, in either of its cast modes (K3/K4
+    with the reciprocal, K5b with the ratio cascade: one rectangle serves
+    both): poses (E, 16) → bool (E, C, p2·n, 2).
 
     A warp of the kernel holds a run of 32 pooled pixels of one camera in
     :func:`slab_order` (the last run of a camera shorter).  It casts the
@@ -350,11 +359,12 @@ def slab_cast_mask(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor
 
 
 def slab_cull_violations(scene: SceneParams, poses: torch.Tensor, planes: torch.Tensor,
-                         cam_meta, p2: int, n: int, width: int) -> int:
+                         cam_meta, p2: int, n: int, width: int, recip: bool = True) -> int:
     """How many (sub-ray, box) casts that :func:`slab_cast_mask` skips on
-    poses (E, 16) the slab cast hits, in float32 with the exact reciprocal
-    (:func:`_ray_obb_affine`'s arithmetic) or in float64 from the same
-    setup: 0 where the cull is conservative on these poses."""
+    poses (E, 16) the slab cast hits, in float32 (:func:`_slab_cast`'s
+    arithmetic: with the exact reciprocal, or with ``recip=False`` the
+    ratio cascade, K5b's) or in float64 from the same setup: 0 where the
+    cull is conservative on these poses."""
     mask = slab_cast_mask(scene, poses, planes, cam_meta, p2, n, width)
     count = 0
     for c, (basis, eye) in enumerate(cam_meta):
@@ -362,8 +372,8 @@ def slab_cull_violations(scene: SceneParams, poses: torch.Tensor, planes: torch.
         for b, (center, quat, he) in enumerate(pose_boxes(scene, poses)):
             setup = _slab_setup(basis, eye, center, quat, LIGHT_DIR)
             setup64 = tuple(tuple(x.double() for x in v) for v in setup)
-            hit = (_slab_cast(rows[0], rows[1], setup, he)[3]
-                   | _slab_cast(rows[0].double(), rows[1].double(), setup64, he)[3])
+            hit = (_slab_cast(rows[0], rows[1], setup, he, recip)[3]
+                   | _slab_cast(rows[0].double(), rows[1].double(), setup64, he, recip)[3])
             count += int((hit & ~mask[:, c, :, b]).sum())
     return count
 
@@ -601,18 +611,20 @@ def _q_mul(a, b):
                      aw * bz + ax * by - ay * bx + az * bw], -1)
 
 
-def _slab_cast_where(px, py, setup, half_extents, mask):
-    """:func:`_slab_cast` (``recip``) of the (env, ray) pairs of ``mask``
-    (E, P) only, the others a miss: the same values where it casts, so the
-    same frames, and the operations of only those casts."""
+def _slab_cast_where(px, py, setup, half_extents, mask, recip: bool = True):
+    """:func:`_slab_cast` of the (env, ray) pairs of ``mask`` (E, P) only,
+    the others a miss (num = _BIG, den = 1, hit false, lambert 0): the same
+    values where it casts, so the same frames, and the operations of only
+    those casts."""
     ie, ip = mask.nonzero(as_tuple=True)
     sub = tuple(tuple(col[ie, 0] for col in v) for v in setup)
-    t, _, lam, hit = _slab_cast(px[0, ip], py[0, ip], sub, half_extents, True)
-    t_all = torch.full(mask.shape, _BIG, dtype=torch.float32, device=mask.device)
+    num, den, lam, hit = _slab_cast(px[0, ip], py[0, ip], sub, half_extents, recip)
+    num_all = torch.full(mask.shape, _BIG, dtype=torch.float32, device=mask.device)
+    den_all = torch.ones(mask.shape, dtype=torch.float32, device=mask.device)
     lam_all = torch.zeros(mask.shape, dtype=torch.float32, device=mask.device)
     hit_all = torch.zeros(mask.shape, dtype=torch.bool, device=mask.device)
-    t_all[ie, ip], lam_all[ie, ip], hit_all[ie, ip] = t, lam, hit
-    return t_all, torch.ones_like(t_all), lam_all, hit_all
+    num_all[ie, ip], den_all[ie, ip], lam_all[ie, ip], hit_all[ie, ip] = num, den, lam, hit
+    return num_all, den_all, lam_all, hit_all
 
 
 def _obb_q_setup(basis, eye, center, quat, half_extents, light):
@@ -800,9 +812,9 @@ def render_frames(
       division-free ratio cascade ordered by ``nc·dp ≤ np·dc``.  ``hoist``
       and ``mxu`` are ignored.
 
-    ``cast_mask`` (E, C, p2·n, 2), from :func:`slab_cast_mask` (slab with
-    ``recip``) or :func:`raster_cast_mask` (raster), casts only the (ray,
-    box) pairs it holds and takes a miss elsewhere, as the kernels cull.
+    ``cast_mask`` (E, C, p2·n, 2), from :func:`slab_cast_mask` (slab) or
+    :func:`raster_cast_mask` (raster), casts only the (ray, box) pairs it
+    holds and takes a miss elsewhere, as the kernels cull.
     """
     col = lambda j: poses[:, j : j + 1].to(torch.float32)
     cart_c, cart_q = (col(0), col(1), col(2)), (col(3), col(4), col(5), col(6))
@@ -835,14 +847,14 @@ def render_frames(
                     qc, hit_c = torch.where(mc, qc, big), hit_c & mc
                     qp, hit_p = torch.where(mp, qp, big), hit_p & mp
             sel_c = hit_c & (qc >= qp)
-        elif recip and cast_mask is not None:
+        elif cast_mask is not None:
             nc, dc, lam_c, hit_c = _slab_cast_where(
                 px, py, _slab_setup(basis, eye, cart_c, cart_q, LIGHT_DIR),
-                scene.cart_half_extents, cast_mask[:, c, :, 0])
+                scene.cart_half_extents, cast_mask[:, c, :, 0], recip)
             np_, dp, lam_p, hit_p = _slab_cast_where(
                 px, py, _slab_setup(basis, eye, pole_c, pole_q, LIGHT_DIR),
-                scene.pole_half_extents, cast_mask[:, c, :, 1])
-            sel_c = hit_c & (nc <= np_)
+                scene.pole_half_extents, cast_mask[:, c, :, 1], recip)
+            sel_c = hit_c & ((nc <= np_) if recip else (nc * dp <= np_ * dc))
         else:
             nc, dc, lam_c, hit_c = _ray_obb_affine(
                 px, py, basis, eye, cart_c, cart_q, scene.cart_half_extents, LIGHT_DIR, recip)

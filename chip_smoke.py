@@ -34,20 +34,22 @@ K1/K2 at 8192 envs and at 4097, a count that is not a multiple of 32;
 ``parity_training_end`` for K3 on poses from the end of the config-5
 training row, where it is also timed); torch.profiler traces of a few
 acting steps and of one training segment per row give the card's busy
-share and the learner's share of it.  On every slab pose set the cull is
-checked where it could fail (``cull_check``: no skipped cast that the
-plain cast hits, frames byte-equal to the kernel's own with culling off)
-and the share of box casts it skips is printed; likewise K5a's and K5d's
-cull on every raster pose set (``raster_cull_check`` in
+share and the learner's share of it.  On every slab pose set the cull of
+K3/K4 and of K5b is checked where it could fail (``cull_check``: no
+skipped cast that the plain cast of the mode hits, frames byte-equal to
+the kernel's own with culling off, and K5b's byte-equal to the plain ratio
+version's) and the share of box casts it skips is printed; likewise K5a's,
+K5c's and K5d's cull on every raster pose set (``raster_cull_check`` in
 ``parity_raster_cull`` and ``parity_training_end``: the 1cam_exact row's
 main-path and training-end poses, seeded states and the probe's poses
 seen by 2 cameras, the probe's seen by 1, and a frame too large to stage
-in shared memory), where K5a must also equal the plain raster byte for
-byte and K5d keep the silhouette rule against K5a and its plain version.  Each phase
-prints one JSON line with the elapsed seconds; the line before the last
-two holds every kernel's launches, error, time, bound, registers and
-spills (the culled kernels' bound, K3/K4, K5a and K5d, counts the work
-these inputs need, with the full-work bound beside it); the last line is
+in shared memory), where K5a and K5c must also equal the plain raster byte
+for byte and K5d keep the silhouette rule against K5a and its plain
+version.  K5c's setup pass is held byte-equal to ``raycast.pack_setups``.
+Each phase prints one JSON line with the elapsed seconds; the line before
+the last two holds every kernel's launches, error, time, bound, registers
+and spills (every render kernel culls: its bound counts the work these
+inputs need, with the full-work bound beside it); the last line is
 ``{"ok": true, "device": {...}}``.
 
 A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
@@ -84,7 +86,7 @@ from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import (
-    MXU, RASTER, RASTER_FRAME_BYTES, SLAB, Renderer, slab_blocking)
+    RASTER_FRAME_BYTES, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import roofline
 
@@ -123,7 +125,6 @@ K6_PARITY_ITERS = 256
 K6_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-9}
 K6_MOVE_SHARE = 0.01
 K6_ROW_ITERS = 1000  # the chains' iterations in the kernels line
-PACK_RTOL = 1e-6  # K5c's packed setups against the plain packing, relative
 
 _ROW = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
             obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
@@ -277,6 +278,22 @@ def time_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def kernel_device_ms(fn, reps: int = 20) -> float | None:
+    """Mean device time per call of ``fn`` from a torch.profiler trace of
+    ``reps`` calls: the kernels' own durations, without the host's time
+    between launches (which bounds :func:`time_ms` where a kernel is
+    shorter than a wrapper's call).  None where the trace holds no device
+    time."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in device_events(prof))
+    return us / 1e3 / reps if us else None
+
+
 def state_err(a: RigidState, b: RigidState) -> float:
     return max(float((getattr(a, f) - getattr(b, f)).abs().max()) for f in ("pos", "quat", "vel", "ang"))
 
@@ -314,14 +331,15 @@ def cast_shares(scene, rnd, poses) -> dict:
 
 
 def cull_check(scene, rnd, poses, name: str) -> dict:
-    """The slab kernel's cull on poses (R, E, 16), where it could fail:
-    the casts the plain predicate skips that the slab cast hits
+    """The slab kernel's cull on poses (R, E, 16) in ``rnd``'s cast mode
+    (K3/K4, or K5b where ``rnd.recip`` is False), where it could fail: the
+    casts the plain predicate skips that the mode's slab cast hits
     (``raycast.slab_cull_violations``, which must be 0), and the kernel's
     frames byte-equal to its own with culling off (``ray_abs`` = inf
-    widens every cull rectangle to the plane).  Plus the share of casts
-    skipped."""
+    widens every cull rectangle to the plane); K5b's frames byte-equal to
+    the plain ratio version's too.  Plus the share of casts skipped."""
     violations = sum(raycast.slab_cull_violations(scene, poses[r], rnd.planes, rnd.cam_meta,
-                                                  rnd.p2, rnd.n, rnd.width)
+                                                  rnd.p2, rnd.n, rnd.width, rnd.recip)
                      for r in range(poses.shape[0]))
     frames = []
     for ray_abs in (rnd.ray_abs, float("inf")):
@@ -335,43 +353,71 @@ def cull_check(scene, rnd, poses, name: str) -> dict:
     if violations or differ:
         raise AssertionError(f"{name}: the slab cull skipped {violations} hitting casts; "
                              f"{differ} bytes differ from the kernel's frames without culling")
-    return {"violations": violations, "bytes_differing_from_uncull": differ,
-            "skipped_cast_share": cast_shares(scene, rnd, poses)}
+    res = {"violations": violations, "bytes_differing_from_uncull": differ,
+           "skipped_cast_share": cast_shares(scene, rnd, poses)}
+    if not rnd.recip:
+        if not torch.equal(frames[0], rnd.plain(scene, poses)):
+            raise AssertionError(f"{name}: K5b's frames differ from the plain ratio version's")
+        res["levels_vs_plain"] = 0
+    return res
+
+
+def slab_cull_checks(scene, cfg, poses, name: str) -> dict:
+    """:func:`cull_check` of K3/K4 and of K5b on poses (R, E, 16) seen by
+    ``cfg``'s cameras."""
+    return {key: cull_check(scene, Renderer(cfg, poses.device, recip=recip), poses,
+                            f"{name} {key}")
+            for key, recip in (("k3", True), ("k5b", False))}
 
 
 def raster_cull_check(scene, cfg, poses, name: str) -> dict:
-    """K5a's and K5d's cull on poses (R, E, 16) seen by ``cfg``'s cameras,
-    where it could fail: no skipped cast that the plain cast hits
+    """K5a's, K5c's and K5d's cull on poses (R, E, 16) seen by ``cfg``'s
+    cameras, where it could fail: no skipped cast that the plain cast hits
     (``raycast.raster_cull_violations``, which must be 0), and each
     kernel's frames byte-equal to its own with the cull off
-    (``RenderParams.cull`` = 0).  K5a's frames
-    must equal the plain raster's; K5d's keep the silhouette rule against
-    K5a's and against its plain version.  Plus the share of casts skipped."""
+    (``RenderParams.cull`` = 0).  K5a's and K5c's frames must equal the
+    plain raster's; K5d's keep the silhouette rule against K5a's and against
+    its plain version.  Plus the share of casts skipped.  K5c's setups are
+    K5a's bit for bit, so its plain predicate, and the count of its
+    violations, are K5a's."""
     dev, r = poses.device, poses.shape[0]
-    k5a, k5d = Renderer(cfg, dev, raster=True), Renderer(cfg, dev, raster=True, mxu=True)
+    k5a = Renderer(cfg, dev, raster=True)
+    k5c = Renderer(cfg, dev, raster=True, hoist=True)
+    k5d = Renderer(cfg, dev, raster=True, mxu=True)
     out, frames = {}, {}
-    for key, rnd in (("k5a", k5a), ("k5d", k5d)):
+    for key, rnd in (("k5a", k5a), ("k5c", k5c), ("k5d", k5d)):
+        setups = None
+        if rnd.hoist:
+            setups = torch.empty((*poses.shape[:2], rnd.setup_width), device=dev)
+            rnd.launch_pack(rnd.kernel_params(scene), poses.contiguous(), setups)
         by_cull = []
         for cull in (1, 0):
             params = rnd.kernel_params(scene)
             params.cull = cull
             by_cull.append(torch.empty((poses.shape[1], r, rnd.frame_width), dtype=torch.uint8,
                                        device=dev))
-            rnd.launch(params, poses.contiguous(), by_cull[-1])
-        violations = sum(raycast.raster_cull_violations(
-            scene, poses[i], rnd.planes, rnd.cam_meta, rnd.p2, rnd.n, rnd.order, rnd.mxu)
-            for i in range(r))
+            rnd.launch(params, poses.contiguous(), by_cull[-1], setups)
+        if rnd.hoist:
+            violations, shares = out["k5a"]["violations"], out["k5a"]["skipped_cast_share"]
+        else:
+            violations = sum(raycast.raster_cull_violations(
+                scene, poses[i], rnd.planes, rnd.cam_meta, rnd.p2, rnd.n, rnd.order, rnd.mxu)
+                for i in range(r))
+            shares = cast_shares(scene, rnd, poses)
         differ = int((by_cull[0] != by_cull[1]).sum())
         if violations or differ:
             raise AssertionError(f"{name} {key}: the cull skipped {violations} hitting casts; "
                                  f"{differ} bytes differ from the frames without culling")
         frames[key] = by_cull[0]
         out[key] = {"violations": violations, "bytes_differing_from_uncull": differ,
-                    "skipped_cast_share": cast_shares(scene, rnd, poses)}
+                    "skipped_cast_share": shares}
     if not torch.equal(frames["k5a"], k5a.plain(scene, poses)):
         raise AssertionError(f"{name}: K5a's frames differ from the plain raster's")
+    if not torch.equal(frames["k5c"], frames["k5a"]):
+        raise AssertionError(f"{name}: K5c's frames differ from K5a's")
     h, w = cfg.obs_height, cfg.obs_width
     out["k5a"]["levels_vs_plain"] = 0
+    out["k5c"]["levels_vs_plain"] = out["k5c"]["levels_vs_k5a"] = 0
     out["k5d"]["silhouette_vs_k5a"] = silhouette_check(f"{name} k5d vs k5a", frames["k5d"],
                                                        frames["k5a"], h, w)
     out["k5d"]["silhouette_vs_plain"] = silhouette_check(f"{name} k5d", frames["k5d"],
@@ -380,8 +426,9 @@ def raster_cull_check(scene, cfg, poses, name: str) -> dict:
 
 
 def needed_plain(scene, rnd, poses):
-    """The plain version of the slab mode, or of the raster (``rnd.raster``;
-    K5d's work is K5a's), doing only the work these inputs need, as a
+    """The plain version of the slab mode (reciprocal or, where
+    ``rnd.recip`` is False, ratio), or of the raster (``rnd.raster``; K5c's
+    and K5d's work is K5a's), doing only the work these inputs need, as a
     function of poses (R, E, 16): each box cast only for the sub-rays it
     hits, a pooled pixel shaded and pooled only where a sub-ray of it hits
     a box, every other pixel the background colour of its static ray rows
@@ -390,19 +437,26 @@ def needed_plain(scene, rnd, poses):
     inputs need; its frames are the plain version's."""
     p2, n = rnd.p2, rnd.n
     e = poses.shape[1]
+    # cast_where → (depth terms, lambert, hit); nearer compares two boxes'
+    # depth terms, the cart's first.
     if rnd.raster:
         setup = lambda basis, eye, center, quat, he: raycast._obb_q_setup(
             basis, eye, center, quat, he, raycast.LIGHT_DIR)
         hits_of = lambda rows, su, he: raycast._obb_q_cast(rows[0], rows[1], su)[2]
-        cast_where = lambda rows, su, he, m: raycast._obb_q_cast_where(rows[0], rows[1], su, m)
-        nearer = lambda dc, dp: dc >= dp  # inverse depth
+        cast_where = lambda rows, su, he, m: (lambda q, lam, hit: ((q,), lam, hit))(
+            *raycast._obb_q_cast_where(rows[0], rows[1], su, m))
+        nearer = lambda c, p: c[0] >= p[0]  # inverse depth
     else:
+        recip = rnd.recip
         setup = lambda basis, eye, center, quat, he: raycast._slab_setup(
             basis, eye, center, quat, raycast.LIGHT_DIR)
-        hits_of = lambda rows, su, he: raycast._slab_cast(rows[0], rows[1], su, he)[3]
-        cast_where = lambda rows, su, he, m: (lambda t, _, lam, hit: (t, lam, hit))(
-            *raycast._slab_cast_where(rows[0], rows[1], su, he, m))
-        nearer = lambda dc, dp: dc <= dp  # depth
+        hits_of = lambda rows, su, he: raycast._slab_cast(rows[0], rows[1], su, he, recip)[3]
+        cast_where = lambda rows, su, he, m: (lambda num, den, lam, hit: ((num, den), lam, hit))(
+            *raycast._slab_cast_where(rows[0], rows[1], su, he, m, recip))
+        if recip:
+            nearer = lambda c, p: c[0] <= p[0]  # depth
+        else:
+            nearer = lambda c, p: c[0] * p[1] <= p[0] * c[1]  # nc·dp ≤ np·dc
     miss = torch.zeros((1, p2 * n), dtype=torch.bool, device=poses.device)
     zeros = torch.zeros((1, p2 * n), device=poses.device)
     plan, background = [], []
@@ -430,7 +484,8 @@ def needed_plain(scene, rnd, poses):
                     cast_where(rows, setup(basis, eye, center, quat, he), he, hit)
                     for (center, quat, he), hit in zip(boxes, hits))
                 at = lambda t: t[ie_sub, sub][None]  # the hit pixels' sub-rays, p2 blocks
-                colors = raycast.shade_pool(at(hc) & nearer(at(tc), at(tp)), at(hp), at(lc),
+                depth_c, depth_p = tuple(map(at, tc)), tuple(map(at, tp))
+                colors = raycast.shade_pool(at(hc) & nearer(depth_c, depth_p), at(hp), at(lc),
                                             at(lp), rows[2][:, sub], rows[3][:, sub], p2, len(ie))
                 for k in range(3):
                     plane = background[c][k].expand(e, n).clone()
@@ -453,21 +508,28 @@ def probe_rigid(poses: torch.Tensor) -> RigidState:
 # registers and spills.
 PTXAS_NAMES = {
     "step_repeats": "phys_kernelILb1E", "step_substeps": "phys_kernelILb0E",
-    "render_repeats": "render_slab_kernelILb1E", "render_batched": "render_slab_kernelILb1E",
-    "render_repeats_raster": "render_raster_kernelILb1E",
-    "render_batched_raster": "render_raster_kernelILb1E",
-    "render_repeats_ratio": "render_kernelILi2E", "render_batched_ratio": "render_kernelILi2E",
+    "render_repeats": "render_slab_kernelILi0ELb1E",
+    "render_batched": "render_slab_kernelILi0ELb1E",
+    "render_repeats_raster": "render_raster_kernelILb0ELb1E",
+    "render_batched_raster": "render_raster_kernelILb0ELb1E",
+    "render_repeats_ratio": "render_slab_kernelILi2ELb1E",
+    "render_batched_ratio": "render_slab_kernelILi2ELb1E",
     "pack_setups": "pack_setups_kernel",
-    "render_repeats_raster_hoist": "render_kernelILi3E",
-    "render_batched_raster_hoist": "render_kernelILi3E",
+    "render_repeats_raster_hoist": "render_raster_kernelILb1ELb1E",
+    "render_batched_raster_hoist": "render_raster_kernelILb1ELb1E",
     "render_repeats_raster_mxu": "render_raster_mxu_kernelILb0ELb1E",
     "render_batched_raster_mxu": "render_raster_mxu_kernelILb0ELb1E",
+    # K6: enum Chain in csrc/roofline.cu
+    "roofline_fma_f32": "chain_f32_kernelILi0E", "roofline_fma_bf16": "chain_bf16_kernelILi1E",
+    "roofline_mix_f32": "chain_f32_kernelILi2E", "roofline_mix_bf16": "chain_bf16_kernelILi3E",
+    "roofline_recip_f32": "chain_f32_kernelILi4E", "roofline_div_f32": "chain_f32_kernelILi5E",
 }
 
 
 def ptxas_usage(log: str) -> dict:
     """``nvcc -Xptxas -v`` output → {mangled function: {registers,
-    spill_bytes}} (spill stores plus loads)."""
+    spill_bytes, stack_bytes}} (spill stores plus loads; the stack frame,
+    local memory per thread)."""
     out, current = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
@@ -476,18 +538,21 @@ def ptxas_usage(log: str) -> dict:
         elif current is not None and (m := re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             current["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            if (m := re.search(r"(\d+) bytes stack frame", line)):
+                current["stack_bytes"] = int(m.group(1))
         elif current is not None and (m := re.search(r"Used (\d+) registers", line)):
             current["registers"] = int(m.group(1))
     return out
 
 
 def usage_of(usage: dict, name: str) -> dict:
-    """A kernel's registers and spill bytes from :func:`ptxas_usage`
-    (None where the build log names no such function)."""
+    """A kernel's registers, spill bytes and stack frame from
+    :func:`ptxas_usage` (None where the build log names no such
+    function)."""
     fragment = PTXAS_NAMES.get(name)
     found = [v for k, v in usage.items() if fragment and fragment in k]
-    return {"registers": found[0].get("registers") if found else None,
-            "spill_bytes": found[0].get("spill_bytes") if found else None}
+    return {key: found[0].get(key) if found else None
+            for key in ("registers", "spill_bytes", "stack_bytes")}
 
 
 def raw_launches(scene, renderer, rigid, force, poses, spr, n_push):
@@ -790,9 +855,9 @@ def training_profile(st, segment, step_ms: float) -> dict:
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     total_us = sum(by_name.values())
     ours_us = sum(v for k, v in by_name.items()
-                  if any(n in k for n in ("render_kernel", "render_slab_kernel",
-                                          "render_raster_kernel", "render_raster_mxu_kernel",
-                                          "phys_kernel", "pack_setups_kernel")))
+                  if any(n in k for n in ("render_slab_kernel", "render_raster_kernel",
+                                          "render_raster_mxu_kernel", "phys_kernel",
+                                          "pack_setups_kernel")))
     per_step = lambda us: us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
@@ -906,8 +971,8 @@ def run() -> int:
         for form, launch in (("repeats", "render_repeats"), ("batched", "render_batched")):
             mode_errs[launch + suffix] = pix_modes[name]["main_path"][form]["max_abs_err"]
             seeded_errs[launch + suffix] = pix_modes[name]["seeded_2cam"][form]["max_abs_err"]
-    # K5c's setup pass alone: its packed table against the plain packing
-    # (relative error; 1/U and 1/L reach 1e7).
+    # K5c's setup pass alone: its packed table byte-equal to the plain
+    # packing (the same operations, rounded as written).
     for key, p_in, errs_to in (("main_path", poses1, mode_errs),
                                ("seeded_2cam", poses_seeded, seeded_errs)):
         hoisted = Renderer(CONFIG1_EXACT if key == "main_path" else CONFIG2_EXACT, dev,
@@ -915,11 +980,11 @@ def run() -> int:
         table = torch.empty((*p_in.shape[:2], hoisted.setup_width), device=dev)
         hoisted.launch_pack(hoisted.kernel_params(scene), p_in.contiguous(), table)
         want = raycast.pack_setups(scene, hoisted.cam_meta, p_in)
-        err = float(((table - want).abs() / want.abs().clamp(min=1.0)).max())
-        if not err <= PACK_RTOL:
-            raise AssertionError(f"pack_setups disagrees with its plain version: {err}")
+        err = float((table - want).abs().max())
+        if not torch.equal(table.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"pack_setups is not byte-equal to its plain version: {err}")
         errs_to["pack_setups"] = err
-        pix_modes["raster_hoist"][key]["pack_setups_max_rel_err"] = err
+        pix_modes["raster_hoist"][key]["pack_setups_byte_equal"] = True
     emit("parity_modes", envs_main_path=NUM_ENVS, envs_seeded=PARITY_ENVS,
          pixel_bound={"level": PIX_LEVEL, "share": PIX_SHARE, "mean": PIX_MEAN},
          silhouette_rule={"share": SIL_SHARE, "edge_levels": SIL_EDGE}, modes=pix_modes)
@@ -960,13 +1025,13 @@ def run() -> int:
         **{k: {"p2_1": pix_s1[k]["max_abs_err"], "adversarial": pix_probe[k]["max_abs_err"]}
            for k in ("render_repeats", "render_batched")},
     }
-    # The cull where it could fail, and frames too large to stage 3 repeats
-    # of in shared memory (config 5 at 192 x 192: straight to global memory;
-    # one camera unpooled at 124 x 124: one repeat per block), on the
-    # probe's poses as 3 repeats.
-    cull = {"seeded": cull_check(scene, renderer, poses_seeded, "seeded"),
-            "p2_1": cull_check(scene, slab_s1, poses_s1, "p2_1"),
-            "adversarial": cull_check(scene, renderer, probe[None], "adversarial")}
+    # The cull of K3/K4 and of K5b where it could fail, and frames too large
+    # to stage 3 repeats of in shared memory (config 5 at 192 x 192:
+    # straight to global memory; one camera unpooled at 124 x 124: one
+    # repeat per block), on the probe's poses as 3 repeats.
+    cull = {"seeded": slab_cull_checks(scene, CONFIG5, poses_seeded, "seeded"),
+            "p2_1": slab_cull_checks(scene, CONFIG1_S1, poses_s1, "p2_1"),
+            "adversarial": slab_cull_checks(scene, CONFIG5, probe[None], "adversarial")}
     probe3 = probe[: 3 * LARGE_FRAME_ENVS].reshape(3, LARGE_FRAME_ENVS, 16)
     large = {}
     for key, cfg in (("config5_192", CONFIG5_WIDE), ("1cam_unpooled_124", CONFIG1_UNPOOLED)):
@@ -975,7 +1040,7 @@ def run() -> int:
             blocking=dict(zip(("reps", "staged"), slab_blocking(rnd.num_cams, rnd.n, 3))),
             render_repeats=pixel_check(f"render_repeats_{key}", rnd.render_repeats(scene, probe3),
                                        rnd.plain(scene, probe3)),
-            cull=cull_check(scene, rnd, probe3, key))
+            cull=slab_cull_checks(scene, cfg, probe3, key))
         other_errs["render_repeats"][key] = large[key]["render_repeats"]["max_abs_err"]
     emit("parity_owed", physics_atol=PHYS_ATOL,
          one_cam_samples1=dict(envs=NUM_ENVS, p2=slab_s1.p2, n=slab_s1.n, **pix_s1),
@@ -1088,7 +1153,7 @@ def run() -> int:
     _, poses_te = soa.step_repeats_batched(scene, st5.env_states.rigid, force_te, spr, reps)
     pix_te = pixel_check("render_repeats_training_end", renderer.render_repeats(scene, poses_te),
                          renderer.plain(scene, poses_te))
-    cull["training_end"] = cull_check(scene, renderer, poses_te, "training_end")
+    cull["training_end"] = slab_cull_checks(scene, CONFIG5, poses_te, "training_end")
     other_errs["render_repeats"]["training_end"] = pix_te["max_abs_err"]
     # The raster cull on poses from the end of the 1cam_exact training row,
     # stepped once under its seeded actor.
@@ -1166,13 +1231,15 @@ def run() -> int:
     errs.update(mode_errs)
     errs.update(k6_errs)
     _, poses0 = cuda_step.step_repeats(scene, rigid0, force0, spr, reps)
-    cull["main_path"] = cull_check(scene, renderer, poses0, "main_path")
+    cull["main_path"] = slab_cull_checks(scene, CONFIG5, poses0, "main_path")
     raster_main = raster_cull["main_path"]
-    skipped_main = {"": cull["main_path"]["skipped_cast_share"],
+    skipped_main = {"": cull["main_path"]["k3"]["skipped_cast_share"],
+                    "_ratio": cull["main_path"]["k5b"]["skipped_cast_share"],
                     "_raster": raster_main["k5a"]["skipped_cast_share"],
+                    "_raster_hoist": raster_main["k5c"]["skipped_cast_share"],
                     "_raster_mxu": raster_main["k5d"]["skipped_cast_share"]}
-    # The culled kernels' work (K3/K4, K5a, K5d) depends on the data: their
-    # bound is the census of the work these inputs need (needed_plain), the
+    # Every render kernel culls, so its work depends on the data: its bound
+    # is the census of the work these inputs need (needed_plain), the
     # full-work census beside it.
     full_ops = {}
     # name → (wrapper call or None, plain version, bytes, operations or None
@@ -1196,26 +1263,25 @@ def run() -> int:
         renderers.append((Renderer(cfg, dev, **mode), *mode_inputs[cfg]))
     for rnd, rig, pos in renderers:
         suffix = rnd.suffix
-        # K5d computes K5a's frames: its bound is K5a's census, not that of
-        # its product, five of whose eight K columns are zero.
-        ops_rnd = raster1 if rnd.mxu else rnd
+        # K5c and K5d compute K5a's frames: their bound is K5a's census, not
+        # that of K5d's product, five of whose eight K columns are zero.
+        ops_rnd = raster1 if rnd.raster else rnd
         frame_bytes, ray_bytes = rnd.frame_width, rnd.planes.numel() * 4
-        # The hoisted render kernel reads its setup table, not the poses;
-        # its setup pass is a row of its own.
+        # The hoisted render kernel reads its setup table, not the poses,
+        # and computes no setup; its setup pass is a row of its own.
         in_width = rnd.setup_width if rnd.hoist else 16
         pack_ops = lambda pos, rnd=rnd: census(
             lambda: raycast.pack_setups(scene, rnd.cam_meta, pos)) if rnd.hoist else 0
         pos_b = raycast.poses_from_rigid(rig)[None]
-        ops_r = census(lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos)
-        ops_b = census(lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b)
-        if rnd.mode in (SLAB, RASTER, MXU):  # the culled kernels
-            full_ops["render_repeats" + suffix] = ops_r
-            full_ops["render_batched" + suffix] = ops_b
-            needed = needed_plain(scene, ops_rnd, pos), needed_plain(scene, ops_rnd, pos_b)
-            for fn, p_in in zip(needed, (pos, pos_b)):
-                if not torch.equal(fn(), ops_rnd.plain(scene, p_in)):
-                    raise AssertionError("needed_plain's frames differ from the plain version")
-            ops_r, ops_b = census(needed[0]), census(needed[1])
+        full_ops["render_repeats" + suffix] = census(
+            lambda rnd=ops_rnd, pos=pos: rnd.plain(scene, pos)) - pack_ops(pos)
+        full_ops["render_batched" + suffix] = census(
+            lambda rnd=ops_rnd, pos_b=pos_b: rnd.plain(scene, pos_b)) - pack_ops(pos_b)
+        needed = needed_plain(scene, ops_rnd, pos), needed_plain(scene, ops_rnd, pos_b)
+        for fn, p_in in zip(needed, (pos, pos_b)):
+            if not torch.equal(fn(), ops_rnd.plain(scene, p_in)):
+                raise AssertionError("needed_plain's frames differ from the plain version")
+        ops_r, ops_b = census(needed[0]) - pack_ops(pos), census(needed[1]) - pack_ops(pos_b)
         work["render_repeats" + suffix] = (
             lambda rnd=rnd, pos=pos: rnd.render_repeats(scene, pos),
             lambda rnd=rnd, pos=pos: rnd.plain(scene, pos),
@@ -1229,6 +1295,11 @@ def run() -> int:
             raw.update({k + suffix: v for k, v in mode_raw.items() if k.startswith("render")})
         if rnd.hoist:
             raw["pack_setups"] = mode_raw["pack_setups"]
+            one = pos[:1, :1].contiguous()
+            one_table = torch.empty((1, 1, rnd.setup_width), device=dev)
+            one_p = rnd.kernel_params(scene)
+            raw["pack_setups_one"] = lambda rnd=rnd, one_p=one_p, one=one, t=one_table: (
+                rnd.launch_pack(one_p, one, t))
             work["pack_setups"] = (
                 None, lambda rnd=rnd, pos=pos: raycast.pack_setups(scene, rnd.cam_meta, pos),
                 reps * e * (16 + rnd.setup_width) * 4, None)
@@ -1261,6 +1332,7 @@ def run() -> int:
                 "max_abs_err": errs[name],
                 "seeded_max_abs_err": seeded_errs.get(name),
                 "ms": time_ms(raw[name], reps=50),
+                "device_ms": kernel_device_ms(raw[name]),
                 "wrapper_ms": None if wrapper_fn is None else time_ms(wrapper_fn, reps=50),
                 "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
                 "bound_ms": max(t_bytes, t_ops),
@@ -1278,9 +1350,13 @@ def run() -> int:
             if name == "render_repeats":
                 rows[-1]["ms_training_end"] = k3_training_end_ms
                 rows[-1]["skipped_cast_share_training_end"] = (
-                    cull["training_end"]["skipped_cast_share"])
+                    cull["training_end"]["k3"]["skipped_cast_share"])
             if name in other_errs:
                 rows[-1]["other_max_abs_err"] = other_errs[name]
+            if name == "pack_setups":
+                # The floor of a launch: the same kernel on one (repeat, env).
+                rows[-1]["floor_ms"] = time_ms(raw["pack_setups_one"], reps=50)
+                rows[-1]["floor_device_ms"] = kernel_device_ms(raw["pack_setups_one"])
     # Where a main-path step goes: the actor's forward at full width beside
     # the kernels' times and the measured wall time of a sim-only step.
     actor_ms = time_ms(lambda: act(obs0), reps=20)

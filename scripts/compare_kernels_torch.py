@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the port's K1-K4, K5a and K5d kernels of two source trees on one GPU.
+"""Compare the port's K1-K4 and K5a-K5d kernels of two source trees on one GPU.
 
     python3 scripts/compare_kernels_torch.py --parent DIR [--out DIR]
 
@@ -10,17 +10,24 @@ the inputs on the card and saves them; then each tree is run in a process
 of its own, in the order parent, this tree, this tree, parent.  Each run
 builds its tree's kernels, launches K1 (``step_repeats``), K2
 (``step_substeps``), K3 (``render_repeats``) and K4 (``render_batched``) in
-the slab mode through the package's ``launch`` functions on every input
-set, and K5a (``render_*_raster``) and K5d (``render_*_raster_mxu``, and
-from K5c's packed setups ``render_*_raster_hoist_mxu``) on every raster
-set; it keeps the outputs (states, poses, frames) and times each launch
-with CUDA events.  The script then checks that the two trees' outputs are
-equal byte for byte on every set, K5d's excepted (its product may round a
-bound otherwise: it reports how many bytes differ and whether each lies
-on a silhouette edge, ``chip_smoke.silhouette_stats``), and that each
-tree repeats its own outputs.  A tree whose render kernels have a cull
-switch (``RenderParams.cull``) also times K5a and K5d with their cull on
-and off (``variants_ms``).
+the slab mode and K5b (``render_*_ratio``) in the ratio slab mode through
+the package's ``launch`` functions on every slab set, and K5a
+(``render_*_raster``), K5c (``pack_setups``, whose table is compared too,
+and ``render_*_raster_hoist`` from it; the setup pass is also timed by
+its kernel's own device time in a profiler trace, ``device_ms``, since a
+launch of it is shorter than the host's call) and K5d (``render_*_raster_mxu``,
+and from K5c's packed setups ``render_*_raster_hoist_mxu``) on every
+raster set; it keeps the outputs (states, poses, setup tables, frames) and
+times each launch with CUDA events.  The script then checks that the two
+trees' outputs are equal byte for byte on every set, K5d's excepted (its
+product may round a bound otherwise: it reports how many bytes differ and
+whether each lies on a silhouette edge, ``chip_smoke.silhouette_stats``),
+that each tree repeats its own outputs, and that each tree's K5c frames
+equal its K5a frames (``k5c_equals_k5a``).  Each tree also times K5b with
+its cull rectangles widened to the plane (``ray_abs`` = inf) and, where its
+render kernels have the switch (``RenderParams.cull``), K5a, K5c and K5d
+with their cull on and off (``variants_ms``): the cull's form in the tree
+that has one, the same kernel twice in one that has none.
 
 Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
 5 substeps, 3 solver iterations):
@@ -32,11 +39,12 @@ Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
 - ``seeded``: 1024 states from the reset push and three random steps;
 - ``wide``: 8192 such states; ``ragged``: 4097 (K1/K2 only);
 - ``p2_1``: the 1cam_samples1 row's reset state and one step under a zero
-  force (one sample per pooled pixel; K3/K4 only);
-- ``adversarial``: 4096 poses of ``raycast.cull_probe_poses`` (K3/K4
-  only), seen by 2 cameras.
+  force (one sample per pooled pixel; K3/K4 and K5b only);
+- ``adversarial``: 4096 poses of ``raycast.cull_probe_poses`` (K3/K4 and
+  K5b only), seen by 2 cameras.
 
-Raster sets (K5a, K5d; 1 camera exact unless named, ``obs_samples`` 0):
+Raster sets (K5a, K5c, K5d; 1 camera exact unless named, ``obs_samples``
+0):
 
 - ``raster_main_path``: the 1cam_exact row's reset state and one step
   under a seeded actor; ``raster_training_end``: its env states after a
@@ -48,7 +56,8 @@ Raster sets (K5a, K5d; 1 camera exact unless named, ``obs_samples`` 0):
   memory).
 
 For each render set it prints the share of box casts that the culled
-kernel skips, by the plain predicate (``chip_smoke.cast_shares``).  Prints
+kernel skips, by the plain predicate (``chip_smoke.cast_shares``; K5b's is
+K3's rectangle and K5c's is K5a's test, so they are not printed apart).  Prints
 the result as one JSON line with the card's ``nvidia-smi`` name and power
 limit, and writes it to ``result.json`` in ``--out`` when given.  Exits nonzero where the trees'
 outputs differ or a tree does not repeat itself.  Needs a CUDA card.
@@ -76,12 +85,15 @@ REPS = 50
 TRAIN_SEGMENTS = 3
 PHYS_SETS = ("main_path", "training_end", "seeded", "wide", "ragged")
 RENDER_SETS = ("main_path", "training_end", "seeded", "p2_1", "adversarial")
+# slab kernel suffix → Renderer options
+SLAB_KERNELS = {"": dict(), "_ratio": dict(recip=False)}
 # raster set → its config's key in _configs()
 RASTER_SETS = {"raster_main_path": "exact1", "raster_training_end": "exact1",
                "raster_seeded_2cam": "exact2", "raster_probe_1cam": "exact1",
                "raster_probe_2cam": "exact2", "raster_large": "exact2_192"}
 # kernel suffix → Renderer options
-RASTER_KERNELS = {"_raster": dict(raster=True), "_raster_mxu": dict(raster=True, mxu=True),
+RASTER_KERNELS = {"_raster": dict(raster=True), "_raster_hoist": dict(raster=True, hoist=True),
+                  "_raster_mxu": dict(raster=True, mxu=True),
                   "_raster_hoist_mxu": dict(raster=True, hoist=True, mxu=True)}
 LARGE_ENVS = 128
 
@@ -215,6 +227,9 @@ def worker(tree: str, inputs: str, out: str) -> None:
     from cartpoleplusplus_tpu_torch.render import cuda_render
     from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 
+    sys.path.insert(1, REPO)
+    import chip_smoke  # this tree's timing helpers; the kernels are `tree`'s
+
     assert os.path.dirname(kernels.__file__).startswith(os.path.abspath(tree))
     info = kernels.build()
     cfgs = _configs()
@@ -224,7 +239,7 @@ def worker(tree: str, inputs: str, out: str) -> None:
     spr, reps, n_push = cfg5.steps_per_repeat, cfg5.action_repeats, cfg5.initial_force_steps
     phys_p = cuda_step.phys_params(scene)
     sets = torch.load(inputs, map_location=dev)
-    outputs, ms = {}, {}
+    outputs, ms, variants, device = {}, {}, {}, {}
     for name, item in sets.items():
         if "packed" in item and name in PHYS_SETS:
             packed, force = item["packed"], item["force"]
@@ -239,8 +254,10 @@ def worker(tree: str, inputs: str, out: str) -> None:
             outputs[f"{name}/step_repeats"] = (s1.cpu(), poses.cpu())
             outputs[f"{name}/step_substeps"] = (s2.cpu(),)
             ms[f"{name}/step_repeats"], ms[f"{name}/step_substeps"] = time_ms(k1), time_ms(k2)
-        if name in RENDER_SETS:
-            rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
+        if name not in RENDER_SETS:
+            continue
+        for suffix, opts in SLAB_KERNELS.items():
+            rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev, **opts)
             params = rnd.kernel_params(scene)
             for kernel, key in (("render_repeats", "poses_r"), ("render_batched", "poses_b")):
                 if key not in item:
@@ -248,16 +265,24 @@ def worker(tree: str, inputs: str, out: str) -> None:
                 p = item[key]
                 frames = torch.empty((p.shape[1], p.shape[0], rnd.frame_width), dtype=torch.uint8,
                                      device=dev)
-                fn = lambda p=p, frames=frames: rnd.launch(params, p, frames)
+                fn = lambda rnd=rnd, params=params, p=p, frames=frames: rnd.launch(
+                    params, p, frames)
                 fn()
                 torch.cuda.synchronize()
-                outputs[f"{name}/{kernel}"] = (frames.cpu(),)
-                ms[f"{name}/{kernel}"] = time_ms(fn)
-    # The cull on and off, where this tree's kernels have the switch.
+                label = f"{name}/{kernel}{suffix}"
+                outputs[label] = (frames.cpu(),)
+                ms[label] = time_ms(fn)
+                if suffix:  # K5b: its cull rectangles as they are, and widened to the plane
+                    for form, ray_abs in (("on", rnd.ray_abs), ("off", float("inf"))):
+                        vp = rnd.kernel_params(scene)
+                        vp.ray_abs = ray_abs
+                        variants[f"{label}@{form}"] = time_ms(
+                            lambda rnd=rnd, vp=vp, p=p, frames=frames: rnd.launch(vp, p, frames))
+    # The raster cull on and off, where this tree's kernels have the switch.
     culls = {}
     if "cull" in dict(cuda_render.RenderParams._fields_):
         culls = {"on": 1, "off": 0}
-    shapes, variants = {}, {}
+    shapes = {}
     for name, cfg_key in RASTER_SETS.items():
         item = sets[name]
         for suffix, opts in RASTER_KERNELS.items():
@@ -269,9 +294,17 @@ def worker(tree: str, inputs: str, out: str) -> None:
                     continue
                 p = item[key]
                 setups = None
-                if rnd.hoist:  # the setup pass once, outside the timing
+                if rnd.hoist:  # the setup pass once, outside the render's timing
                     setups = torch.empty((*p.shape[:2], rnd.setup_width), device=dev)
-                    rnd.launch_pack(params, p, setups)
+                    pack = lambda params=params, p=p, setups=setups: rnd.launch_pack(
+                        params, p, setups)
+                    pack()
+                    torch.cuda.synchronize()
+                    if suffix == "_raster_hoist":  # K5c's setup pass: its table and times
+                        label = f"{name}/pack_setups_{kernel}"
+                        outputs[label] = (setups.cpu(),)
+                        ms[label] = time_ms(pack)
+                        device[label] = chip_smoke.kernel_device_ms(pack)
                 frames = torch.empty((p.shape[1], p.shape[0], rnd.frame_width), dtype=torch.uint8,
                                      device=dev)
                 fn = lambda params=params, p=p, frames=frames, setups=setups: rnd.launch(
@@ -281,14 +314,16 @@ def worker(tree: str, inputs: str, out: str) -> None:
                 label = f"{name}/{kernel}{suffix}"
                 outputs[label] = (frames.cpu(),)
                 ms[label] = time_ms(fn)
-                if rnd.hoist:
+                if suffix == "_raster_hoist_mxu":
                     continue
                 for form, cull in culls.items():
                     vp = rnd.kernel_params(scene)
                     vp.cull = cull
                     variants[f"{label}@{form}"] = time_ms(
-                        lambda vp=vp, p=p, frames=frames: rnd.launch(vp, p, frames))
-    torch.save({"outputs": outputs, "ms": ms, "variants_ms": variants, "shapes": shapes,
+                        lambda vp=vp, p=p, frames=frames, setups=setups: rnd.launch(
+                            vp, p, frames, setups))
+    torch.save({"outputs": outputs, "ms": ms, "variants_ms": variants, "device_ms": device,
+                "shapes": shapes,
                 "ptxas": info["log"], "nvcc_s": info["nvcc_s"]}, out)
 
 
@@ -320,7 +355,7 @@ def main() -> int:
             subprocess.run([sys.executable, os.path.abspath(__file__), "--worker", trees[tag],
                             inputs, out], check=True, timeout=900)
             runs.append(torch.load(out))
-    equal, mxu_vs_a, ok = {}, {}, True
+    equal, mxu_vs_a, k5c_equals_k5a, ok = {}, {}, {}, True
     for key in runs[0]["outputs"]:
         same = lambda x, y: all(torch.equal(a, b) for a, b in zip(x["outputs"][key],
                                                                   y["outputs"][key]))
@@ -334,18 +369,29 @@ def main() -> int:
             ok = ok and equal[key]["repeatable"]
         else:
             ok = ok and all(equal[key].values())
+        if key.endswith("_raster_hoist"):  # each tree's K5c against its own K5a
+            k5a = key.removesuffix("_hoist")
+            k5c_equals_k5a[key] = {tag: torch.equal(runs[i]["outputs"][key][0],
+                                                    runs[i]["outputs"][k5a][0])
+                                   for tag, i in (("A", 0), ("B", 1))}
+            ok = ok and all(k5c_equals_k5a[key].values())
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     ms = {k: [r["ms"][k] for r in runs] for k in runs[0]["ms"]}
+    device = {k: [r["device_ms"][k] for r in runs] for k in runs[0]["device_ms"]}
     result = {
         "trees": trees, "order": "ABBA", "card": smi, "reps": REPS,
         "ms": ms,
         "ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in ms.items()},
-        "equal": equal, "k5d_b_vs_a": mxu_vs_a, "skipped_cast_share": shares,
+        "device_ms": device,
+        "device_ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in device.items()
+                                  if None not in v},
+        "equal": equal, "k5d_b_vs_a": mxu_vs_a, "k5c_equals_k5a": k5c_equals_k5a,
+        "skipped_cast_share": shares,
         "variants_ms": {tag: runs[i]["variants_ms"] for tag, i in (("A", 0), ("B", 1))},
         "ptxas": {tag: {k: v for k, v in chip_smoke.ptxas_usage(runs[i]["ptxas"]).items()
-                        if re.search(r"phys_kernel|render_slab_kernel|render_kernelILi1E|"
-                                     r"render_mxu_kernel|render_raster", k)}
+                        if re.search(r"phys_kernel|render_slab_kernel|render_kernel|"
+                                     r"render_raster|pack_setups", k)}
                   for tag, i in (("A", 0), ("B", 1))},
         "nvcc_s": {"A": runs[0]["nvcc_s"], "B": runs[1]["nvcc_s"]},
         "seconds": time.monotonic() - t0, "ok": ok,

@@ -1,29 +1,32 @@
-"""The slab render kernel's cull (K3/K4, csrc/render.cu) on the CPU.
+"""The slab render kernel's cull (K3/K4 and K5b, csrc/render.cu) on the CPU.
 
 The kernel skips the cast of a box for a sub-ray that lies outside the
-box's cull rectangle, and takes the cast's miss values there.
-``raycast.slab_cull_rect`` is the plain version of that rectangle, the
-same formula as the kernel's ``cull_rect``.  These tests hold it against
-the slab cast on poses chosen to break it (``raycast.cull_probe_poses``:
-the eye inside a slab, a pole lying flat, a cart at the frame's border, a
-pole tip at the camera plane, anything anywhere) plus reset poses, at
-``obs_pool`` 1 and 2 and 1 and 2 cameras:
+box's cull rectangle, and takes the cast's miss values there, in both its
+cast modes: the reciprocal slab (K3/K4) and the division-free ratio slab
+(K5b, ``recip=False``).  ``raycast.slab_cull_rect`` is the plain version of
+that rectangle, the same formula as the kernel's ``cull_rect``.  These
+tests hold it against the slab cast of each mode on poses chosen to break
+it (``raycast.cull_probe_poses``: the eye inside a slab, a pole lying flat,
+a cart at the frame's border, a pole tip at the camera plane, anything
+anywhere) plus reset poses, at ``obs_pool`` 1 and 2 and 1 and 2 cameras:
 
-- no sub-ray that the slab cast hits, in float32 with the exact reciprocal
-  (``_ray_obb_affine``'s arithmetic) or in float64 from the same setup, is
-  culled (zero violations; the kernel's rcp.approx and contracted FMAs are
+- no sub-ray that the slab cast hits, in float32 (with the exact
+  reciprocal, ``_ray_obb_affine``'s arithmetic, or the ratio cascade) or in
+  float64 from the same setup, is culled (zero violations; K3's rcp.approx
+  and contracted FMAs, and the ratio cascade's rounded compares, are
   covered by the margin argued in render.cu's header);
 - frames rendered with the culled casts taken as misses are byte-equal to
-  frames that cast every ray;
+  frames that cast every ray, in both modes;
 - the rectangle holds the box's corners projected independently, in world
   space, and stays within 1e-3 screen units of them (so the cull skips);
   a box with a corner at or behind the camera plane is never culled;
 - ``raycast.slab_cull_violations``, the count the card's smoke run holds
-  at 0, sees a rectangle shrunk below the box;
+  at 0, sees a rectangle shrunk below the box, in both modes;
 - the kernel's launch shape stages as many repeats' frames in shared
-  memory as fit, and writes a frame too large for it straight out;
-- ``chip_smoke.needed_plain``, whose op census bounds K3/K4, gives the
-  plain version's frames with a fraction of its work.
+  memory as fit, and writes a frame too large for it straight out, and the
+  renderer's tables are in the kernel's layout in both modes;
+- ``chip_smoke.needed_plain``, whose op census bounds K3/K4 and K5b, gives
+  the plain version's frames with a fraction of its work.
 """
 
 from __future__ import annotations
@@ -50,6 +53,10 @@ RESET_POSES = 128
 CHUNK = 256
 CASES = [(1, 1, 0), (2, 1, 0), (1, 2, 0), (2, 2, 0), (2, 2, 2)]  # cameras, obs_pool, obs_samples
 IDS = [f"cams{c}_pool{p}_samples{s}" for c, p, s in CASES]
+# Each case in both cast modes: the reciprocal slab (K3/K4), then the ratio
+# slab (K5b, recip False).
+MODE_CASES = [(i, True) for i in range(len(CASES))] + [(i, False) for i in range(len(CASES))]
+MODE_IDS = IDS + [f"{i}_ratio" for i in IDS]
 
 
 def _config(cams, pool, samples):
@@ -77,8 +84,8 @@ def _outside(px, py, rect):
     return (px < xlo) | (px > xhi) | (py < ylo) | (py > yhi)
 
 
-@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
-def test_cull_never_skips_a_hit(case):
+@pytest.mark.parametrize("case, recip", MODE_CASES, ids=MODE_IDS)
+def test_cull_never_skips_a_hit(case, recip):
     cfg = _config(*CASES[case])
     scene = cartpole.scene_for(cfg)
     planes, meta, (p2, n) = raycast.ray_planes(cfg)
@@ -94,9 +101,10 @@ def test_cull_never_skips_a_hit(case):
             for b, (center, quat, he) in enumerate(raycast.pose_boxes(scene, chunk)):
                 setup = raycast._slab_setup(basis, eye, center, quat, raycast.LIGHT_DIR)
                 rect = raycast.slab_cull_rect(setup, he, ray_abs)
-                hit32 = raycast._slab_cast(rows[0], rows[1], setup, he)[3]
+                hit32 = raycast._slab_cast(rows[0], rows[1], setup, he, recip)[3]
                 setup64 = tuple(tuple(x.double() for x in v) for v in setup)
-                hit64 = raycast._slab_cast(rows[0].double(), rows[1].double(), setup64, he)[3]
+                hit64 = raycast._slab_cast(rows[0].double(), rows[1].double(), setup64, he,
+                                           recip)[3]
                 hit = hit32 | hit64
                 # per (warp, box): the kernel's decision, on every sub-ray of the warp
                 violations += int((hit & ~mask[:, c, :, b]).sum())
@@ -112,8 +120,8 @@ def test_cull_never_skips_a_hit(case):
     assert hits > 0 and culled > total // 2 and unbounded > 0, (hits, culled, unbounded)
 
 
-@pytest.mark.parametrize("case", range(len(CASES)), ids=IDS)
-def test_culled_frames_are_byte_equal(case):
+@pytest.mark.parametrize("case, recip", MODE_CASES, ids=MODE_IDS)
+def test_culled_frames_are_byte_equal(case, recip):
     cfg = _config(*CASES[case])
     scene = cartpole.scene_for(cfg)
     planes, meta, (p2, n) = raycast.ray_planes(cfg)
@@ -121,8 +129,8 @@ def test_culled_frames_are_byte_equal(case):
     poses = _poses(case, cfg, scene)[::2]
     mask = raycast.slab_cast_mask(scene, poses, planes, meta, p2, n, raycast.pooled_width(cfg))
     assert mask.shape == (poses.shape[0], len(meta), p2 * n, 2)
-    want = raycast.render_frames(scene, poses, planes, meta, p2, n)
-    got = raycast.render_frames(scene, poses, planes, meta, p2, n, cast_mask=mask)
+    want = raycast.render_frames(scene, poses, planes, meta, p2, n, recip=recip)
+    got = raycast.render_frames(scene, poses, planes, meta, p2, n, recip=recip, cast_mask=mask)
     assert torch.equal(got, want)
     assert not bool(mask.all())
 
@@ -239,14 +247,17 @@ def test_pixel_table_holds_the_background_sums(case):
     assert not table[..., 7].any()
 
 
-@pytest.mark.parametrize("cams", [1, 2])
-def test_renderer_slab_tables_are_in_the_kernels_layout(cams):
-    """The slab kernel indexes its two tables as flat C-order arrays: the
-    ray table (C, p2, n, 4) and the pixel table (C, n, 8), rows in
-    ``slab_order``.  A strided table (numpy's fancy indexing can return one,
-    and ``.to`` keeps strides) would feed camera 0's rows to camera 1."""
+@pytest.mark.parametrize("cams, recip", [(1, True), (2, True), (1, False), (2, False)],
+                         ids=["1", "2", "1_ratio", "2_ratio"])
+def test_renderer_slab_tables_are_in_the_kernels_layout(cams, recip):
+    """The slab kernel, in both its cast modes, indexes its two tables as
+    flat C-order arrays: the ray table (C, p2, n, 4) and the pixel table
+    (C, n, 8), rows in ``slab_order``.  A strided table (numpy's fancy
+    indexing can return one, and ``.to`` keeps strides) would feed camera
+    0's rows to camera 1."""
     cfg = _config(cams, 2, 2)
-    rnd = Renderer(cfg, "cpu")
+    rnd = Renderer(cfg, "cpu", recip=recip)
+    assert rnd.runs is None and rnd.mxu_frags is None
     order = raycast.slab_order(rnd.n, rnd.width)
     assert rnd.slab_rays.is_contiguous() and rnd.slab_pixels.is_contiguous()
     assert tuple(rnd.slab_rays.shape) == (cams, rnd.p2, rnd.n, 4)
@@ -261,20 +272,35 @@ def test_renderer_slab_tables_are_in_the_kernels_layout(cams):
         assert torch.equal(rays.reshape(rnd.p2, rnd.n, 4), want)
 
 
-def test_violation_count_sees_a_shrunk_rectangle(monkeypatch):
-    """The count is 0 on these poses as the cull stands, and not 0 once
-    every rectangle is shrunk by 0.02 screen units (a cull that drops
-    silhouette edges)."""
+def _shrunk_rectangle_counts(monkeypatch, recip):
+    """The violation count of ``recip``'s cast on 16 reset poses as the cull
+    stands, then with every rectangle shrunk by 0.02 screen units."""
     cfg = _config(2, 2, 2)
     scene = cartpole.scene_for(cfg)
     planes, meta, (p2, n) = raycast.ray_planes(cfg)
     planes = torch.from_numpy(planes)
     poses = _reset_poses(cfg, scene, e=16)
     count = lambda: raycast.slab_cull_violations(scene, poses, planes, meta, p2, n,
-                                                 raycast.pooled_width(cfg))
-    assert count() == 0
+                                                 raycast.pooled_width(cfg), recip)
+    before = count()
     monkeypatch.setattr(raycast, "CULL_FLOOR", -0.02)
-    assert count() > 0
+    return before, count()
+
+
+def test_violation_count_sees_a_shrunk_rectangle(monkeypatch):
+    """The count is 0 on these poses as the cull stands, and not 0 once
+    every rectangle is shrunk by 0.02 screen units (a cull that drops
+    silhouette edges)."""
+    before, shrunk = _shrunk_rectangle_counts(monkeypatch, True)
+    assert before == 0
+    assert shrunk > 0
+
+
+def test_ratio_violation_count_sees_a_shrunk_rectangle(monkeypatch):
+    """As above, counted against K5b's ratio cast."""
+    before, shrunk = _shrunk_rectangle_counts(monkeypatch, False)
+    assert before == 0
+    assert shrunk > 0
 
 
 @pytest.mark.parametrize("cams, n, r, want", [
@@ -294,17 +320,18 @@ def test_slab_blocking(cams, n, r, want):
     assert SLAB_FRAME_BYTES == 46720
 
 
-@pytest.mark.parametrize("samples", [1, 2])
-def test_needed_work_census(samples):
-    """chip_smoke's bound for K3/K4: a plain version that casts a box only
-    where it hits and shades only the pixels a box hits gives the plain
-    frames, and on reset poses does a small part of the full work."""
+@pytest.mark.parametrize("samples, recip", [(1, True), (2, True), (1, False), (2, False)],
+                         ids=["1", "2", "1_ratio", "2_ratio"])
+def test_needed_work_census(samples, recip):
+    """chip_smoke's bound for K3/K4 and K5b: a plain version that casts a
+    box only where it hits and shades only the pixels a box hits gives the
+    plain frames, and on reset poses does a small part of the full work."""
     sys.path.insert(0, REPO)
     import chip_smoke
 
     cfg = _config(2, 2, samples)
     scene = cartpole.scene_for(cfg)
-    rnd = Renderer(cfg, "cpu")
+    rnd = Renderer(cfg, "cpu", recip=recip)
     poses = torch.cat([_reset_poses(cfg, scene, e=30),
                        raycast.cull_probe_poses(30, 5)]).reshape(3, 20, 16)
     needed = chip_smoke.needed_plain(scene, rnd, poses)

@@ -179,19 +179,23 @@ def test_directed_rounding_brackets_round_to_nearest():
     assert float(raycast._add_dir(one, tiny, False)) == 1.0
 
 
-@pytest.mark.parametrize("mxu", [False, True], ids=["k5a", "k5d"])
+@pytest.mark.parametrize("mode", [dict(), dict(mxu=True), dict(hoist=True)],
+                         ids=["k5a", "k5d", "k5c"])
 @pytest.mark.parametrize("cams, size, pool, staged", [
     (1, 50, 2, True), (2, 50, 2, True),
     (2, 200, 1, False),  # a frame over RASTER_FRAME_BYTES: written to global memory
 ], ids=["1cam", "2cam", "2cam_unpooled_200"])
-def test_raster_tables_are_in_the_kernels_layout(cams, size, pool, staged, mxu):
-    """The raster kernels index the slab kernel's ray and pixel tables (C,
-    p2, n, 4) and (C, n, 8) in their order of the pixels (column by
-    column, whether or not the frames are staged), a run table (C, ceil(n /
-    32), 4) of the rectangles of each warp's run of pixels and, K5d, its A
-    operands (C, p2, ceil(n / 32), 32, 8), all flat C-order arrays."""
+def test_raster_tables_are_in_the_kernels_layout(cams, size, pool, staged, mode):
+    """The raster kernels (K5a, K5c from its packed setups, K5d) index the
+    slab kernel's ray and pixel tables (C, p2, n, 4) and (C, n, 8) in their
+    order of the pixels (column by column, whether or not the frames are
+    staged), a run table (C, ceil(n / 32), 4) of the rectangles of each
+    warp's run of pixels and, K5d, its A operands (C, p2, ceil(n / 32), 32,
+    8), all flat C-order arrays; K5c's setup table is (R, E, C·2·22)."""
     cfg = dataclasses.replace(_config(cams, pool), render_width=size, render_height=size)
-    rnd = Renderer(cfg, "cpu", raster=True, mxu=mxu)
+    rnd = Renderer(cfg, "cpu", raster=True, **mode)
+    mxu = rnd.mxu
+    assert rnd.hoist == bool(mode.get("hoist")) and rnd.setup_width == cams * 2 * 22
     planes = rnd.planes.numpy()
     assert (rnd.frame_width <= RASTER_FRAME_BYTES) == staged
     order = raycast.slab_order(rnd.n, rnd.width)
