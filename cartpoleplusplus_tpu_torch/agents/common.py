@@ -21,12 +21,18 @@ def make_venv(config, num_envs: int, device=None, render_raster: bool | None = N
               render_recip: bool = True, render_hoist: bool = False,
               render_mxu: bool = False) -> VectorCartpole:
     """Vector env wired to the kernels, as the JAX ``make_venv`` wires its
-    Pallas kernels with the fused step on:
+    Pallas kernels with the fused step on.  Pixel configs:
 
     - reset push: K2 (``cuda_step.step_substeps``);
     - reset frame: K4 (``Renderer.render_batched``);
     - step: K1 (``cuda_step.step_repeats``) then K3
       (``Renderer.render_repeats``) over all repeats.
+
+    Low-dim configs: the reset push is K2, the reset frame
+    :func:`cartpole.observe_lowdim`, and the step one K1 launch whose
+    per-repeat poses are the frames, where the JAX
+    venv makes one K2 launch and one ``observe_lowdim`` per repeat
+    (:func:`cartpole.simulate_repeats`); the two give the same numbers.
 
     ``render_raster=None`` resolves through :func:`prefer_raster`: the
     raster mode (K5a, in both render launches) for exact configs
@@ -35,14 +41,29 @@ def make_venv(config, num_envs: int, device=None, render_raster: bool | None = N
     mode ``render_recip=False`` casts with the division-free ratio cascade
     (K5b); in the raster mode ``render_hoist`` packs the per-env setup in a
     pass of its own first (K5c) and ``render_mxu`` computes the bound planes
-    as one tensor-core product (K5d), alone or together.  Nothing falls
-    back: a kernel that fails to build or launch raises.  On a CPU device
-    each wrapper runs its plain PyTorch version.  Low-dim configs are not
-    ported yet.
+    as one tensor-core product (K5d), alone or together.  A low-dim config
+    renders nothing, and a render flag away from its default raises there.
+    Nothing falls back: a kernel that fails to build or launch raises.  On
+    a CPU device each wrapper runs its plain PyTorch version.
     """
     dev = resolve_device(device)
     if not config.use_raw_pixels:
-        raise NotImplementedError("low-dim observations are not ported yet")
+        if render_raster or not render_recip or render_hoist or render_mxu:
+            raise ValueError("render options select a render kernel; a low-dim config "
+                             "renders nothing")
+
+        def lowdim_sim_fn(scene, rigid, force):
+            rigid, poses = cuda_step.step_repeats(
+                scene, rigid, force, config.steps_per_repeat, config.action_repeats
+            )
+            # Pose columns [cart pos quat | pole pos quat | 0 0] (R, E, 16)
+            # → each repeat's observe_lowdim frame, (E, R, 2, 7).
+            r, e = poses.shape[:2]
+            return rigid, poses[..., :14].reshape(r, e, 2, 7).transpose(0, 1)
+
+        return VectorCartpole(config, num_envs, physics_fn=cuda_step.step_substeps,
+                              observe_fn=cartpole.observe_lowdim, sim_fn=lowdim_sim_fn,
+                              device=dev)
     if render_raster is None:
         render_raster = prefer_raster(config.num_cameras, config.obs_pool, config.obs_samples)
     renderer = Renderer(config, dev, raster=render_raster, recip=render_recip,

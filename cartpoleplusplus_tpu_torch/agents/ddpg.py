@@ -277,9 +277,10 @@ def adam(module: torch.nn.Module, lr: LearningRate):
 
 def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4,
                critic_lr: LearningRate = 1e-3,
-               hidden: Sequence[int] = DEFAULT_HIDDEN) -> DDPGState:
+               hidden: Sequence[int] = DEFAULT_HIDDEN, pixel_pool: int = 1) -> DDPGState:
     """Fresh training state on ``venv``'s device: networks initialised from
-    ``opts.seed`` (twin critics with ``opts.twin_critic``), targets as
+    ``opts.seed`` (twin critics with ``opts.twin_critic``; pixel encoders
+    average-pooling their frames ``pixel_pool``×``pixel_pool``), targets as
     copies, Adam optimizers, an empty replay of ``opts.replay_capacity``
     (uint8 frames for pixel configs; s2-free when it holds two blocks, and
     then it must be a multiple of the env count) and
@@ -287,7 +288,8 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     dev = venv.device
     init_gen = torch.Generator().manual_seed(opts.seed)
     kw = dict(use_raw_pixels=config.use_raw_pixels, height=config.obs_height,
-              width=config.obs_width, hidden=tuple(hidden), device=dev, generator=init_gen)
+              width=config.obs_width, hidden=tuple(hidden), pixel_pool=pixel_pool, device=dev,
+              generator=init_gen)
     actor = Actor(config.obs_shape, **kw)
     critic = (TwinCritic if getattr(opts, "twin_critic", False) else Critic)(
         config.obs_shape, **kw)

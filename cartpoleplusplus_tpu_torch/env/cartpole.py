@@ -63,6 +63,13 @@ def scene_for(config: CartpoleConfig) -> SceneParams:
     return make_scene(dt=config.dt, solver_iterations=config.solver_iterations)
 
 
+def observe_lowdim(scene: SceneParams, rigid: RigidState) -> torch.Tensor:
+    """Low-dim frames (E, 2 bodies, 7) = pos(3) + quat(4) per body, cart
+    first."""
+    del scene
+    return torch.cat([rigid.pos, rigid.quat], dim=-1)
+
+
 def action_to_force(config: CartpoleConfig, action: torch.Tensor) -> torch.Tensor:
     """Batched actions → world-frame cart forces (E, 3).
 
@@ -164,6 +171,25 @@ def reset_batched(
     return state, obs
 
 
+def simulate_repeats(
+    config: CartpoleConfig,
+    scene: SceneParams,
+    rigid: RigidState,
+    force: torch.Tensor,
+    physics_fn: PhysicsFn,
+    observe_fn: ObserveFn,
+) -> tuple[RigidState, torch.Tensor]:
+    """The per-repeat composition of the JAX ``step_batched`` (its path
+    without a ``sim_fn``): ``steps_per_repeat`` substeps by ``physics_fn``
+    then one frame by ``observe_fn``, for each repeat →
+    (rigid, obs[E, repeats, …])."""
+    frames = []
+    for _ in range(config.action_repeats):
+        rigid = physics_fn(scene, rigid, force, config.steps_per_repeat)
+        frames.append(observe_fn(scene, rigid))
+    return rigid, torch.stack(frames, dim=1)
+
+
 def step_batched(
     config: CartpoleConfig,
     scene: SceneParams,
@@ -174,8 +200,9 @@ def step_batched(
     """Batched step → (EnvState[E], obs[E, repeats, …], reward[E], done[E]).
 
     ``sim_fn`` runs every repeat's physics and frame (``make_venv`` wires
-    one physics and one render launch per step).  The JAX version's
-    per-repeat ``physics_fn``/``observe_fn`` composition is not ported.
+    one physics launch, and for pixel configs one render launch, per
+    step).  The JAX version's per-repeat composition, which it runs when
+    no ``sim_fn`` is given, is :func:`simulate_repeats`.
     """
     force = action_to_force(config, action)
     rigid, obs = sim_fn(scene, state.rigid, force)

@@ -12,17 +12,26 @@ set to 0 just before it and read just after:
 - acting at config 5 (2 cameras, obs_samples 2, slab render): a greedy DDPG
   actor with seeded random weights runs full evaluation rollouts, then
   windows of lazily auto-resetting steps, each over a second;
-- DDPG training with the bench's hyperparameters (replay 8192, batch 128,
-  20 steps per segment, Adam 1e-4/1e-3, γ 0.99, τ 0.005, warmup 0, OU
-  θ 0.15 σ 0.2) at config 5 and at the 1-camera exact row (obs_samples 0,
-  raster render, K5a), and at three rows of the render kernel's other
-  modes, each a ``make_venv`` option: config 5 with ``render_recip=False``
-  (K5b), the 1-camera exact row with ``render_hoist=True`` (K5c) and with
-  ``render_mxu=True`` (K5d); each a warm segment, then timed windows of
-  whole segments, each over a second;
+- DDPG training as the bench trains (``utils/benchmark.py``: its
+  ``build`` with its hyperparameters, replay 8192, batch 128, 20 steps per
+  segment, Adam 1e-4/1e-3, γ 0.99, τ 0.005, warmup 0, OU θ 0.15 σ 0.2;
+  one warm segment, then its timed windows and their best rate) at
+  config 5 and at the 1-camera exact row (obs_samples 0, raster render,
+  K5a), and at three rows of the render kernel's other modes, each a
+  bench flag: config 5 with ``--no-render-recip`` (K5b), the 1-camera
+  exact row with ``--raster-hoist`` (K5c) and with ``--render-mxu`` (K5d);
 - one TD3 segment at the 1-camera exact row;
+- the low-dim path at 8192 envs (the bench's fourth row, no renderer): K1's
+  frames and states byte-equal to the JAX venv's per-repeat composition run
+  through the port's kernels (K2 per repeat, then ``observe_lowdim``) on
+  the main path's reset states and on seeded states, then a training row
+  as above;
 - the card's element-op rate probe (K6): six op chains timed at N and 2N
-  iterations.
+  iterations;
+- the port's bench (``bench_torch.py``, its four-row suite, each row in a
+  child process of its own): four row lines and the summary, every row on
+  the card with its mix rate measured there, the low-dim row's metric
+  without ``_pixel_render``.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -46,7 +55,8 @@ seen by 2 cameras, the probe's seen by 1, and a frame too large to stage
 in shared memory), where K5a and K5c must also equal the plain raster byte
 for byte and K5d keep the silhouette rule against K5a and its plain
 version.  K5c's setup pass is held byte-equal to ``raycast.pack_setups``.
-Each phase prints one JSON line with the elapsed seconds; the line before
+Each phase prints one JSON line with the elapsed seconds and its own
+(``phase_s``); the line before
 the last two holds every kernel's launches, error, time, bound, registers
 and spills (every render kernel culls: its bound counts the work these
 inputs need, with the full-work bound beside it); the last line is
@@ -59,6 +69,7 @@ printing any result.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import faulthandler
 import json
@@ -66,6 +77,7 @@ import math
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -88,7 +100,8 @@ from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import (
     RASTER_FRAME_BYTES, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
-from cartpoleplusplus_tpu_torch.utils import roofline
+from cartpoleplusplus_tpu_torch.utils import benchmark, roofline
+from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
 
 WATCHDOG_S = 300
 SEED = 0
@@ -144,6 +157,13 @@ CONFIG1_UNPOOLED = CartpoleConfig(num_cameras=1, obs_samples=1, **{
 CONFIG2_EXACT_WIDE = CartpoleConfig(num_cameras=2, obs_samples=0,
                                     **{**_ROW, "render_width": 192, "render_height": 192})
 LARGE_FRAME_ENVS = 256
+# The bench's low-dim row: 8192 envs, no renderer.
+LOWDIM_ENVS = 8192
+# The bench phase runs bench_torch.py's suite as a child process: each row in
+# a child of its own, watchdogged at BENCH_ROW_TIMEOUT_S; the whole suite is
+# killed BENCH_MARGIN_S before this script's own watchdog would fire.
+BENCH_ROW_TIMEOUT_S = 60
+BENCH_MARGIN_S = 10
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -152,20 +172,20 @@ TRAIN_HP = dict(gamma=0.99, tau=0.005, batch_size=128, warmup_steps=0, steps_per
                 ou_theta=0.15, ou_sigma=0.2)
 TD3_HP = dict(twin_critic=True, policy_delay=2, target_noise=0.2, aug_shift=2,
               reward_scale=0.1, grad_clip=10.0)
-TRAIN_WINDOWS = 3
-WINDOW_MIN_S = 1.0
 # The polyak step target ← target + τ·(online − target), checked in norm.
 TARGET_STEP_RTOL = 1e-3
 _PHYS = ("step_repeats", "step_substeps")
-# (row, config, make_venv options, kernels the row must launch)
+# (row, the bench's options for it at NUM_ENVS, kernels the row must launch)
 TRAIN_ROWS = (
-    ("2cam_samples2", CONFIG5, {}, (*_PHYS, "render_repeats", "render_batched")),
-    ("1cam_exact", CONFIG1_EXACT, {}, (*_PHYS, "render_repeats_raster", "render_batched_raster")),
-    ("2cam_samples2_ratio", CONFIG5, {"render_recip": False},
+    ("2cam_samples2", dict(num_cameras=2, obs_samples=2),
+     (*_PHYS, "render_repeats", "render_batched")),
+    ("1cam_exact", dict(num_cameras=1, obs_samples=0),
+     (*_PHYS, "render_repeats_raster", "render_batched_raster")),
+    ("2cam_samples2_ratio", dict(num_cameras=2, obs_samples=2, render_recip=False),
      (*_PHYS, "render_repeats_ratio", "render_batched_ratio")),
-    ("1cam_exact_hoist", CONFIG1_EXACT, {"render_hoist": True},
+    ("1cam_exact_hoist", dict(num_cameras=1, obs_samples=0, raster_hoist=True),
      (*_PHYS, "pack_setups", "render_repeats_raster_hoist", "render_batched_raster_hoist")),
-    ("1cam_exact_mxu", CONFIG1_EXACT, {"render_mxu": True},
+    ("1cam_exact_mxu", dict(num_cameras=1, obs_samples=0, render_mxu=True),
      (*_PHYS, "render_repeats_raster_mxu", "render_batched_raster_mxu")),
 )
 # The render modes of parity_modes: (name, Renderer options, config at the
@@ -743,37 +763,37 @@ def target_step_err(t0, online, t1, tau) -> float:
     return math.sqrt(num / den) if den > 0 else math.inf
 
 
-def train_row(venv, cfg, venv_kw, row_kernels) -> tuple[dict, dict]:
-    """Train at full width: init_state, one warm segment, then
-    TRAIN_WINDOWS windows of whole segments, each over WINDOW_MIN_S; then
-    one more update outside the counted run to check the polyak step →
-    (the row's line, what the profile phase needs).  ``venv_kw``: the
-    ``make_venv`` options ``venv`` was built with, for the line."""
-    opts = SimpleNamespace(seed=SEED, replay_capacity=REPLAY_CAPACITY, twin_critic=False)
-    st = ddpg.init_state(opts, cfg, venv)
-    segment = ddpg.make_segment(venv, **TRAIN_HP)
+def bench_opts(**overrides) -> argparse.Namespace:
+    """The bench's options (its defaults: utils/benchmark.py) for one row."""
+    opts = benchmark.make_parser().parse_args([])
+    for k, v in overrides.items():
+        setattr(opts, k, v)
+    return opts
+
+
+def train_row(opts, row_kernels) -> tuple[dict, dict]:
+    """Train one bench row at full width as the bench does: its
+    ``build``, one warm segment, its timed windows and their best rate
+    (``benchmark.timed_windows``, ``best_window``); then one more update
+    outside the counted run to check the polyak step → (the row's line,
+    what the later phases need)."""
+    cfg = benchmark.bench_config(opts)
+    e = opts.num_envs
+    st, segment = benchmark.build(opts)
     actor0 = params_of(st.actor)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_launches()
     t_warm = time.monotonic()
-    warm = {k: float(v) for k, v in segment(st).items()}
+    st, warm = segment(st)
+    warm = {k: float(v) for k, v in warm.items()}
     warm_s = time.monotonic() - t_warm
-    seg_metrics, window_s, window_segs = [], [], []
-    for _ in range(TRAIN_WINDOWS):
-        t_win, n = time.monotonic(), 0
-        while True:
-            seg_metrics.append({k: float(v) for k, v in segment(st).items()})
-            n += 1
-            if time.monotonic() - t_win >= WINDOW_MIN_S:
-                break
-        window_s.append(time.monotonic() - t_win)
-        window_segs.append(n)
+    seen = []
+    st, windows = benchmark.timed_windows(segment, st, opts, seen)
     launches = dict(kernels.LAUNCHES)
     peak_mib = torch.cuda.max_memory_allocated() / 2**20
-    steps_per_seg = TRAIN_HP["steps_per_segment"]
-    rates = [NUM_ENVS * steps_per_seg * n / t for n, t in zip(window_segs, window_s)]
-    med = sorted(rates)[len(rates) // 2]
+    seg_metrics = [{k: float(v) for k, v in m.items()} for m in seen]
+    rate, _, rates = benchmark.best_window(windows, e * opts.steps_per_segment)
     actor_moved = max(float((a - b).abs().max()) for a, b in zip(actor0, params_of(st.actor)))
 
     train_once = ddpg.make_train_once(cfg, gamma=TRAIN_HP["gamma"], tau=TRAIN_HP["tau"],
@@ -799,14 +819,19 @@ def train_row(venv, cfg, venv_kw, row_kernels) -> tuple[dict, dict]:
         "target_moved_by_tau": step_err < TARGET_STEP_RTOL,
         "replay_full": st.replay.size == st.replay.capacity,
     }
+    config = dict(use_raw_pixels=False)
+    if cfg.use_raw_pixels:
+        config = dict(num_cameras=cfg.num_cameras, obs_samples=cfg.obs_samples,
+                      obs_pool=cfg.obs_pool, raster=cfg.obs_samples == 0)
     line = dict(
-        envs=NUM_ENVS, config=dict(num_cameras=cfg.num_cameras, obs_samples=cfg.obs_samples,
-                                   obs_pool=cfg.obs_pool, raster=cfg.obs_samples == 0),
-        render_options=venv_kw,
-        hyperparameters={**TRAIN_HP, "replay_capacity": REPLAY_CAPACITY},
-        warm_segment_s=warm_s, window_s=window_s, window_segments=window_segs,
-        window_env_steps_per_s=rates, env_steps_per_s=med,
-        spread=(max(rates) - min(rates)) / med, step_ms=1e3 * NUM_ENVS / med,
+        envs=e, config=config,
+        render_options={k: getattr(opts, k) for k in (
+            "render_raster", "render_recip", "raster_hoist", "render_mxu")},
+        hyperparameters={**TRAIN_HP, "replay_capacity": opts.replay_capacity},
+        warm_segment_s=warm_s, min_wall_s=opts.min_wall_s,
+        window_s=[t for _, t in windows], window_segments=[n for n, _ in windows],
+        window_env_steps_per_s=rates, env_steps_per_s=rate,
+        spread=(max(rates) - min(rates)) / rate, step_ms=1e3 * e / rate,
         mean_critic_loss=mean("critic_loss"), mean_actor_loss=mean("actor_loss"),
         mean_reward=mean("reward"), mean_done_frac=mean("done_frac"),
         double_reset_frac=mean("double_reset_frac"), warm_segment=warm,
@@ -818,16 +843,96 @@ def train_row(venv, cfg, venv_kw, row_kernels) -> tuple[dict, dict]:
     )
     if not all(checks.values()):
         raise AssertionError(f"train checks failed: {checks}")
-    return line, {"state": st, "segment": segment, "step_ms": 1e3 * NUM_ENVS / med,
-                  "launches": launches}
+    return line, {"state": st, "segment": lambda st: segment(st)[1],
+                  "step_ms": 1e3 * e / rate, "launches": launches}
 
 
-def device_events(prof) -> list:
-    """The device-side kernel and copy events of a torch.profiler trace
-    (not the spans that record_function and the optimizer draw on the
-    device timeline)."""
-    return [e for e in prof.events()
-            if str(e.device_type).endswith("CUDA") and not getattr(e, "is_user_annotation", False)]
+def bytes_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape and the same float32 bits."""
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def lowdim_parity(scene, venv, rigid, force, name: str) -> dict:
+    """The low-dim step (one K1 launch, frames read from its poses) against
+    the JAX venv's per-repeat composition run through the port's kernels
+    (K2 per repeat, then ``observe_lowdim``): frames and states byte-equal;
+    and within PHYS_ATOL of the plain composition on the CPU.  Raises where
+    one disagrees."""
+    cfg = venv.config
+    k1_rigid, k1_obs = venv.sim_fn(scene, rigid, force)
+    k2_rigid, k2_obs = cartpole.simulate_repeats(cfg, scene, rigid, force, cuda_step.step_substeps,
+                                                 cartpole.observe_lowdim)
+    byte_equal = {"frames": bytes_equal(k1_obs, k2_obs),
+                  **{f: bytes_equal(getattr(k1_rigid, f), getattr(k2_rigid, f))
+                     for f in ("pos", "quat", "vel", "ang")}}
+    cpu = lambda st: st.map(lambda x: x.cpu())
+    p_rigid, p_obs = cartpole.simulate_repeats(cfg, scene, cpu(rigid), force.cpu(),
+                                               soa.step_substeps_batched, cartpole.observe_lowdim)
+    err = max(state_err(cpu(k1_rigid), p_rigid), float((k1_obs.cpu() - p_obs).abs().max()))
+    if not all(byte_equal.values()):
+        raise AssertionError(f"{name}: K1's low-dim step is not byte-equal to K2 per repeat + "
+                             f"observe_lowdim: {byte_equal}")
+    if not err <= PHYS_ATOL:
+        raise AssertionError(f"{name}: the low-dim step is {err} off the plain composition")
+    return {"envs": rigid.pos.shape[0], "obs_shape": list(k1_obs.shape),
+            "byte_equal_to_k2_per_repeat": byte_equal, "max_abs_err_vs_plain_cpu": err}
+
+
+def run_group(argv: list, timeout_s: float, cwd: str) -> tuple[int, str, str]:
+    """Run ``argv`` in a process group of its own → (rc, stdout, stderr);
+    at ``timeout_s`` the whole group (the bench and its row children) is
+    killed and TimeoutError raised."""
+    proc = subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        raise TimeoutError(f"{argv} killed after {timeout_s:.0f} s:\n{out}\n{err[-4000:]}")
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    return proc.returncode, out, err
+
+
+def bench_check(out: str) -> tuple[list, dict, dict]:
+    """The bench suite's stdout → (row lines, summary line, checks): four
+    row lines in ROW_SPECS' order, then the summary last; every row on
+    ``cuda`` with a value > 0, its card and power limit; the low-dim row's
+    metric without ``_pixel_render``, the others with it; every ceiling the
+    row's measured mix rate over the census of its config."""
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    rows, summary = lines[:-1], lines[-1] if lines else {}
+    defaults = benchmark.make_parser().parse_args([])
+
+    def ceiling_ok(row, overrides) -> bool:
+        ns = SimpleNamespace(**{**vars(defaults), **overrides,
+                                "render_raster": row["_render_raster"]})
+        mix = row.get("_mix_ops_per_s")
+        return (isinstance(mix, float) and math.isfinite(mix) and mix > 0
+                and row["_census_ops_per_step"] == benchmark.census_ops_per_step(ns)
+                and row["ceiling"] == round(benchmark.census_ceiling(ns, mix), 1))
+
+    specs = benchmark.ROW_SPECS
+    paired = list(zip(rows, specs))
+    checks = {
+        "four_rows_then_summary": len(rows) == len(specs)
+        and [r.get("config") for r in rows] == [label for label, _, _ in specs]
+        and "rows" in summary,
+        "all_cuda": all(r.get("_backend") == "cuda" and r.get("_device")
+                        and r.get("_power_limit") for r in rows),
+        "values_positive": all(r.get("value", 0) > 0 for r in rows),
+        "lowdim_not_pixel_render": all(
+            ("_pixel_render" in r["metric"]) != bool(over.get("lowdim"))
+            for r, (_, _, over) in paired),
+        "ceilings_from_measured_mix": all(ceiling_ok(r, over) for r, (_, _, over) in paired),
+        "summary_without_error": bool(rows) and "error" not in summary
+        and summary.get("metric") == rows[0]["metric"] + specs[0][1],
+    }
+    return rows, summary, checks
 
 
 def training_profile(st, segment, step_ms: float) -> dict:
@@ -854,10 +959,7 @@ def training_profile(st, segment, step_ms: float) -> dict:
     for e in device_events(prof):
         by_name[e.name[:80]] = by_name.get(e.name[:80], 0.0) + e.time_range.elapsed_us()
     total_us = sum(by_name.values())
-    ours_us = sum(v for k, v in by_name.items()
-                  if any(n in k for n in ("render_slab_kernel", "render_raster_kernel",
-                                          "render_raster_mxu_kernel", "phys_kernel",
-                                          "pack_setups_kernel")))
+    ours_us = sum(v for k, v in by_name.items() if any(n in k for n in benchmark.PORT_KERNELS))
     per_step = lambda us: us / 1e3 / steps
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return dict(
@@ -881,10 +983,13 @@ def main() -> int:
 
 def run() -> int:
     t0 = time.monotonic()
+    last = [t0]
 
     def emit(phase: str, **fields):
-        print(json.dumps({"phase": phase, "elapsed_s": round(time.monotonic() - t0, 3),
-                          **fields}), flush=True)
+        now = time.monotonic()
+        print(json.dumps({"phase": phase, "elapsed_s": round(now - t0, 3),
+                          "phase_s": round(now - last[0], 3), **fields}), flush=True)
+        last[0] = now
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1135,13 +1240,9 @@ def run() -> int:
     launches_by_path = {"acting_2cam_samples2": launches}
 
     # 6. DDPG training at each row, full width, the bench's hyperparameters
-    trained, mode_venvs = {}, {}
-    for name, cfg, venv_kw, row_kernels in TRAIN_ROWS:
-        if venv_kw:
-            row_venv = mode_venvs[name] = make_venv(cfg, NUM_ENVS, **venv_kw)
-        else:
-            row_venv = venv if cfg is CONFIG5 else venv1
-        line, trained[name] = train_row(row_venv, cfg, venv_kw, row_kernels)
+    trained = {}
+    for name, overrides, row_kernels in TRAIN_ROWS:
+        line, trained[name] = train_row(bench_opts(num_envs=NUM_ENVS, **overrides), row_kernels)
         launches_by_path[f"train_{name}"] = line["launches"]
         emit(f"train_{name}", **line)
 
@@ -1185,6 +1286,43 @@ def run() -> int:
     if not all(td3_checks.values()):
         raise AssertionError(f"td3 checks failed: {td3_checks}")
     del td3_state, td3_segment
+
+    # 7a. the low-dim path at 8192 envs (the bench's fourth row): K1's
+    # frames and states byte-equal to K2 per repeat + observe_lowdim on the
+    # main path's reset states under a seeded actor and on seeded states,
+    # then a training row with the bench's hyperparameters.
+    opts_ld = bench_opts(lowdim=True, num_envs=LOWDIM_ENVS)
+    cfg_ld = benchmark.bench_config(opts_ld)
+    venv_ld = make_venv(cfg_ld, LOWDIM_ENVS)
+    actor_ld = Actor(cfg_ld.obs_shape, generator=torch.Generator().manual_seed(SEED))
+    state_ld, obs_ld = venv_ld.reset(torch.Generator(device=dev).manual_seed(SEED))
+    with torch.no_grad():
+        force_ld = cartpole.action_to_force(cfg_ld, actor_ld(obs_ld))
+    scene_ld = venv_ld.scene
+    ld_parity = {
+        "main_path": lowdim_parity(scene_ld, venv_ld, state_ld.rigid, force_ld, "main_path"),
+        "seeded": lowdim_parity(scene_ld, venv_ld, *parity_inputs(scene_ld, dev, LOWDIM_ENVS),
+                                "seeded"),
+    }
+    # K1 and K2 at the low-dim path's 8192 envs, launched on prepared
+    # buffers as in the kernels line.
+    packed = soa.pack_state(state_ld.rigid).contiguous()
+    state_out, force_t = torch.empty_like(packed), force_ld.t().contiguous()
+    poses_ld = torch.empty((cfg_ld.action_repeats, LOWDIM_ENVS, cuda_step.POSE_COLS),
+                           device=dev)
+    phys_p = cuda_step.phys_params(scene_ld)
+    ld_ms = {
+        "step_repeats": time_ms(lambda: cuda_step.launch(
+            phys_p, packed, force_t, state_out, poses_ld, cfg_ld.action_repeats,
+            cfg_ld.steps_per_repeat), reps=50),
+        "step_substeps": time_ms(lambda: cuda_step.launch(
+            phys_p, packed, force_t, state_out, None, 1, cfg_ld.initial_force_steps),
+            reps=50),
+    }
+    line, trained["lowdim"] = train_row(opts_ld, _PHYS)
+    launches_by_path["train_lowdim"] = line["launches"]
+    emit("lowdim", parity=ld_parity, kernel_ms_8192_envs=ld_ms, **line)
+    del state_ld, obs_ld
 
     # 7b. the card's element-op rate (K6): each chain against its plain
     # version, then timed at N and 2N iterations
@@ -1353,6 +1491,8 @@ def run() -> int:
                     cull["training_end"]["k3"]["skipped_cast_share"])
             if name in other_errs:
                 rows[-1]["other_max_abs_err"] = other_errs[name]
+            if name in ld_ms:
+                rows[-1]["ms_lowdim_8192_envs"] = ld_ms[name]
             if name == "pack_setups":
                 # The floor of a launch: the same kernel on one (repeat, env).
                 rows[-1]["floor_ms"] = time_ms(raw["pack_setups_one"], reps=50)
@@ -1387,6 +1527,19 @@ def run() -> int:
          device_busy_share=device_step_ms and device_step_ms / step_ms,
          device_kernels=len(device_ms), top_device_ms_per_step=dict(top),
          training=training)
+
+    # 10. the port's bench: bench_torch.py's suite in a child process, the
+    # four rows of the JAX bench, each in a child of its own.
+    argv = [sys.executable, "bench_torch.py", "--row-timeout", str(BENCH_ROW_TIMEOUT_S),
+            "--row-attempts", "1"]
+    budget = WATCHDOG_S - (time.monotonic() - t0) - BENCH_MARGIN_S
+    rc, out, err = run_group(argv, budget, os.path.dirname(os.path.abspath(__file__)))
+    bench_rows, summary, bench_checks = bench_check(out)
+    bench_checks["exit_0"] = rc == 0
+    emit("bench", argv=argv[1:], rc=rc, rows=bench_rows,
+         summary={k: v for k, v in summary.items() if k != "rows"}, checks=bench_checks)
+    if not all(bench_checks.values()):
+        raise AssertionError(f"bench checks failed: {bench_checks}\n{err[-4000:]}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

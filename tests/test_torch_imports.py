@@ -1,5 +1,6 @@
-"""The port stands alone: it never imports JAX or the JAX package, and its
-entry points refuse to fall back to the CPU quietly."""
+"""The port stands alone: it never imports JAX or the JAX package (nor do
+chip_smoke.py and bench_torch.py), and its entry points refuse to fall back
+to the CPU quietly."""
 
 import os
 import subprocess
@@ -29,6 +30,7 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import bench_torch
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
@@ -43,7 +45,7 @@ def test_port_never_imports_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 27  # every module was walked, utils.roofline too
+    assert int(out.stdout.split()[-1]) >= 28  # every module was walked, utils.benchmark too
 
 
 _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_pool=2,
@@ -103,13 +105,18 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     (dict(use_raw_pixels=False), "low-dim"),
 ])
 def test_unported_configs_are_refused(kw, match):
-    """Low-dim configs need their observation, which is not ported yet.
-    The exact configs' raster mode is ported: see tests/test_torch_raster.py."""
+    """Low-dim configs are ported (tests/test_torch_lowdim.py) and render
+    nothing: a render option away from its default is refused there rather
+    than ignored, and the defaults build."""
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 
-    with pytest.raises(NotImplementedError, match=match):
-        make_venv(CartpoleConfig(**kw), 4, device="cpu")
+    cfg = CartpoleConfig(**kw)
+    for render in (dict(render_raster=True), dict(render_recip=False),
+                   dict(render_hoist=True), dict(render_mxu=True)):
+        with pytest.raises(ValueError, match=match):
+            make_venv(cfg, 4, device="cpu", **render)
+    assert make_venv(cfg, 4, device="cpu", render_raster=False).sim_fn is not None
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])
