@@ -1,20 +1,172 @@
-"""Agent wiring shared by the agents: port of the vector-env construction,
-greedy evaluation and the schedule and replay-sizing helpers of
-cartpoleplusplus_tpu.agents.common."""
+"""Agent wiring shared by the agents: port of
+cartpoleplusplus_tpu.agents.common — the CLI flag groups, the vector-env
+construction, greedy evaluation, the schedule and replay-sizing helpers,
+and the checkpoint startup (restore-if-present, ``--ckpt-best``,
+``--eval-only``).
+
+Every JAX flag is parsed with its name, default and choices.  A flag that
+asks for what the port does not have yet stops the run at startup
+(:func:`reject_unported`, naming the ROADMAP item that brings it); none is
+ignored.
+"""
 
 from __future__ import annotations
 
+import argparse
 import math
+import sys
 from typing import Callable
 
 import torch
 
 from cartpoleplusplus_tpu_torch import resolve_device
 from cartpoleplusplus_tpu_torch.env import cartpole
+from cartpoleplusplus_tpu_torch.env import config as env_config
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
 from cartpoleplusplus_tpu_torch.physics import cuda_step
 from cartpoleplusplus_tpu_torch.render import prefer_raster
 from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+from cartpoleplusplus_tpu_torch.utils import checkpoint
+
+
+def add_agent_opts(parser: argparse.ArgumentParser) -> None:
+    """Flags shared by every agent main (the JAX ``add_agent_opts``: same
+    names, defaults and choices), plus ``--device``."""
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--num-train-batches", type=int, default=200,
+                        help="number of training segments")
+    parser.add_argument("--num-envs", type=int, default=64,
+                        help="vectorized env replicas")
+    parser.add_argument("--learning-rate", type=float, default=1e-3)
+    parser.add_argument("--gamma", type=float, default=0.99, help="discount factor")
+    parser.add_argument("--eval-freq", type=int, default=20,
+                        help="segments between greedy eval rollouts")
+    parser.add_argument("--num-eval", type=int, default=16, help="episodes per eval")
+    parser.add_argument("--ckpt-dir", type=str, default=None)
+    parser.add_argument("--ckpt-freq", type=int, default=50,
+                        help="segments between checkpoints")
+    parser.add_argument("--ckpt-skip-replay", action="store_true",
+                        help="checkpoint without the replay contents; on resume the "
+                             "buffer restarts empty and re-warms before training")
+    parser.add_argument("--ckpt-best", action="store_true",
+                        help="also keep ckpt_best.pt, the state at the best eval "
+                             "episode length so far; --eval-only --ckpt-best "
+                             "restores it instead of the latest checkpoint")
+    parser.add_argument("--event-log-out", type=str, default=None,
+                        help="not ported yet: refused at startup")
+    parser.add_argument("--eval-only", action="store_true",
+                        help="restore the latest --ckpt-dir checkpoint and run the "
+                             "greedy eval without training")
+    parser.add_argument("--export-policy", type=str, default=None,
+                        help="not ported yet: refused at startup")
+    parser.add_argument("--metrics-jsonl", type=str, default=None,
+                        help="structured metrics sink")
+    parser.add_argument("--tb-dir", type=str, default=None,
+                        help="not ported yet: refused at startup")
+    parser.add_argument("--hidden", type=int, nargs="+", default=[100, 50])
+    parser.add_argument("--pixel-encoder", type=str, default="dense",
+                        choices=["dense", "conv"],
+                        help="pixel trunk: dense embedding of the flat frames, or "
+                             "the conv stack")
+    parser.add_argument("--pixel-pool", type=int, default=1,
+                        help="k×k average-pool frames inside the network, before "
+                             "its pixel encoder")
+    parser.add_argument("--pallas-physics", action="store_true",
+                        help="accepted for the JAX recipes; the port always runs "
+                             "its CUDA physics kernels on the card")
+    parser.add_argument("--pallas-render", action="store_true",
+                        help="accepted for the JAX recipes; the port always runs "
+                             "its CUDA render kernels on the card")
+    parser.add_argument("--render-raster", action="store_true", default=None,
+                        help="render by the projective raster (K5a) instead of the "
+                             "slab cascade.  Default: per config (prefer_raster: "
+                             "raster for exact configs, slab for sampled ones)")
+    parser.add_argument("--no-render-raster", dest="render_raster", action="store_false",
+                        help="force the slab cascade")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="multi-process coordinator address host:port")
+    parser.add_argument("--num-processes", type=int, default=1,
+                        help="processes in the job; above 1 is refused (not ported yet)")
+    parser.add_argument("--process-id", type=int, default=0,
+                        help="this process's rank in [0, num-processes)")
+    parser.add_argument("--device", type=str, default=None,
+                        help="torch device: CUDA unless 'cpu' is asked for (the "
+                             "kernels' plain versions run there)")
+
+
+def make_parser(description: str) -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(description=description)
+    env_config.add_opts(parser)
+    add_agent_opts(parser)
+    return parser
+
+
+def add_per_opts(parser) -> None:
+    """Prioritized-replay and n-step flags (parsed; refused at startup
+    until the replay extensions are ported)."""
+    parser.add_argument("--per", action="store_true",
+                        help="prioritized experience replay (not ported yet)")
+    parser.add_argument("--per-alpha", type=float, default=0.6,
+                        help="priority exponent (0 = uniform ablation)")
+    parser.add_argument("--per-beta0", type=float, default=0.4,
+                        help="initial importance-sampling exponent")
+    parser.add_argument("--per-eps", type=float, default=1e-2,
+                        help="priority floor added to |TD|")
+    parser.add_argument("--n-step", type=int, default=1,
+                        help="multi-step TD target (above 1: not ported yet)")
+
+
+def add_ou_anneal_opts(parser) -> None:
+    parser.add_argument("--ou-sigma-min", type=float, default=None,
+                        help="anneal OU sigma linearly down to this value over "
+                             "--ou-decay-steps vectorized env steps")
+    parser.add_argument("--ou-decay-steps", type=int, default=0,
+                        help="vectorized steps over which --ou-sigma anneals to "
+                             "--ou-sigma-min (0 = constant sigma)")
+
+
+def add_lr_schedule_opt(parser) -> None:
+    parser.add_argument("--lr-schedule", type=str, default="const",
+                        choices=["const", "cosine"],
+                        help="cosine: decay the learning rate to 2%% over the run")
+
+
+# (attribute, flag, predicate on its value, the ROADMAP item that brings it)
+UNPORTED = (
+    ("event_log_out", "--event-log-out", lambda v: v is not None,
+     "Queue 1 item 4 (the per-env AoS step, which the event log rolls)"),
+    ("export_policy", "--export-policy", lambda v: v is not None, "Queue 1 item 6 (export)"),
+    ("tb_dir", "--tb-dir", lambda v: v is not None,
+     "Queue 1 item 5 (the remaining utils: the TensorBoard half of metrics)"),
+    ("per", "--per", bool, "Queue 1 item 2 (replay extensions)"),
+    ("n_step", "--n-step", lambda v: v > 1, "Queue 1 item 2 (replay extensions)"),
+    ("use_batch_norm", "--use-batch-norm", bool,
+     "Queue 1 item 3 (other agents: batch norm comes with NAF)"),
+    ("num_devices", "--num-devices", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
+    ("num_processes", "--num-processes", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
+)
+
+
+def reject_unported(opts) -> None:
+    """Stop at startup, naming the flag and the ROADMAP.md item that ports
+    it, when ``opts`` asks for a feature the port does not have yet."""
+    for attr, flag, asked, item in UNPORTED:
+        if asked(getattr(opts, attr)):
+            raise SystemExit(f"{flag} is not ported to cartpoleplusplus_tpu_torch yet: "
+                             f"ROADMAP.md {item}")
+
+
+def resolve_render_raster(config, opts) -> bool:
+    """Resolve the ``--render-raster`` tristate on ``opts`` (None → the
+    per-config pick, :func:`prefer_raster`; always False for low-dim
+    configs unless asked for, which ``make_venv`` refuses).  The JAX
+    package also probes the raster kernel here and downgrades to the slab
+    kernel when the backend rejects it; the port does not: a raster kernel
+    that fails to build or launch is an error."""
+    if opts.render_raster is None:
+        opts.render_raster = config.use_raw_pixels and prefer_raster(
+            config.num_cameras, config.obs_pool, config.obs_samples)
+    return opts.render_raster
 
 
 def make_venv(config, num_envs: int, device=None, render_raster: bool | None = None,
@@ -106,6 +258,21 @@ def make_lr(opts, lr: float):
     return schedule
 
 
+def replay_capacity(capacity: int, block: int) -> int:
+    """The s2-free replay's capacity: trimmed down to a multiple of its
+    insertion block, as the JAX ``replay.create`` trims it (the default
+    100000 is no multiple of the default 64 envs)."""
+    if not block or capacity % block == 0:
+        return capacity
+    trimmed = (capacity // block) * block
+    if trimmed <= block:
+        raise SystemExit(f"--replay-capacity {capacity} holds fewer than two blocks of "
+                         f"{block} transitions (one per env)")
+    print(f"# replay: capacity {capacity} -> {trimmed} (multiple of insertion block {block})",
+          file=sys.stderr)
+    return trimmed
+
+
 def replay_block(opts, num_envs: int) -> int:
     """Insertion-block size for the s2-free replay: one vectorized step's
     transitions, or 0 (explicit s2) when the capacity cannot hold two
@@ -148,3 +315,52 @@ def eval_rollout(
         ep_rew = ep_rew + reward * alive
         alive = alive & ~done
     return ep_len.to(torch.float32).mean(), ep_rew.mean()
+
+
+class BestCkptKeeper:
+    """``--ckpt-best``: keep the state at the best eval so far.
+
+    ``update`` is called after every eval and writes ``ckpt_best.pt`` only
+    on improvement.  On resume the meta embedded in that file seeds the
+    gate, so a restart cannot clobber a better historical best with an
+    early worse one.  Off unless ``--ckpt-dir`` and ``--ckpt-best``."""
+
+    def __init__(self, opts):
+        self.on = bool(getattr(opts, "ckpt_dir", None) and getattr(opts, "ckpt_best", False))
+        self.best = float("-inf")
+        self._opts = opts
+        if self.on:
+            meta = checkpoint.best_meta(opts.ckpt_dir)
+            if meta is not None:
+                self.best = float(meta["eval_ep_len"])
+
+    def update(self, step: int, eval_len: float, st) -> None:
+        if self.on and eval_len > self.best:
+            self.best = eval_len
+            checkpoint.save_best(self._opts.ckpt_dir, step, eval_len, st,
+                                 skip_replay=getattr(self._opts, "ckpt_skip_replay", False))
+
+
+def restore_for_startup(opts, st):
+    """Restore-if-present: ``ckpt_best.pt`` for ``--eval-only --ckpt-best``,
+    the newest numbered checkpoint otherwise → (st, step or None)."""
+    if getattr(opts, "eval_only", False) and getattr(opts, "ckpt_best", False):
+        return checkpoint.restore_best(opts.ckpt_dir, st)
+    return checkpoint.restore_latest(opts.ckpt_dir, st)
+
+
+def run_eval_only(opts, logger, restored_step, eval_venv: VectorCartpole,
+                  act_fn: Callable[[torch.Tensor], torch.Tensor]) -> float:
+    """``--eval-only``: one greedy eval of the restored policy (generator
+    seeded from ``--seed`` + 1, as the training loop's evals are), logged as
+    an ``eval_only`` event; nothing is trained.  Nothing restored is a hard
+    error: evaluating fresh random weights would read as a regressed
+    policy."""
+    if restored_step is None:
+        raise SystemExit("--eval-only needs --ckpt-dir pointing at a restorable checkpoint")
+    gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
+    elen, erew = eval_rollout(eval_venv, act_fn, gen)
+    logger.log("eval_only", segment=restored_step, eval_ep_len=float(elen),
+               eval_ep_rew=float(erew))
+    logger.close()
+    return float(elen)

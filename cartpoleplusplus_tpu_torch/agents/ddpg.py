@@ -1,5 +1,10 @@
-"""DDPG: port of cartpoleplusplus_tpu.agents.ddpg's acting and its fused
-training segment (uniform replay; the TD3 stabilizers included).
+"""DDPG: port of cartpoleplusplus_tpu.agents.ddpg — its acting, its fused
+training segment (uniform replay; the TD3 stabilizers included) and its
+program: the JAX CLI (``add_ddpg_opts``), ``train`` with jsonl metrics,
+periodic greedy evals and checkpoints (resume, ``--ckpt-best``,
+``--ckpt-skip-replay``, ``--eval-only``), and ``main``::
+
+    python -m cartpoleplusplus_tpu_torch.agents.ddpg --use-raw-pixels ...
 
 Per env step the segment acts with µ(s) + OU noise, steps the env through
 the kernels, writes the transition into the on-device replay and, once
@@ -20,6 +25,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import sys
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -28,12 +34,16 @@ import torch.nn.functional as F
 from cartpoleplusplus_tpu_torch import resolve_device
 from cartpoleplusplus_tpu_torch.agents import common
 from cartpoleplusplus_tpu_torch.env.cartpole import EnvState
+from cartpoleplusplus_tpu_torch.env.config import config_from_opts
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic, TwinCritic
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
+from cartpoleplusplus_tpu_torch.utils import checkpoint
+from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.noise import ou_init, ou_step
 
 LearningRate = float | Callable[[int], float]
@@ -59,6 +69,50 @@ class DDPGState:
     ou_noise: torch.Tensor   # (E, 2)
     generator: torch.Generator
     env_steps: int = 0
+
+    _NETS = ("actor", "critic", "target_actor", "target_critic")
+    _OPTS = ("actor_opt", "critic_opt", "actor_sched", "critic_sched")
+    _RIGID = ("pos", "quat", "vel", "ang")
+
+    def state_dict(self) -> dict:
+        """Everything a checkpoint holds, as tensors (live references) and
+        host ints: the four networks', both optimizers' and schedules'
+        ``state_dict``s, the replay with its cursor and fill, the env
+        states, ``obs``, the OU noise, the generator's state and
+        ``env_steps``."""
+        r, e = self.replay, self.env_states
+        return {
+            **{k: getattr(self, k).state_dict() for k in self._NETS},
+            **{k: None if getattr(self, k) is None else getattr(self, k).state_dict()
+               for k in self._OPTS},
+            "replay": {"s1": r.s1, "action": r.action, "reward": r.reward, "s2": r.s2,
+                       "terminal": r.terminal, "cursor": r.cursor, "size": r.size,
+                       "block": r.block},
+            "env_states": {**{k: getattr(e.rigid, k) for k in self._RIGID},
+                           "steps": e.steps, "done": e.done},
+            "obs": self.obs, "ou_noise": self.ou_noise,
+            "generator": self.generator.get_state(), "env_steps": self.env_steps,
+        }
+
+    def load_state_dict(self, sd: dict) -> None:
+        """Restore :meth:`state_dict`'s contents in place, onto this state's
+        device."""
+        for k in self._NETS:
+            getattr(self, k).load_state_dict(sd[k])
+        for k in self._OPTS:
+            if getattr(self, k) is not None and sd[k] is not None:
+                getattr(self, k).load_state_dict(sd[k])
+        dev = self.obs.device
+        r = sd["replay"]
+        for k in ("s1", "action", "reward", "s2", "terminal"):
+            getattr(self.replay, k).copy_(r[k])
+        self.replay.cursor, self.replay.size = int(r["cursor"]), int(r["size"])
+        e = sd["env_states"]
+        self.env_states = EnvState(rigid=RigidState(**{k: e[k].to(dev) for k in self._RIGID}),
+                                   steps=e["steps"].to(dev), done=e["done"].to(dev))
+        self.obs, self.ou_noise = sd["obs"].to(dev), sd["ou_noise"].to(dev)
+        self.generator.set_state(sd["generator"])
+        self.env_steps = int(sd["env_steps"])
 
 
 def greedy_act(actor: Actor):
@@ -277,19 +331,21 @@ def adam(module: torch.nn.Module, lr: LearningRate):
 
 def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4,
                critic_lr: LearningRate = 1e-3,
-               hidden: Sequence[int] = DEFAULT_HIDDEN, pixel_pool: int = 1) -> DDPGState:
+               hidden: Sequence[int] = DEFAULT_HIDDEN, pixel_pool: int = 1,
+               pixel_encoder: str = "dense") -> DDPGState:
     """Fresh training state on ``venv``'s device: networks initialised from
     ``opts.seed`` (twin critics with ``opts.twin_critic``; pixel encoders
-    average-pooling their frames ``pixel_pool``×``pixel_pool``), targets as
-    copies, Adam optimizers, an empty replay of ``opts.replay_capacity``
-    (uint8 frames for pixel configs; s2-free when it holds two blocks, and
-    then it must be a multiple of the env count) and
-    the env reset from a device generator seeded with ``opts.seed``."""
+    of kind ``pixel_encoder``, average-pooling their frames
+    ``pixel_pool``×``pixel_pool``), targets as copies, Adam optimizers, an
+    empty replay of ``opts.replay_capacity`` (uint8 frames for pixel
+    configs; s2-free when it holds two blocks, and then trimmed to a
+    multiple of the env count, :func:`common.replay_capacity`) and the env
+    reset from a device generator seeded with ``opts.seed``."""
     dev = venv.device
     init_gen = torch.Generator().manual_seed(opts.seed)
     kw = dict(use_raw_pixels=config.use_raw_pixels, height=config.obs_height,
               width=config.obs_width, hidden=tuple(hidden), pixel_pool=pixel_pool, device=dev,
-              generator=init_gen)
+              generator=init_gen, pixel_encoder=pixel_encoder)
     actor = Actor(config.obs_shape, **kw)
     critic = (TwinCritic if getattr(opts, "twin_critic", False) else Critic)(
         config.obs_shape, **kw)
@@ -298,9 +354,10 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     gen = torch.Generator(device=dev).manual_seed(opts.seed)
     env_states, obs = venv.reset(gen)
     obs_dtype = torch.uint8 if config.use_raw_pixels else torch.float32
+    block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
-        opts.replay_capacity, config.obs_shape, (2,), obs_dtype=obs_dtype,
-        block=common.replay_block(opts, venv.num_envs), device=dev)
+        common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (2,),
+        obs_dtype=obs_dtype, block=block, device=dev)
     return DDPGState(
         actor=actor, critic=critic,
         target_actor=copy.deepcopy(actor).requires_grad_(False),
@@ -310,3 +367,140 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
         replay=replay, env_states=env_states, obs=obs,
         ou_noise=ou_init((venv.num_envs, 2), device=dev), generator=gen,
     )
+
+
+def add_ddpg_opts(parser) -> None:
+    """DDPG's flags (the JAX ``add_ddpg_opts``: same names, defaults and
+    choices)."""
+    common.add_per_opts(parser)
+    parser.add_argument("--actor-learning-rate", type=float, default=1e-4)
+    parser.add_argument("--critic-learning-rate", type=float, default=1e-3)
+    parser.add_argument("--tau", type=float, default=0.005, help="target soft-update rate")
+    parser.add_argument("--batch-size", type=int, default=128)
+    parser.add_argument("--replay-capacity", type=int, default=100000)
+    parser.add_argument("--warmup-steps", type=int, default=20,
+                        help="env steps before training starts")
+    parser.add_argument("--steps-per-segment", type=int, default=25,
+                        help="env steps per training segment")
+    parser.add_argument("--ou-theta", type=float, default=0.15)
+    parser.add_argument("--ou-sigma", type=float, default=0.2)
+    common.add_ou_anneal_opts(parser)
+    parser.add_argument("--use-batch-norm", action="store_true",
+                        help="not ported yet: refused at startup")
+    parser.add_argument("--reward-scale", type=float, default=1.0,
+                        help="scale rewards in the TD target")
+    parser.add_argument("--grad-clip", type=float, default=0.0,
+                        help="global-norm gradient clip (0 = off)")
+    common.add_lr_schedule_opt(parser)
+    parser.add_argument("--aug-shift", type=int, default=0,
+                        help="pixel-only: DrQ random shift, edge-pad frames by N px "
+                             "and crop at a random offset per replay sample")
+    parser.add_argument("--num-devices", type=int, default=1,
+                        help="devices to shard envs and replay over; above 1 is "
+                             "refused (not ported yet)")
+    parser.add_argument("--twin-critic", action="store_true",
+                        help="TD3 clipped double-Q: two critics, the TD target "
+                             "bootstraps min(Q1', Q2')")
+    parser.add_argument("--policy-delay", type=int, default=1,
+                        help="update the actor and the targets every N critic updates")
+    parser.add_argument("--target-noise", type=float, default=0.0,
+                        help="target-policy smoothing: clipped N(0, sigma) on the "
+                             "target action")
+    parser.add_argument("--target-noise-clip", type=float, default=0.5)
+
+
+def train(opts) -> float:
+    """The JAX ``train`` over the port's pieces → the last eval's mean
+    episode length.
+
+    Builds the training and eval vector envs (on the card unless
+    ``--device cpu``), the networks and :func:`init_state`, restores the
+    newest checkpoint of ``--ckpt-dir`` if there is one (and carries its
+    segment count, so numbering stays monotonic), then runs segments
+    ``start .. --num-train-batches``: a greedy eval every ``--eval-freq``
+    segments and at the last (generator seeded from ``--seed`` + 1; the
+    segment's metrics are read from the card there only), logged as a
+    ``train`` event with the JAX fields; ``ckpt_<segment>`` every
+    ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
+    ``--ckpt-best``.  ``--eval-only`` evaluates the restored policy
+    instead of training.  Flags the port lacks stop it at startup.  The
+    eval venv renders with the training venv's cast mode (the JAX CLI's
+    eval venv takes the per-config pick whatever ``--render-raster`` says;
+    the two agree unless that flag overrides the pick)."""
+    common.reject_unported(opts)
+    dev = resolve_device(opts.device)
+    config = config_from_opts(opts, discrete_actions=False)
+    raster = common.resolve_render_raster(config, opts)
+    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
+    logger = MetricsLogger(opts.metrics_jsonl)
+    st = init_state(opts, config, venv,
+                    actor_lr=common.make_lr(opts, opts.actor_learning_rate),
+                    critic_lr=common.make_lr(opts, opts.critic_learning_rate),
+                    hidden=opts.hidden, pixel_pool=opts.pixel_pool,
+                    pixel_encoder=opts.pixel_encoder)
+    start_segment, restored = 0, None
+    if opts.ckpt_dir:
+        st, restored = common.restore_for_startup(opts, st)
+        if restored is not None:
+            start_segment = restored
+            logger.log("restore", step=restored)
+    act = greedy_act(st.actor)
+    if opts.eval_only:
+        return common.run_eval_only(opts, logger, restored, eval_venv, act)
+
+    segment = make_segment(
+        venv, gamma=opts.gamma, tau=opts.tau, batch_size=opts.batch_size,
+        warmup_steps=opts.warmup_steps, steps_per_segment=opts.steps_per_segment,
+        ou_theta=opts.ou_theta, ou_sigma=opts.ou_sigma, ou_sigma_min=opts.ou_sigma_min,
+        ou_decay_steps=opts.ou_decay_steps, reward_scale=opts.reward_scale,
+        aug_shift=opts.aug_shift, twin_critic=opts.twin_critic,
+        policy_delay=opts.policy_delay, target_noise=opts.target_noise,
+        target_noise_clip=opts.target_noise_clip, grad_clip=opts.grad_clip)
+    gen = torch.Generator(device=dev).manual_seed(opts.seed + 1)
+    best = common.BestCkptKeeper(opts)
+    final_eval = 0.0
+    for i in range(start_segment, opts.num_train_batches):
+        metrics = segment(st)
+        if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == opts.num_train_batches:
+            elen, erew = common.eval_rollout(eval_venv, act, gen)
+            final_eval = float(elen)
+            best.update(i + 1, final_eval, st)
+            logger.log(
+                "train",
+                segment=i + 1,
+                env_steps=st.env_steps * venv.num_envs,
+                critic_loss=float(metrics["critic_loss"]),
+                actor_loss=float(metrics["actor_loss"]),
+                mean_reward=float(metrics["reward"]),
+                double_reset_frac=float(metrics["double_reset_frac"]),
+                eval_ep_len=float(elen),
+                eval_ep_rew=float(erew),
+            )
+        if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
+            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
+    if opts.ckpt_dir:
+        checkpoint.save(opts.ckpt_dir, max(opts.num_train_batches, start_segment), st,
+                        skip_replay=opts.ckpt_skip_replay)
+    logger.close()
+    return final_eval
+
+
+def make_parser():
+    parser = common.make_parser("DDPG agent on cartpole++ (PyTorch/CUDA port)")
+    add_ddpg_opts(parser)
+    return parser
+
+
+def main(argv=None) -> float:
+    opts = make_parser().parse_args(argv)
+    print(f"OPTS {vars(opts)}", file=sys.stderr)
+    return train(opts)
+
+
+if __name__ == "__main__":
+    # Re-enter through the canonical module, so this run's classes are the
+    # ones every other module imports (as the JAX CLI does).
+    from cartpoleplusplus_tpu_torch.agents.ddpg import main as _main
+
+    _main()

@@ -1,12 +1,13 @@
 """Environment configuration: a copy of cartpoleplusplus_tpu.env.config.
 
 Kept as a copy rather than an import because the JAX package's ``env``
-package imports jax.  Field defaults and checks are identical; the argparse
-helpers are not ported yet.
+package imports jax.  Field defaults and checks are identical, and so are
+the argparse helpers (``add_opts``: the JAX flags, defaults and choices).
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 
 # Reward calculation modes (reference: --reward-calc).
@@ -98,3 +99,59 @@ class CartpoleConfig:
     @property
     def num_actions(self) -> int:
         return NUM_DISCRETE_ACTIONS if self.discrete_actions else 2
+
+
+def add_opts(parser: argparse.ArgumentParser) -> None:
+    """Register the env flags (the JAX ``add_opts``: same names, defaults
+    and choices)."""
+    parser.add_argument("--action-force", type=float, default=50.0,
+                        help="magnitude of cart push force (N)")
+    parser.add_argument("--initial-force", type=float, default=55.0,
+                        help="magnitude of random push at reset (N)")
+    parser.add_argument("--action-repeats", type=int, default=3,
+                        help="observation frames captured per env step")
+    parser.add_argument("--steps-per-repeat", type=int, default=5,
+                        help="physics substeps per observation frame")
+    parser.add_argument("--max-episode-len", type=int, default=200,
+                        help="episode step cap")
+    parser.add_argument("--reward-calc", type=str, default=REWARD_FIXED,
+                        choices=list(REWARD_CALCS))
+    parser.add_argument("--use-raw-pixels", action="store_true",
+                        help="observe camera renders instead of poses")
+    parser.add_argument("--render-width", type=int, default=50)
+    parser.add_argument("--render-height", type=int, default=50)
+    parser.add_argument("--num-cameras", type=int, default=1, choices=[1, 2])
+    parser.add_argument("--obs-pool", type=int, default=1,
+                        help="k×k average-pool rendered frames inside the render "
+                             "kernel; observations, replay and policy input carry "
+                             "the pooled frames")
+    parser.add_argument("--obs-samples", type=int, default=0,
+                        help="sub-pixel samples shaded per pooled obs pixel "
+                             "(0 = all obs-pool², the exact average; 2 = "
+                             "quincunx; 1 = point sample)")
+    parser.add_argument("--pos-threshold", type=float, default=2.0)
+    parser.add_argument("--angle-threshold", type=float, default=0.3)
+    parser.add_argument("--solver-iters", type=int, default=3,
+                        help="Jacobi contact-solver iterations per physics substep")
+
+
+def config_from_opts(opts: argparse.Namespace, discrete_actions: bool) -> CartpoleConfig:
+    """Build a CartpoleConfig from parsed args (the JAX ``config_from_opts``)."""
+    return CartpoleConfig(
+        discrete_actions=discrete_actions,
+        action_force=opts.action_force,
+        initial_force=opts.initial_force,
+        action_repeats=opts.action_repeats,
+        steps_per_repeat=opts.steps_per_repeat,
+        max_episode_len=opts.max_episode_len,
+        reward_calc=opts.reward_calc,
+        use_raw_pixels=opts.use_raw_pixels,
+        render_width=opts.render_width,
+        render_height=opts.render_height,
+        num_cameras=opts.num_cameras,
+        obs_pool=getattr(opts, "obs_pool", 1),
+        obs_samples=getattr(opts, "obs_samples", 0),
+        pos_threshold=opts.pos_threshold,
+        angle_threshold=opts.angle_threshold,
+        solver_iterations=getattr(opts, "solver_iters", 3),
+    )

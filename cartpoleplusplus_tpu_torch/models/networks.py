@@ -21,20 +21,26 @@ def final_layer_init(layer: nn.Linear, generator: torch.Generator | None = None,
             p.copy_((torch.rand(p.shape, generator=generator) * 2.0 - 1.0) * scale)
 
 
-def lecun_init(layer: nn.Linear, generator: torch.Generator | None = None) -> None:
-    """Normal weights of std 1/√fan_in and zero bias (flax Dense's default
-    up to the truncation of its normal)."""
+def lecun_init(layer: nn.Linear | nn.Conv2d, generator: torch.Generator | None = None) -> None:
+    """Normal weights of std 1/√fan_in and zero bias (flax Dense's and
+    Conv's default up to the truncation of its normal)."""
+    fan_in = math.prod(layer.weight.shape[1:])
     with torch.no_grad():
-        layer.weight.copy_(
-            torch.randn(layer.weight.shape, generator=generator) / math.sqrt(layer.in_features)
-        )
+        layer.weight.copy_(torch.randn(layer.weight.shape, generator=generator) / math.sqrt(fan_in))
         layer.bias.zero_()
+
+
+def _init_hidden(modules, generator: torch.Generator | None) -> None:
+    for m in modules:
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            lecun_init(m, generator)
 
 
 class Actor(nn.Module):
     """Deterministic policy µ(s): encoder → Dense → tanh, actions in [-1, 1]².
 
-    ``obs_shape``: per-env observation shape, e.g. ``config.obs_shape``.
+    ``obs_shape``: per-env observation shape, e.g. ``config.obs_shape``;
+    ``pixel_encoder``: "dense" or "conv" (:class:`ObsEncoder`).
     Parameters are float32, drawn on the CPU from ``generator`` (the global
     RNG when None) and moved to ``device`` (default CUDA).  The encoder
     computes in bfloat16, the head in float32.
@@ -44,15 +50,14 @@ class Actor(nn.Module):
                  use_raw_pixels: bool = False, pixel_pool: int = 1,
                  height: int = 50, width: int = 50,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
         super().__init__()
         dev = resolve_device(device)
         self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
-                                  pixel_pool=pixel_pool, height=height, width=width)
+                                  pixel_pool=pixel_pool, height=height, width=width,
+                                  pixel_encoder=pixel_encoder)
         self.mu = nn.Linear(hidden[-1], action_dim)
-        for m in self.encoder.modules():
-            if isinstance(m, nn.Linear):
-                lecun_init(m, generator)
+        _init_hidden(self.encoder.modules(), generator)
         final_layer_init(self.mu, generator)
         self.to(dev)
 
@@ -74,16 +79,15 @@ class Critic(nn.Module):
                  use_raw_pixels: bool = False, pixel_pool: int = 1,
                  height: int = 50, width: int = 50,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
         super().__init__()
         dev = resolve_device(device)
         self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
-                                  pixel_pool=pixel_pool, height=height, width=width)
+                                  pixel_pool=pixel_pool, height=height, width=width,
+                                  pixel_encoder=pixel_encoder)
         self.head = MLPTrunk(hidden[-1] + action_dim, (hidden[-1],))
         self.q = nn.Linear(hidden[-1], 1)
-        for m in (*self.encoder.modules(), *self.head.modules()):
-            if isinstance(m, nn.Linear):
-                lecun_init(m, generator)
+        _init_hidden((*self.encoder.modules(), *self.head.modules()), generator)
         final_layer_init(self.q, generator)
         self.to(dev)
 

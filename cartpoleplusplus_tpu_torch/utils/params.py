@@ -1,7 +1,9 @@
-"""Parameter conversion from the JAX package's flax trees.
+"""Parameter conversion from the JAX package's flax trees, and the reader
+of a JAX DDPG checkpoint.
 
-Takes plain numpy (a flax params tree converted with ``np.asarray``), so
-neither the port nor the card needs flax.
+Takes plain numpy (a flax params tree converted with ``np.asarray``, or
+read by :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`), so neither
+the port nor the card needs flax.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from collections.abc import Mapping
 
 import numpy as np
 import torch
+
+from cartpoleplusplus_tpu_torch.utils import flax_msgpack
 
 
 def _linear(tree, prefix: str) -> dict[str, torch.Tensor]:
@@ -21,11 +25,25 @@ def _linear(tree, prefix: str) -> dict[str, torch.Tensor]:
     }
 
 
+def _conv(tree, prefix: str) -> dict[str, torch.Tensor]:
+    """flax Conv {kernel (H, W, in, out), bias (out,)} → Conv2d {weight
+    (out, in, H, W), bias}."""
+    kernel = np.asarray(tree["kernel"], np.float32).transpose(3, 2, 0, 1)
+    return {
+        f"{prefix}.weight": torch.from_numpy(np.array(kernel, order="C")),
+        f"{prefix}.bias": torch.from_numpy(np.asarray(tree["bias"], np.float32).copy()),
+    }
+
+
 def _encoder(enc, prefix: str) -> dict[str, torch.Tensor]:
     """flax ``ObsEncoder_0`` → ``{prefix}encoder.*``."""
     out = {}
     if "pixel_embed" in enc:
         out.update(_linear(enc["pixel_embed"], f"{prefix}encoder.pixel_embed"))
+    if "ConvTrunk_0" in enc:
+        convs = enc["ConvTrunk_0"]
+        for i in range(len(convs)):
+            out.update(_conv(convs[f"conv{i}"], f"{prefix}encoder.conv_trunk.convs.{i}"))
     trunk = enc["MLPTrunk_0"]
     for i in range(len(trunk)):
         out.update(_linear(trunk[f"hidden{i}"], f"{prefix}encoder.trunk.hidden.{i}"))
@@ -36,9 +54,11 @@ def actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
     """flax ``Actor`` params (with or without the top-level ``"params"``)
     → a state_dict for :class:`cartpoleplusplus_tpu_torch.models.networks.Actor`.
 
-    Maps ``ObsEncoder_0/pixel_embed`` → ``encoder.pixel_embed``,
-    ``ObsEncoder_0/MLPTrunk_0/hidden{i}`` → ``encoder.trunk.hidden.{i}`` and
-    ``mu`` → ``mu``.
+    Maps ``ObsEncoder_0/pixel_embed`` → ``encoder.pixel_embed`` (dense
+    pixel encoder), ``ObsEncoder_0/ConvTrunk_0/conv{i}`` →
+    ``encoder.conv_trunk.convs.{i}`` (conv pixel encoder; HWIO kernels become
+    OIHW), ``ObsEncoder_0/MLPTrunk_0/hidden{i}`` →
+    ``encoder.trunk.hidden.{i}`` and ``mu`` → ``mu``.
     """
     if "params" in tree:
         tree = tree["params"]
@@ -76,3 +96,36 @@ def _index_tree(tree, i: int):
     if isinstance(tree, Mapping):
         return {k: _index_tree(v, i) for k, v in tree.items()}
     return np.asarray(tree)[i]
+
+
+def ddpg_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX DDPG trainer (``ckpt_<step>.msgpack``, flax
+    msgpack of its ``DDPGState``) → the port's pieces, on the CPU:
+
+    - ``actor``, ``critic``, ``target_actor``, ``target_critic``:
+      ``state_dict``s for :class:`Actor` and :class:`Critic` (or
+      :class:`TwinCritic`, for twin-stacked critic trees) built with the
+      checkpoint's encoder, trunk widths and observation shape;
+    - ``env_states``: ``{"pos", "quat", "vel", "ang"}`` (E, 2, ·) float32,
+      ``"steps"`` (E,) int32 and ``"done"`` (E,) bool tensors;
+    - ``obs``: the carried observations (E, *obs_shape) as stored (uint8
+      frames for pixel runs);
+    - ``env_steps``: the vectorized step counter, an int.
+
+    Read with :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`, so
+    neither flax nor msgpack is needed.  The optimizer states, the replay
+    and the RNG key are not carried over.
+    """
+    raw = flax_msgpack.load(path)
+    env = raw["env_states"]
+    tensor = lambda a: torch.from_numpy(np.array(a))
+    return {
+        "actor": actor_params_from_flax(raw["actor_params"]),
+        "critic": critic_params_from_flax(raw["critic_params"]),
+        "target_actor": actor_params_from_flax(raw["target_actor_params"]),
+        "target_critic": critic_params_from_flax(raw["target_critic_params"]),
+        "env_states": {**{k: tensor(v) for k, v in env["rigid"].items()},
+                       "steps": tensor(env["steps"]), "done": tensor(env["done"])},
+        "obs": tensor(raw["obs"]),
+        "env_steps": int(raw["env_steps"]),
+    }

@@ -11,7 +11,7 @@ set to 0 just before it and read just after:
 
 - acting at config 5 (2 cameras, obs_samples 2, slab render): a greedy DDPG
   actor with seeded random weights runs full evaluation rollouts, then
-  windows of lazily auto-resetting steps, each over a second;
+  windows of lazily auto-resetting steps, each over half a second;
 - DDPG training as the bench trains (``utils/benchmark.py``: its
   ``build`` with its hyperparameters, replay 8192, batch 128, 20 steps per
   segment, Adam 1e-4/1e-3, γ 0.99, τ 0.005, warmup 0, OU θ 0.15 σ 0.2;
@@ -31,7 +31,25 @@ set to 0 just before it and read just after:
 - the port's bench (``bench_torch.py``, its four-row suite, each row in a
   child process of its own): four row lines and the summary, every row on
   the card with its mix rate measured there, the low-dim row's metric
-  without ``_pixel_render``.
+  without ``_pixel_render``;
+- the conv pixel encoder (``conv``): the JAX pixel-TD3 checkpoint
+  (an xz copy of ``runs/ckpt_pixels_td3/ckpt_15000.msgpack`` in
+  ``chip_inputs/``, its bytes checked by sha256, read by
+  ``utils/params.ddpg_params_from_jax_checkpoint``) in a conv actor and
+  twin critic on the card against the same modules on the CPU, on the
+  checkpoint's 512 observations (25×25×18 NHWC → 512 → (100, 50)), within
+  the bf16 bound 2e-2, each timed;
+- the cross-load (``crossload``): that actor's greedy eval on a 64-env
+  venv of the recipe's config (2 cameras, exact: K5a) over 5 generator
+  seeds, beside the JAX run's recorded final and the JAX package's own
+  eval of the checkpoint on the CPU;
+- the DDPG program (``ddpg_cli``): ``ddpg.main`` in-process at config 5
+  with the TD3 stabilizers and the conv encoder, 4096 envs: 2 segments, a
+  resume to 4, a ``--ckpt-skip-replay`` save and resume, ``--eval-only``
+  on the latest and the best checkpoint; finite losses, the JAX jsonl
+  fields, monotonic env steps and checkpoint numbers, restored networks
+  byte-equal to the saved ones, the eval-only eval equal to a fresh eval
+  of the in-memory actor.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -71,8 +89,11 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import faulthandler
+import hashlib
 import json
+import lzma
 import math
 import os
 import re
@@ -80,6 +101,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -87,21 +109,22 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import ddpg
+from cartpoleplusplus_tpu_torch.agents import common, ddpg
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
-from cartpoleplusplus_tpu_torch.models.networks import Actor
+from cartpoleplusplus_tpu_torch.models.networks import Actor, TwinCritic
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import (
     RASTER_FRAME_BYTES, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
-from cartpoleplusplus_tpu_torch.utils import benchmark, roofline
+from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, roofline
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
+from cartpoleplusplus_tpu_torch.utils.params import ddpg_params_from_jax_checkpoint
 
 WATCHDOG_S = 300
 SEED = 0
@@ -112,7 +135,7 @@ RAGGED_ENVS = 4097     # K1/K2 parity at a count that is not a multiple of 32
 PROBE_POSES = 4096     # raycast.cull_probe_poses: poses chosen to break K3's cull
 SIM_ONLY_WINDOWS = 3
 EVAL_ROLLOUTS = 3
-SIM_ONLY_STEPS = 700  # per window: over a second at 1.6-1.9 ms per step
+SIM_ONLY_STEPS = 350  # per window: over half a second at 1.6-1.9 ms per step
 PROFILE_STEPS = 20
 # Published H100 SXM peaks: HBM bandwidth and float32 (non-tensor-core)
 # rate; the non-tensor-core bfloat16 rate is twice the float32 one
@@ -164,6 +187,39 @@ LOWDIM_ENVS = 8192
 # killed BENCH_MARGIN_S before this script's own watchdog would fire.
 BENCH_ROW_TIMEOUT_S = 60
 BENCH_MARGIN_S = 10
+
+# The JAX package's pixel-TD3 checkpoint (scripts/pixel_td3_artifacts.sh: 2
+# cameras, obs_pool 2, the conv encoder, twin critics; 512 envs' obs), read
+# by the conv and crossload phases from an xz copy of
+# runs/ckpt_pixels_td3/ckpt_15000.msgpack: runs/ stays out of chip copies, and
+# a copy of 9 MiB would take the copy past its size limit.  Its decompressed
+# bytes must have the checkpoint's sha256 (tests/test_torch_conv.py pins both).
+# The recipe's config is CONFIG2_EXACT.
+TD3_CKPT = os.path.join("chip_inputs", "ckpt_pixels_td3_15000.msgpack.xz")
+TD3_CKPT_SHA256 = "b25b20ab53614cd00c8843cade2c73c29eaa59cdb02dd23ad84c5a77f5e28f78"
+TD3_NET = dict(use_raw_pixels=True, height=25, width=25, pixel_encoder="conv")
+CONV_ATOL = 2e-2  # bf16 bound of tests/test_torch_slice.py (actions and Q)
+CROSSLOAD_ENVS = 64
+CROSSLOAD_SEEDS = 5
+# The JAX references for the cross-loaded policy's greedy eval: the TPU
+# run's recorded final eval (runs/ddpg_pixels_td3_art.jsonl, segment 15000)
+# and the JAX package's own greedy eval of the same checkpoint on the CPU,
+# 5 keys × 64 envs, XLA raster (scripts/jax_td3_eval_cpu.py, kept in
+# runs/jax_td3_eval_cpu.jsonl); the port's mean should lie in that range
+# widened by CROSSLOAD_WIDEN steps.
+JAX_RECORDED_TD3 = {"eval_ep_len": 162.578125, "eval_ep_rew": 162.25}
+JAX_CPU_TD3_LENS = (171.59375, 180.328125, 185.453125, 162.671875, 182.671875)
+CROSSLOAD_WIDEN = 10.0
+# The DDPG CLI at config 5, full width (ddpg_cli phase); the TD3 recipe's
+# stabilizers and its conv encoder.
+CLI_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --num-envs 4096 "
+            "--replay-capacity 8192 --batch-size 128 --steps-per-segment 20 --warmup-steps 1 "
+            "--num-eval 64 --eval-freq 2 --twin-critic --policy-delay 2 --target-noise 0.2 "
+            "--aug-shift 2 --pixel-encoder conv --ckpt-freq 1").split()
+TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "critic_loss", "actor_loss",
+                "mean_reward", "double_reset_frac", "eval_ep_len", "eval_ep_rew"]
+EVENT_FIELDS = {"train": TRAIN_FIELDS, "restore": ["ts", "elapsed_s", "event", "step"],
+                "eval_only": ["ts", "elapsed_s", "event", "segment", "eval_ep_len", "eval_ep_rew"]}
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -763,10 +819,19 @@ def target_step_err(t0, online, t1, tau) -> float:
     return math.sqrt(num / den) if den > 0 else math.inf
 
 
+# The training rows' and the bench phase's timed windows, cut from the
+# bench's defaults (3 windows of 5 segments, each at least 0.5 s) to fit the
+# watchdog: 2 windows of 2 segments, each at least 0.25 s.  Their rates are
+# the bench's own measure at a smaller depth; bench_torch.py's suite run at
+# its defaults gives the rows' numbers (PERF.md §5).
+SMOKE_WINDOWS = dict(segments=2, bench_windows=2, min_wall_s=0.25)
+
+
 def bench_opts(**overrides) -> argparse.Namespace:
-    """The bench's options (its defaults: utils/benchmark.py) for one row."""
+    """The bench's options (its defaults: utils/benchmark.py, with the
+    smoke's windows) for one row."""
     opts = benchmark.make_parser().parse_args([])
-    for k, v in overrides.items():
+    for k, v in {**SMOKE_WINDOWS, **overrides}.items():
         setattr(opts, k, v)
     return opts
 
@@ -971,6 +1036,235 @@ def training_profile(st, segment, step_ms: float) -> dict:
         learner_share_of_device=learner_us / total_us if total_us and spans else None,
         top_device_ms_per_step={k: per_step(v) for k, v in top},
     )
+
+
+def load_td3_checkpoint(root: str, work: str) -> dict:
+    """The TD3 checkpoint through ``ddpg_params_from_jax_checkpoint``, from
+    its xz copy decompressed into ``work``; its bytes checked by sha256."""
+    path = os.path.join(root, TD3_CKPT)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path} is absent: the conv and crossload phases read it")
+    with lzma.open(path) as f:
+        data = f.read()
+    digest = hashlib.sha256(data).hexdigest()
+    if digest != TD3_CKPT_SHA256:
+        raise AssertionError(f"{path} decompresses to sha256 {digest}, not the checkpoint's")
+    out = os.path.join(work, "ckpt_15000.msgpack")
+    with open(out, "wb") as f:
+        f.write(data)
+    return ddpg_params_from_jax_checkpoint(out)
+
+
+def conv_check(td3: dict, dev) -> tuple[dict, Actor]:
+    """The conv actor and twin critic with the TD3 checkpoint's weights on
+    the card against the same modules on the CPU, on its 512 obs."""
+    nets = {}
+    for where in ("cpu", dev):
+        actor = Actor(CONFIG2_EXACT.obs_shape, device=where, **TD3_NET)
+        critic = TwinCritic(CONFIG2_EXACT.obs_shape, device=where, **TD3_NET)
+        actor.load_state_dict(td3["actor"])
+        critic.load_state_dict(td3["critic"])
+        nets[str(where)] = (actor, critic)
+    (actor_c, critic_c), (actor_g, critic_g) = nets["cpu"], nets[str(dev)]
+    obs_c = td3["obs"]
+    obs_g = obs_c.to(dev)
+    with torch.no_grad():
+        a_c = actor_c(obs_c)
+        a_g = actor_g(obs_g)
+        q_c = critic_c(obs_c, a_c)
+        a_in = a_c.to(dev)
+        q_g = critic_g(obs_g, a_in)
+        actor_ms = time_ms(lambda: actor_g(obs_g), reps=50)
+        critic_ms = time_ms(lambda: critic_g(obs_g, a_in), reps=50)
+    errs = {"actions": float((a_g.cpu() - a_c).abs().max()),
+            "q1": float((q_g[0].cpu() - q_c[0]).abs().max()),
+            "q2": float((q_g[1].cpu() - q_c[1]).abs().max())}
+    checks = {f"{k}_within_bound": v <= CONV_ATOL for k, v in errs.items()}
+    checks["finite"] = bool(torch.isfinite(a_g).all() and torch.isfinite(q_g).all())
+    nhwc = (CONFIG2_EXACT.obs_height, CONFIG2_EXACT.obs_width,
+            CONFIG2_EXACT.obs_shape[1] * CONFIG2_EXACT.action_repeats
+            // (CONFIG2_EXACT.obs_height * CONFIG2_EXACT.obs_width))
+    line = dict(envs=int(obs_c.shape[0]), nhwc=nhwc, trunk_in=actor_g.encoder.conv_trunk.out_features,
+                bound=CONV_ATOL, max_abs_err=errs, actor_ms=actor_ms, twin_critic_ms=critic_ms,
+                max_abs_action=float(a_c.abs().max()), max_abs_q=float(q_c.abs().max()),
+                checks=checks)
+    return line, actor_g
+
+
+def crossload_eval(actor, dev) -> tuple[dict, dict]:
+    """Greedy evals of the cross-loaded TD3 actor on a 64-env venv of the
+    recipe's config (exact: prefer_raster gives K5a), one per generator
+    seed."""
+    venv = make_venv(CONFIG2_EXACT, CROSSLOAD_ENVS, device=dev)
+    act = greedy_act(actor)
+    per_seed = []
+    kernels.reset_launches()
+    for seed in range(CROSSLOAD_SEEDS):
+        t = time.monotonic()
+        mean_len, mean_rew = eval_rollout(venv, act, torch.Generator(device=dev).manual_seed(seed))
+        per_seed.append({"seed": seed, "mean_len": float(mean_len), "mean_rew": float(mean_rew),
+                         "eval_s": time.monotonic() - t})
+    launches = dict(kernels.LAUNCHES)
+    lens = [p["mean_len"] for p in per_seed]
+    mean_len = sum(lens) / len(lens)
+    lo, hi = min(JAX_CPU_TD3_LENS) - CROSSLOAD_WIDEN, max(JAX_CPU_TD3_LENS) + CROSSLOAD_WIDEN
+    checks = {
+        "finite": all(math.isfinite(p[k]) for p in per_seed for k in ("mean_len", "mean_rew")),
+        "episode_len_in_range": all(1.0 <= v <= CONFIG2_EXACT.max_episode_len for v in lens),
+        "raster_launched": all(launches[k] > 0 for k in (
+            "step_repeats", "step_substeps", "render_repeats_raster", "render_batched_raster")),
+        "slab_not_launched": launches["render_repeats"] == 0 and launches["render_batched"] == 0,
+    }
+    line = dict(envs=CROSSLOAD_ENVS, per_seed=per_seed, mean_len=mean_len, min_len=min(lens),
+                max_len=max(lens),
+                mean_rew=sum(p["mean_rew"] for p in per_seed) / len(per_seed),
+                jax_recorded_final=JAX_RECORDED_TD3, jax_cpu_eval_lens=JAX_CPU_TD3_LENS,
+                jax_cpu_mean_len=sum(JAX_CPU_TD3_LENS) / len(JAX_CPU_TD3_LENS),
+                jax_cpu_range_widened=(lo, hi), within_jax_cpu_range_widened=lo <= mean_len <= hi,
+                launches=launches, checks=checks)
+    return line, launches
+
+
+@contextlib.contextmanager
+def patched(obj, name: str, make):
+    """Replace ``obj.name`` by ``make(original)`` for the block."""
+    real = getattr(obj, name)
+    setattr(obj, name, make(real))
+    try:
+        yield
+    finally:
+        setattr(obj, name, real)
+
+
+def net_state(st) -> dict:
+    """Host copies of the four networks' parameters of a DDPGState."""
+    return {k: {n: t.detach().cpu().clone() for n, t in getattr(st, k).state_dict().items()}
+            for k in ("actor", "critic", "target_actor", "target_critic")}
+
+
+def nets_equal(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k][n].view(torch.uint8), b[k][n].view(torch.uint8))
+               for k in a for n in a[k])
+
+
+def read_jsonl(path: str) -> list:
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
+def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
+    """``ddpg.main`` in-process at config 5 full width: 2 segments; a resume
+    to 4 (both with --ckpt-best); a --ckpt-skip-replay save and resume;
+    --eval-only on the latest and on --ckpt-best.  Spies on checkpoint.save/restore_latest (the
+    networks at each save and after each restore), make_segment and
+    eval_rollout (their seconds)."""
+    ckpt_dir, lean_dir = os.path.join(work, "ckpt"), os.path.join(work, "lean")
+    metrics, lean_metrics = os.path.join(work, "m.jsonl"), os.path.join(work, "lean.jsonl")
+    saved, restored, seg_s, eval_s = {}, [], [], []
+
+    def spy_save(real):
+        def save(d, step, tree, skip_replay=False):
+            saved[(d, step)] = net_state(tree)
+            return real(d, step, tree, skip_replay)
+        return save
+
+    def spy_restore(real):
+        def restore(d, target):
+            out, step = real(d, target)
+            if step is not None:
+                restored.append((d, step, net_state(out), out.replay.size))
+            return out, step
+        return restore
+
+    def spy_segment(real):
+        def make(*a, **kw):
+            segment = real(*a, **kw)
+
+            def timed(st):
+                t = time.monotonic()
+                out = segment(st)
+                torch.cuda.synchronize()
+                seg_s.append(time.monotonic() - t)
+                return out
+            return timed
+        return make
+
+    def spy_eval(real):
+        def timed(*a, **kw):
+            t = time.monotonic()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            eval_s.append(time.monotonic() - t)
+            return out
+        return timed
+
+    def run(d, jsonl, n, *extra):
+        return ddpg.main([*CLI_ARGV, "--ckpt-dir", d, "--metrics-jsonl", jsonl,
+                          "--num-train-batches", str(n), *extra])
+
+    kernels.reset_launches()
+    with patched(checkpoint, "save", spy_save), \
+            patched(checkpoint, "restore_latest", spy_restore), \
+            patched(ddpg, "make_segment", spy_segment), patched(common, "eval_rollout", spy_eval):
+        run(ckpt_dir, metrics, 2, "--ckpt-best")
+        first = {n: os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt")) for n in (1, 2)}
+        run(ckpt_dir, metrics, 4, "--ckpt-best")
+        files_after_resume = sorted(os.listdir(ckpt_dir))
+        run(lean_dir, lean_metrics, 2, "--ckpt-skip-replay")
+        lean_raw = checkpoint.load_raw(lean_dir, 2)
+        run(lean_dir, lean_metrics, 3, "--ckpt-skip-replay")
+        n_eval = len(eval_s)
+        eval_latest = run(ckpt_dir, metrics, 4, "--eval-only")
+        eval_best = run(ckpt_dir, metrics, 4, "--eval-only", "--ckpt-best")
+    launches = dict(kernels.LAUNCHES)
+    # A fresh eval of the in-memory actor at its last save, same generator seed.
+    actor = Actor(CONFIG5.obs_shape, device=dev, **TD3_NET)
+    actor.load_state_dict(saved[(ckpt_dir, 4)]["actor"])
+    fresh_len, fresh_rew = eval_rollout(make_venv(CONFIG5, 64, device=dev), greedy_act(actor),
+                                        torch.Generator(device=dev).manual_seed(SEED + 1))
+    events, lean_events = read_jsonl(metrics), read_jsonl(lean_metrics)
+    trains = [e for e in events if e["event"] == "train"]
+    evals = [e for e in events if e["event"] == "eval_only"]
+    best = checkpoint.best_meta(ckpt_dir)
+    resume = {(d, step): (nets, size) for d, step, nets, size in restored}
+    checks = {
+        "losses_finite": all(math.isfinite(e[k]) for e in trains + [
+            e for e in lean_events if e["event"] == "train"] for k in ("critic_loss", "actor_loss")),
+        "jax_field_sets": all(list(e) == EVENT_FIELDS[e["event"]] for e in events + lean_events),
+        "events": [e["event"] for e in events] == [
+            "train", "restore", "train", "restore", "eval_only", "restore", "eval_only"],
+        "env_steps_monotonic": [e["env_steps"] for e in trains] == [
+            s * 20 * NUM_ENVS for s in (2, 4)],
+        "resume_numbering": files_after_resume == [
+            "ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt",
+            "ckpt_best.pt.json"] and all(
+            os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt")) == t
+            for n, t in first.items()),
+        "restored_equals_saved": nets_equal(resume[(ckpt_dir, 2)][0], saved[(ckpt_dir, 2)])
+        and nets_equal(resume[(lean_dir, 2)][0], saved[(lean_dir, 2)]),
+        "full_replay_restored": resume[(ckpt_dir, 2)][1] == 8192,
+        "skip_replay_file_empty": tuple(lean_raw["replay"]["s1"].shape) == (0,)
+        and lean_raw["replay"]["size"] == 0,
+        "skip_replay_restores_empty": resume[(lean_dir, 2)][1] == 0,
+        "skip_replay_resume_trained": [e["segment"] for e in lean_events if e["event"] == "train"]
+        == [2, 3],
+        "eval_only_latest": evals[0]["segment"] == 4
+        and (evals[0]["eval_ep_len"], evals[0]["eval_ep_rew"]) == (float(fresh_len),
+                                                                  float(fresh_rew))
+        and eval_latest == evals[0]["eval_ep_len"],
+        "eval_only_best": best is not None and evals[1]["segment"] == best["step"]
+        and eval_best == evals[1]["eval_ep_len"],
+        "slab_kernels_launched": all(launches[k] > 0 for k in (
+            "step_repeats", "step_substeps", "render_repeats", "render_batched")),
+    }
+    train_evals = eval_s[:n_eval]
+    line = dict(argv=CLI_ARGV, segments_run=len(seg_s),
+                segment_s=seg_s, mean_segment_s=sum(seg_s[1:]) / max(len(seg_s) - 1, 1),
+                eval_s=eval_s, mean_eval_s=sum(train_evals) / max(len(train_evals), 1),
+                train_events=trains, eval_only_events=evals,
+                fresh_eval={"eval_ep_len": float(fresh_len), "eval_ep_rew": float(fresh_rew)},
+                best_meta=best, launches=launches, checks=checks)
+    return line, launches
 
 
 def main() -> int:
@@ -1531,7 +1825,8 @@ def run() -> int:
     # 10. the port's bench: bench_torch.py's suite in a child process, the
     # four rows of the JAX bench, each in a child of its own.
     argv = [sys.executable, "bench_torch.py", "--row-timeout", str(BENCH_ROW_TIMEOUT_S),
-            "--row-attempts", "1"]
+            "--row-attempts", "1", *(f"--{k.replace('_', '-')}={v}" for k, v in
+                                     SMOKE_WINDOWS.items())]
     budget = WATCHDOG_S - (time.monotonic() - t0) - BENCH_MARGIN_S
     rc, out, err = run_group(argv, budget, os.path.dirname(os.path.abspath(__file__)))
     bench_rows, summary, bench_checks = bench_check(out)
@@ -1540,6 +1835,41 @@ def run() -> int:
          summary={k: v for k, v in summary.items() if k != "rows"}, checks=bench_checks)
     if not all(bench_checks.values()):
         raise AssertionError(f"bench checks failed: {bench_checks}\n{err[-4000:]}")
+
+    # 11. the conv pixel encoder at the TD3 recipe's shape (25×25×18 NHWC →
+    # 512 → (100, 50)) with the JAX checkpoint's weights, card against CPU
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        td3 = load_td3_checkpoint(root, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    line, td3_actor = conv_check(td3, dev)
+    emit("conv", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"conv checks failed: {line['checks']}")
+
+    # 12. the cross-loaded TD3 policy's greedy eval on the card (K5a)
+    line, launches_by_path["crossload_td3"] = crossload_eval(td3_actor, dev)
+    emit("crossload", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"crossload checks failed: {line['checks']}")
+    del td3, td3_actor
+
+    # 13. the DDPG program: ddpg.main at config 5, full width (K1-K4)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        line, launches_by_path["ddpg_cli"] = ddpg_cli(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("ddpg_cli", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"ddpg_cli checks failed: {line['checks']}")
+    for row in rows:
+        for path in ("crossload_td3", "ddpg_cli"):
+            n = launches_by_path[path].get(row["name"], 0)
+            row["launches_by_path"][path] = n
+            row["launches"] += n
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,0 +1,160 @@
+"""The port's DDPG CLI against the JAX package's: the same flags, defaults
+and choices (``vars(opts)`` equal for the recipes' argv, the port adding
+only ``--device``), the same ``CartpoleConfig`` from them, and every flag
+whose feature the port lacks refused at startup with the ROADMAP item that
+brings it.
+"""
+
+import dataclasses
+import re
+import shlex
+
+import pytest
+import torch
+
+from cartpoleplusplus_tpu.agents import common as jcommon
+from cartpoleplusplus_tpu.agents import ddpg as jddpg
+from cartpoleplusplus_tpu.env.config import config_from_opts as jconfig_from_opts
+from cartpoleplusplus_tpu_torch.agents import common, ddpg
+from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig, config_from_opts
+
+# scripts/pixel_td3_artifacts.sh (the pixel TD3 recipe), scripts/chip_queue.sh's
+# ddpg_it3_learn, and tests/test_learning.py's test_ddpg_improves (_SMOKE).
+TD3_ARTIFACTS = """--use-raw-pixels --num-cameras 2 --obs-pool 2 --pixel-encoder conv
+  --num-envs 512 --num-eval 64 --eval-freq 500
+  --steps-per-segment 25 --batch-size 256 --replay-capacity 65536
+  --warmup-steps 40 --num-train-batches 15000
+  --actor-learning-rate 1e-4 --critic-learning-rate 3e-4 --lr-schedule cosine
+  --reward-scale 0.1 --grad-clip 10 --aug-shift 2
+  --ou-sigma-min 0.05 --ou-decay-steps 250000
+  --twin-critic --policy-delay 2 --target-noise 0.2
+  --pallas-render
+  --ckpt-dir runs/ckpt_pixels_td3 --ckpt-freq 5000 --ckpt-skip-replay
+  --event-log-out runs/ddpg_pixels_td3_eval.events
+  --seed 0 --metrics-jsonl runs/ddpg_pixels_td3_art.jsonl"""
+IT3_LEARN = """--solver-iters 3
+  --num-envs 128 --num-eval 64 --eval-freq 100
+  --steps-per-segment 25 --batch-size 256 --replay-capacity 131072
+  --warmup-steps 40 --num-train-batches 1500
+  --reward-scale 0.1 --grad-clip 10
+  --seed 0 --metrics-jsonl runs/ddpg_it3_s0.jsonl"""
+SMOKE = """--num-train-batches 60 --reward-scale 0.1 --grad-clip 10.0
+  --num-envs 32 --num-eval 32 --action-repeats 2 --steps-per-repeat 3
+  --max-episode-len 60 --eval-freq 20 --steps-per-segment 25 --batch-size 64
+  --replay-capacity 4096 --warmup-steps 10 --seed 0"""
+ARGVS = {"td3_artifacts": TD3_ARTIFACTS, "it3_learn": IT3_LEARN, "smoke": SMOKE, "defaults": "",
+         "every_env_flag": """--action-force 40 --initial-force 50 --action-repeats 2
+           --steps-per-repeat 4 --max-episode-len 150 --reward-calc angle_action
+           --use-raw-pixels --render-width 48 --render-height 48 --num-cameras 2
+           --obs-pool 4 --obs-samples 3 --pos-threshold 1.5 --angle-threshold 0.25
+           --solver-iters 5 --no-render-raster --pallas-physics --hidden 64 32 16
+           --pixel-pool 2 --ckpt-best --eval-only --coordinator h:1 --process-id 0
+           --per-alpha 0.5 --per-beta0 0.3 --per-eps 0.02 --tau 0.01 --ou-theta 0.2
+           --ou-sigma 0.3 --learning-rate 3e-4 --gamma 0.98 --target-noise-clip 0.4"""}
+
+
+def _jax_opts(argv):
+    parser = jcommon.make_parser("t")
+    jddpg.add_ddpg_opts(parser)
+    return parser.parse_args(argv)
+
+
+@pytest.mark.parametrize("name", sorted(ARGVS))
+def test_parser_matches_jax(name):
+    argv = shlex.split(ARGVS[name])
+    want = vars(_jax_opts(argv))
+    got = vars(ddpg.make_parser().parse_args(argv))
+    assert got.pop("device") is None
+    assert got == want
+
+
+def test_parser_choices_match_jax():
+    def choices(parser):
+        return {a.dest: (a.option_strings, a.choices, a.nargs, a.type) for a in parser._actions
+                if a.dest not in ("help", "device")}
+
+    parser = jcommon.make_parser("t")
+    jddpg.add_ddpg_opts(parser)
+    assert choices(ddpg.make_parser()) == choices(parser)
+    port = ddpg.make_parser()
+    for argv in (["--pixel-encoder", "mlp"], ["--lr-schedule", "linear"],
+                 ["--num-cameras", "3"], ["--reward-calc", "nope"]):
+        with pytest.raises(SystemExit):
+            port.parse_args(argv)
+
+
+@pytest.mark.parametrize("name", sorted(ARGVS))
+def test_config_from_opts_matches_jax(name):
+    argv = shlex.split(ARGVS[name])
+    want = jconfig_from_opts(_jax_opts(argv), discrete_actions=False)
+    got = config_from_opts(ddpg.make_parser().parse_args(argv), discrete_actions=False)
+    assert isinstance(got, CartpoleConfig)
+    for field in dataclasses.fields(got):
+        assert getattr(got, field.name) == getattr(want, field.name), field.name
+
+
+# flag argv → the ROADMAP.md item its message must name
+UNPORTED = {
+    "--event-log-out x.events": "item 4", "--export-policy x.pt2": "item 6",
+    "--tb-dir tb": "item 5", "--per": "item 2", "--n-step 3": "item 2",
+    "--use-batch-norm": "item 3", "--num-devices 2": "item 7",
+    "--num-processes 2 --coordinator h:1": "item 7",
+}
+
+
+@pytest.mark.parametrize("flags", sorted(UNPORTED))
+def test_unported_flag_stops_at_startup(flags, tmp_path):
+    """Each refused before anything is built, on the CPU as on the card;
+    the same flags at their defaults pass."""
+    opts = ddpg.make_parser().parse_args(
+        shlex.split(flags) + ["--device", "cpu", "--metrics-jsonl", str(tmp_path / "m.jsonl")])
+    flag = flags.split()[0]
+    with pytest.raises(SystemExit, match=re.escape(flag) + r".*ROADMAP\.md Queue 1 " +
+                       UNPORTED[flags]):
+        ddpg.train(opts)
+    assert not (tmp_path / "m.jsonl").exists()
+
+
+def test_defaults_of_refused_flags_pass():
+    common.reject_unported(ddpg.make_parser().parse_args(
+        ["--n-step", "1", "--num-devices", "1", "--num-processes", "1", "--pallas-render",
+         "--pallas-physics"]))
+
+
+def test_eval_only_without_checkpoint_is_an_error(tmp_path):
+    opts = ddpg.make_parser().parse_args(
+        ["--device", "cpu", "--eval-only", "--ckpt-dir", str(tmp_path), "--num-envs", "4",
+         "--num-eval", "4", "--max-episode-len", "3"])
+    with pytest.raises(SystemExit, match="--eval-only needs --ckpt-dir"):
+        ddpg.train(opts)
+
+
+@pytest.mark.parametrize("obs_samples,expect", [(0, True), (2, False)])
+def test_render_raster_resolves_per_config(obs_samples, expect):
+    """The tristate resolves through prefer_raster for pixel configs, to
+    False for low-dim ones; an explicit flag stands."""
+    opts = ddpg.make_parser().parse_args(
+        ["--use-raw-pixels", "--num-cameras", "2", "--obs-pool", "2",
+         "--obs-samples", str(obs_samples)])
+    cfg = config_from_opts(opts, discrete_actions=False)
+    assert common.resolve_render_raster(cfg, opts) is expect and opts.render_raster is expect
+    low = ddpg.make_parser().parse_args([])
+    assert common.resolve_render_raster(config_from_opts(low, False), low) is False
+    forced = ddpg.make_parser().parse_args(["--use-raw-pixels", "--no-render-raster"])
+    assert common.resolve_render_raster(config_from_opts(forced, False), forced) is False
+
+
+def test_replay_capacity_trims_to_whole_blocks():
+    """As the JAX replay trims: the defaults (100000 at 64 envs) give 99968."""
+    assert common.replay_capacity(100000, 64) == 99968
+    assert common.replay_capacity(4096, 32) == 4096
+    assert common.replay_capacity(100, 0) == 100
+    with pytest.raises(SystemExit, match="fewer than two blocks"):
+        common.replay_capacity(100, 64)
+
+
+def test_train_refuses_cpu_fallback(monkeypatch):
+    """Without --device cpu and without CUDA, train stops before any work."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ddpg.main(["--num-envs", "4"])

@@ -1,6 +1,7 @@
-"""The port stands alone: it never imports JAX or the JAX package (nor do
-chip_smoke.py and bench_torch.py), and its entry points refuse to fall back
-to the CPU quietly."""
+"""The port stands alone: it never imports JAX, flax, optax, msgpack or the
+JAX package (nor do chip_smoke.py, bench_torch.py and
+scripts/torch_ddpg_it3.py), its CLI answers ``--help`` where JAX is not
+importable, and its entry points refuse to fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -11,9 +12,9 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-_IMPORT_ALL = r"""
+_REFUSE = r"""
 import importlib, importlib.abc, pkgutil, sys
-BLOCKED = ("jax", "jaxlib", "flax", "optax", "cartpoleplusplus_tpu")
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "msgpack", "cartpoleplusplus_tpu")
 for name in list(sys.modules):
     if name.split(".")[0] in BLOCKED:
         del sys.modules[name]
@@ -25,15 +26,24 @@ class Refuse(importlib.abc.MetaPathFinder):
         return None
 
 sys.meta_path.insert(0, Refuse())
+"""
+_IMPORT_ALL = _REFUSE + r"""
 import cartpoleplusplus_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
 import bench_torch
+import runpy
+runpy.run_path("scripts/torch_ddpg_it3.py", run_name="not_main")
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
+"""
+_HELP = _REFUSE + r"""
+import runpy
+sys.argv = ["ddpg", "--help"]
+runpy.run_module("cartpoleplusplus_tpu_torch.agents.ddpg", run_name="__main__", alter_sys=True)
 """
 
 
@@ -45,7 +55,21 @@ def test_port_never_imports_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 28  # every module was walked, utils.benchmark too
+    # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too
+    assert int(out.stdout.split()[-1]) >= 31
+
+
+def test_cli_help_without_jax():
+    """``python -m cartpoleplusplus_tpu_torch.agents.ddpg --help`` where
+    jax, flax, optax and msgpack cannot be imported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _HELP], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for flag in ("--pixel-encoder", "--ckpt-skip-replay", "--twin-critic", "--device",
+                 "--solver-iters", "--obs-samples"):
+        assert flag in out.stdout
 
 
 _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_pool=2,
@@ -53,10 +77,12 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
 
 
 @pytest.mark.parametrize("entry", ["make_venv", "VectorCartpole", "Actor", "resolve_device",
-                                   "make_venv_exact", "Critic", "init_state", "make_segment"])
-def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
+                                   "make_venv_exact", "Critic", "init_state", "make_segment",
+                                   "train", "main"])
+def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
-    ``init_state`` and ``make_segment`` run on their vector env's device."""
+    ``init_state`` and ``make_segment`` run on their vector env's device;
+    ``train`` and ``main`` take ``--device``."""
     from types import SimpleNamespace
 
     from cartpoleplusplus_tpu_torch import resolve_device
@@ -83,6 +109,14 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
     seg_kw = dict(gamma=0.99, tau=0.005, batch_size=4, warmup_steps=0, steps_per_segment=1,
                   ou_theta=0.15, ou_sigma=0.2)
     net_kw = dict(use_raw_pixels=True, height=25, width=25)
+    toy = ["--num-train-batches", "1", "--num-envs", "4", "--num-eval", "2", "--max-episode-len",
+           "2", "--action-repeats", "1", "--steps-per-repeat", "1", "--steps-per-segment", "1",
+           "--batch-size", "2", "--replay-capacity", "16", "--warmup-steps", "0",
+           "--metrics-jsonl", str(tmp_path / "m.jsonl")]
+
+    def cli(run, device=None):
+        argv = toy + ([] if device is None else ["--device", device])
+        return run(argv) if run is ddpg.main else run(ddpg.make_parser().parse_args(argv))
     build = {
         "make_venv": lambda **kw: make_venv(cfg, 4, **kw),
         "VectorCartpole": lambda **kw: VectorCartpole(cfg, 4, None, None, None, **kw),
@@ -92,6 +126,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch):
         "Critic": lambda **kw: Critic(cfg.obs_shape, **net_kw, **kw),
         "init_state": lambda **kw: ddpg.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
         "make_segment": lambda **kw: ddpg.make_segment(venv_on(**kw), **seg_kw),
+        "train": lambda **kw: cli(ddpg.train, **kw),
+        "main": lambda **kw: cli(ddpg.main, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
