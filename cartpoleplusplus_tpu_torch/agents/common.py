@@ -22,8 +22,10 @@ import torch
 from cartpoleplusplus_tpu_torch import resolve_device
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env import config as env_config
+from cartpoleplusplus_tpu_torch.env.cartpole import EnvState
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
 from cartpoleplusplus_tpu_torch.physics import cuda_step
+from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import prefer_raster
 from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
 from cartpoleplusplus_tpu_torch.utils import checkpoint
@@ -102,10 +104,10 @@ def make_parser(description: str) -> argparse.ArgumentParser:
 
 
 def add_per_opts(parser) -> None:
-    """Prioritized-replay and n-step flags (parsed; refused at startup
-    until the replay extensions are ported)."""
+    """Prioritized-replay and n-step flags."""
     parser.add_argument("--per", action="store_true",
-                        help="prioritized experience replay (not ported yet)")
+                        help="prioritized experience replay (proportional, with "
+                             "importance-sampling correction)")
     parser.add_argument("--per-alpha", type=float, default=0.6,
                         help="priority exponent (0 = uniform ablation)")
     parser.add_argument("--per-beta0", type=float, default=0.4,
@@ -113,7 +115,7 @@ def add_per_opts(parser) -> None:
     parser.add_argument("--per-eps", type=float, default=1e-2,
                         help="priority floor added to |TD|")
     parser.add_argument("--n-step", type=int, default=1,
-                        help="multi-step TD target (above 1: not ported yet)")
+                        help="multi-step TD target (needs the s2-free block replay)")
 
 
 def add_ou_anneal_opts(parser) -> None:
@@ -138,8 +140,6 @@ UNPORTED = (
     ("export_policy", "--export-policy", lambda v: v is not None, "Queue 1 item 6 (export)"),
     ("tb_dir", "--tb-dir", lambda v: v is not None,
      "Queue 1 item 5 (the remaining utils: the TensorBoard half of metrics)"),
-    ("per", "--per", bool, "Queue 1 item 2 (replay extensions)"),
-    ("n_step", "--n-step", lambda v: v > 1, "Queue 1 item 2 (replay extensions)"),
     ("use_batch_norm", "--use-batch-norm", bool,
      "Queue 1 item 3 (other agents: batch norm comes with NAF)"),
     ("num_devices", "--num-devices", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
@@ -149,9 +149,10 @@ UNPORTED = (
 
 def reject_unported(opts) -> None:
     """Stop at startup, naming the flag and the ROADMAP.md item that ports
-    it, when ``opts`` asks for a feature the port does not have yet."""
+    it, when ``opts`` asks for a feature the port does not have yet.  A
+    flag the agent's parser lacks is not asked for."""
     for attr, flag, asked, item in UNPORTED:
-        if asked(getattr(opts, attr)):
+        if hasattr(opts, attr) and asked(getattr(opts, attr)):
             raise SystemExit(f"{flag} is not ported to cartpoleplusplus_tpu_torch yet: "
                              f"ROADMAP.md {item}")
 
@@ -290,6 +291,23 @@ def replay_min_fill(warmup_steps: int, num_envs: int, capacity: int, n_step: int
     return max(fresh, floor)
 
 
+def check_nstep_capacity(opts, replay) -> None:
+    """The JAX ``ddpg.train``'s startup checks for ``--n-step`` > 1: the
+    replay must be s2-free (block mode) and hold at least n + 1 blocks, or
+    the window of sampleable rows degenerates (a row's n-step successor
+    unwritten, or the row itself once the stride wraps the ring)."""
+    n = getattr(opts, "n_step", 1)
+    if n <= 1:
+        return
+    if not replay.block:
+        raise SystemExit("--n-step > 1 needs the s2-free block replay (capacity must hold at "
+                         "least two num-envs blocks per device shard)")
+    if replay.capacity < (n + 1) * replay.block:
+        raise SystemExit(f"--n-step {n} needs replay capacity >= {n + 1} blocks of num-envs "
+                         f"transitions per device shard (got {replay.capacity} < "
+                         f"{(n + 1) * replay.block})")
+
+
 @torch.no_grad()
 def eval_rollout(
     venv: VectorCartpole,
@@ -364,3 +382,77 @@ def run_eval_only(opts, logger, restored_step, eval_venv: VectorCartpole,
                eval_ep_rew=float(erew))
     logger.close()
     return float(elen)
+
+
+_RIGID = ("pos", "quat", "vel", "ang")
+_REPLAY_DATA = ("s1", "action", "reward", "s2", "terminal", "priority")
+
+
+def carried_state_dict(st) -> dict:
+    """What every agent's training state carries besides its networks, as
+    checkpoint entries (live tensor references and host ints): the replay
+    with its cursor, fill and block, the env states, ``obs``, the
+    generator's state and ``env_steps``."""
+    r, e = st.replay, st.env_states
+    return {
+        "replay": {**{k: getattr(r, k) for k in _REPLAY_DATA}, "cursor": r.cursor,
+                   "size": r.size, "block": r.block},
+        "env_states": {**{k: getattr(e.rigid, k) for k in _RIGID}, "steps": e.steps,
+                       "done": e.done},
+        "obs": st.obs, "generator": st.generator.get_state(), "env_steps": st.env_steps,
+    }
+
+
+def load_carried_state(st, sd: dict) -> None:
+    """Restore :func:`carried_state_dict`'s entries into ``st`` in place,
+    onto its device."""
+    dev = st.obs.device
+    r = sd["replay"]
+    for k in _REPLAY_DATA:
+        getattr(st.replay, k).copy_(r[k])
+    st.replay.cursor, st.replay.size = int(r["cursor"]), int(r["size"])
+    e = sd["env_states"]
+    st.env_states = EnvState(rigid=RigidState(**{k: e[k].to(dev) for k in _RIGID}),
+                             steps=e["steps"].to(dev), done=e["done"].to(dev))
+    st.obs = sd["obs"].to(dev)
+    st.generator.set_state(sd["generator"])
+    st.env_steps = int(sd["env_steps"])
+
+
+def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCartpole,
+                   act_fn: Callable[[torch.Tensor], torch.Tensor], logger,
+                   metric_keys: tuple, start: int, end: int) -> float:
+    """The JAX ``train``'s loop over segments ``start .. end`` → the last
+    eval's mean episode length.  A greedy eval every ``--eval-freq``
+    segments and at the last (generator seeded from ``--seed`` + 1; the
+    segment's metrics are read from the card there only), logged as a
+    ``train`` event with the JAX fields: ``segment``, ``env_steps``, the
+    agent's ``metric_keys``, ``mean_reward``, ``double_reset_frac``,
+    ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
+    ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
+    ``--ckpt-best``.  Closes ``logger``."""
+    gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
+    best = BestCkptKeeper(opts)
+    final_eval = 0.0
+    for i in range(start, end):
+        metrics = segment(st)
+        if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == end:
+            elen, erew = eval_rollout(eval_venv, act_fn, gen)
+            final_eval = float(elen)
+            best.update(i + 1, final_eval, st)
+            logger.log(
+                "train",
+                segment=i + 1,
+                env_steps=st.env_steps * venv.num_envs,
+                **{k: float(metrics[k]) for k in metric_keys},
+                mean_reward=float(metrics["reward"]),
+                double_reset_frac=float(metrics["double_reset_frac"]),
+                eval_ep_len=float(elen),
+                eval_ep_rew=float(erew),
+            )
+        if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
+            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
+    if opts.ckpt_dir:
+        checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+    logger.close()
+    return final_eval

@@ -1,8 +1,9 @@
 """DDPG: port of cartpoleplusplus_tpu.agents.ddpg — its acting, its fused
-training segment (uniform replay; the TD3 stabilizers included) and its
-program: the JAX CLI (``add_ddpg_opts``), ``train`` with jsonl metrics,
-periodic greedy evals and checkpoints (resume, ``--ckpt-best``,
-``--ckpt-skip-replay``, ``--eval-only``), and ``main``::
+training segment (the TD3 stabilizers, prioritized replay and n-step
+returns included) and its program: the JAX CLI (``add_ddpg_opts``),
+``train`` with jsonl metrics, periodic greedy evals and checkpoints
+(resume, ``--ckpt-best``, ``--ckpt-skip-replay``, ``--eval-only``), and
+``main``::
 
     python -m cartpoleplusplus_tpu_torch.agents.ddpg --use-raw-pixels ...
 
@@ -39,10 +40,8 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic, TwinCritic
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
-from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
-from cartpoleplusplus_tpu_torch.utils import checkpoint
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.noise import ou_init, ou_step
 
@@ -72,7 +71,6 @@ class DDPGState:
 
     _NETS = ("actor", "critic", "target_actor", "target_critic")
     _OPTS = ("actor_opt", "critic_opt", "actor_sched", "critic_sched")
-    _RIGID = ("pos", "quat", "vel", "ang")
 
     def state_dict(self) -> dict:
         """Everything a checkpoint holds, as tensors (live references) and
@@ -80,18 +78,11 @@ class DDPGState:
         ``state_dict``s, the replay with its cursor and fill, the env
         states, ``obs``, the OU noise, the generator's state and
         ``env_steps``."""
-        r, e = self.replay, self.env_states
         return {
             **{k: getattr(self, k).state_dict() for k in self._NETS},
             **{k: None if getattr(self, k) is None else getattr(self, k).state_dict()
                for k in self._OPTS},
-            "replay": {"s1": r.s1, "action": r.action, "reward": r.reward, "s2": r.s2,
-                       "terminal": r.terminal, "cursor": r.cursor, "size": r.size,
-                       "block": r.block},
-            "env_states": {**{k: getattr(e.rigid, k) for k in self._RIGID},
-                           "steps": e.steps, "done": e.done},
-            "obs": self.obs, "ou_noise": self.ou_noise,
-            "generator": self.generator.get_state(), "env_steps": self.env_steps,
+            **common.carried_state_dict(self), "ou_noise": self.ou_noise,
         }
 
     def load_state_dict(self, sd: dict) -> None:
@@ -102,17 +93,8 @@ class DDPGState:
         for k in self._OPTS:
             if getattr(self, k) is not None and sd[k] is not None:
                 getattr(self, k).load_state_dict(sd[k])
-        dev = self.obs.device
-        r = sd["replay"]
-        for k in ("s1", "action", "reward", "s2", "terminal"):
-            getattr(self.replay, k).copy_(r[k])
-        self.replay.cursor, self.replay.size = int(r["cursor"]), int(r["size"])
-        e = sd["env_states"]
-        self.env_states = EnvState(rigid=RigidState(**{k: e[k].to(dev) for k in self._RIGID}),
-                                   steps=e["steps"].to(dev), done=e["done"].to(dev))
-        self.obs, self.ou_noise = sd["obs"].to(dev), sd["ou_noise"].to(dev)
-        self.generator.set_state(sd["generator"])
-        self.env_steps = int(sd["env_steps"])
+        common.load_carried_state(self, sd)
+        self.ou_noise = sd["ou_noise"].to(self.obs.device)
 
 
 def greedy_act(actor: Actor):
@@ -165,19 +147,26 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
                     reward_scale: float = 1.0, aug_shift: int = 0,
                     twin_critic: bool = False, policy_delay: int = 1,
                     target_noise: float = 0.0, target_noise_clip: float = 0.5,
-                    grad_clip: float = 0.0):
+                    grad_clip: float = 0.0, n_step: int = 1):
     """One learner update → ``train_once(st, batch, step, aug_offsets=None,
-    target_eps=None) -> (critic_loss, actor_loss)``, device scalars.
+    target_eps=None, iw=None) -> (critic_loss, actor_loss)``, device
+    scalars, or with ``iw`` ``(critic_loss, actor_loss, td_abs)``.
 
-    ``batch``: ``(s1, action, reward, s2, terminal)`` as stored;
-    ``step``: the env-step counter after this step's increment (it drives
-    ``policy_delay``).  ``aug_offsets`` (a pair of (B, 2), for s1 and s2)
-    and ``target_eps`` (standard normals of the action batch's shape) are
-    the update's random draws, from ``st.generator`` when not given.
-    Gradients stay in each parameter's ``.grad`` until the next update.
+    ``batch``: ``(s1, action, reward, s2, terminal)`` as stored, or an
+    n-step batch (n-step reward, any-terminal flag) bootstrapped with
+    ``gamma ** n_step``; ``step``: the env-step counter after this step's
+    increment (it drives ``policy_delay``).  ``aug_offsets`` (a pair of
+    (B, 2), for s1 and s2) and ``target_eps`` (standard normals of the
+    action batch's shape) are the update's random draws, from
+    ``st.generator`` when not given.  ``iw``: prioritized replay's (B,)
+    importance weights; the critic loss is then ``mean(iw·td²)`` and
+    ``td_abs`` the (B,) |TD error| (twin: its mean over the two critics)
+    for the priority write-back.  Gradients stay in each parameter's
+    ``.grad`` until the next update.
     """
 
-    def train_once(st: DDPGState, batch, step: int, aug_offsets=None, target_eps=None):
+    def train_once(st: DDPGState, batch, step: int, aug_offsets=None, target_eps=None,
+                   iw=None):
         if twin_critic != isinstance(st.critic, TwinCritic):
             raise ValueError("twin_critic does not match the state's critic")
         g = st.generator
@@ -199,29 +188,34 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
             q2 = st.target_critic(s2, a2)
             if twin_critic:
                 q2 = torch.min(q2, dim=0).values
-            y = reward_scale * r + gamma * (1.0 - term.to(torch.float32)) * q2
+            y = reward_scale * r + gamma ** n_step * (1.0 - term.to(torch.float32)) * q2
 
         # Twin: both critics regress the same target; the loss is the mean
         # over both axes, as in the JAX package.
-        q = st.critic(s1, a)
-        closs = torch.mean((q - y) ** 2)
+        td = st.critic(s1, a) - y
+        closs = torch.mean(td ** 2 if iw is None else iw * td ** 2)
         st.critic_opt.zero_grad(set_to_none=True)
         closs.backward()
         _step(st.critic_opt, st.critic_sched, st.critic.parameters(), grad_clip)
 
         if policy_delay > 1 and (step - warmup_steps - 1) % policy_delay != 0:
-            return closs.detach(), torch.zeros((), device=closs.device)
-        # The actor ascends Q1 of the updated critic.
-        mu = st.actor(s1)
-        qa = st.critic.q1(s1, mu) if twin_critic else st.critic(s1, mu)
-        aloss = -torch.mean(qa)
-        st.actor_opt.zero_grad(set_to_none=True)
-        actor_params = list(st.actor.parameters())
-        aloss.backward(inputs=actor_params)
-        _step(st.actor_opt, st.actor_sched, actor_params, grad_clip)
-        soft_target_update(st.target_actor, st.actor, tau)
-        soft_target_update(st.target_critic, st.critic, tau)
-        return closs.detach(), aloss.detach()
+            aloss = torch.zeros((), device=closs.device)
+        else:
+            # The actor ascends Q1 of the updated critic.
+            mu = st.actor(s1)
+            qa = st.critic.q1(s1, mu) if twin_critic else st.critic(s1, mu)
+            aloss = -torch.mean(qa)
+            st.actor_opt.zero_grad(set_to_none=True)
+            actor_params = list(st.actor.parameters())
+            aloss.backward(inputs=actor_params)
+            _step(st.actor_opt, st.actor_sched, actor_params, grad_clip)
+            soft_target_update(st.target_actor, st.actor, tau)
+            soft_target_update(st.target_critic, st.critic, tau)
+        losses = (closs.detach(), aloss.detach())
+        if iw is None:
+            return losses
+        td_abs = td.detach().abs()
+        return (*losses, td_abs.mean(dim=0) if twin_critic else td_abs)
 
     return train_once
 
@@ -245,6 +239,11 @@ def make_segment(
     target_noise: float = 0.0,
     target_noise_clip: float = 0.5,
     grad_clip: float = 0.0,
+    per_alpha: float | None = None,
+    per_beta0: float = 0.4,
+    per_total_steps: int = 1,
+    per_eps: float = 1e-2,
+    n_step: int = 1,
 ):
     """The K-step training segment: ``segment(st) -> metrics``, updating
     ``st`` in place.
@@ -254,7 +253,11 @@ def make_segment(
     replay s1) and materialized once at the segment's end; OU noise resets
     where an episode ended; ``env_steps`` is incremented before the train
     gate, which opens once ``env_steps > warmup_steps`` and the replay
-    holds :func:`common.replay_min_fill` transitions.
+    holds :func:`common.replay_min_fill` transitions.  ``per_alpha`` (None
+    = uniform) samples by priority (:func:`replay_mod.sample_prioritized`)
+    with the importance exponent annealed from ``per_beta0`` to 1 over
+    ``per_total_steps`` env steps, and writes each update's ``|TD| +
+    per_eps`` back; ``n_step`` > 1 trains on n-step returns.
 
     ``metrics``: device scalars averaged over the segment's steps
     (``critic_loss``, ``actor_loss``, zero on steps without an update;
@@ -267,14 +270,15 @@ def make_segment(
     train_once = make_train_once(
         config, gamma=gamma, tau=tau, warmup_steps=warmup_steps, reward_scale=reward_scale,
         aug_shift=aug_shift, twin_critic=twin_critic, policy_delay=policy_delay,
-        target_noise=target_noise, target_noise_clip=target_noise_clip, grad_clip=grad_clip)
+        target_noise=target_noise, target_noise_clip=target_noise_clip, grad_clip=grad_clip,
+        n_step=n_step)
     e = venv.num_envs
 
     def segment(st: DDPGState) -> dict:
         g, dev = st.generator, venv.device
         reset_pool = venv.reset(g)
         reset_obs = reset_pool[1]
-        min_fill = common.replay_min_fill(warmup_steps, e, st.replay.capacity)
+        min_fill = common.replay_min_fill(warmup_steps, e, st.replay.capacity, n_step)
         store = st.replay.s1.dtype
         zero = torch.zeros((), device=dev)
         closs_sum, aloss_sum, reward_sum, done_sum = zero, zero, zero, zero
@@ -296,8 +300,18 @@ def make_segment(
             st.env_steps += 1
             if st.env_steps > warmup_steps and st.replay.size >= min_fill:
                 with torch.profiler.record_function(LEARNER_SPAN):
-                    batch = replay_mod.sample(st.replay, batch_size, g)
-                    closs, aloss = train_once(st, batch, st.env_steps)
+                    if per_alpha is None:
+                        batch = replay_mod.sample(st.replay, batch_size, g, n_step=n_step,
+                                                  gamma=gamma)
+                        closs, aloss = train_once(st, batch, st.env_steps)
+                    else:
+                        beta = per_beta0 + (1.0 - per_beta0) * min(
+                            max(st.env_steps / per_total_steps, 0.0), 1.0)
+                        batch, idx, iw = replay_mod.sample_prioritized(
+                            st.replay, batch_size, per_alpha, beta, n_step=n_step, gamma=gamma,
+                            generator=g)
+                        closs, aloss, td_abs = train_once(st, batch, st.env_steps, iw=iw)
+                        replay_mod.update_priorities(st.replay, idx, td_abs, per_eps)
                 closs_sum, aloss_sum = closs_sum + closs, aloss_sum + aloss
                 updates += 1
             reward_sum = reward_sum + reward.mean()
@@ -340,7 +354,8 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     empty replay of ``opts.replay_capacity`` (uint8 frames for pixel
     configs; s2-free when it holds two blocks, and then trimmed to a
     multiple of the env count, :func:`common.replay_capacity`) and the env
-    reset from a device generator seeded with ``opts.seed``."""
+    reset from a device generator seeded with ``opts.seed``; the replay
+    keeps priorities with ``opts.per``."""
     dev = venv.device
     init_gen = torch.Generator().manual_seed(opts.seed)
     kw = dict(use_raw_pixels=config.use_raw_pixels, height=config.obs_height,
@@ -357,7 +372,7 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
         common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (2,),
-        obs_dtype=obs_dtype, block=block, device=dev)
+        obs_dtype=obs_dtype, block=block, device=dev, prioritized=getattr(opts, "per", False))
     return DDPGState(
         actor=actor, critic=critic,
         target_actor=copy.deepcopy(actor).requires_grad_(False),
@@ -417,13 +432,12 @@ def train(opts) -> float:
     ``--device cpu``), the networks and :func:`init_state`, restores the
     newest checkpoint of ``--ckpt-dir`` if there is one (and carries its
     segment count, so numbering stays monotonic), then runs segments
-    ``start .. --num-train-batches``: a greedy eval every ``--eval-freq``
-    segments and at the last (generator seeded from ``--seed`` + 1; the
-    segment's metrics are read from the card there only), logged as a
-    ``train`` event with the JAX fields; ``ckpt_<segment>`` every
-    ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
-    ``--ckpt-best``.  ``--eval-only`` evaluates the restored policy
-    instead of training.  Flags the port lacks stop it at startup.  The
+    ``start .. --num-train-batches`` with their evals, metrics and
+    checkpoints (:func:`common.train_segments`).  ``--eval-only``
+    evaluates the restored policy instead of training.  ``--per`` and ``--n-step`` select prioritized
+    replay and n-step returns; an n-step run needs the s2-free replay with
+    room for n + 1 blocks (:func:`common.check_nstep_capacity`).  Flags the
+    port lacks stop it at startup.  The
     eval venv renders with the training venv's cast mode (the JAX CLI's
     eval venv takes the per-config pick whatever ``--render-raster`` says;
     the two agree unless that flag overrides the pick)."""
@@ -439,6 +453,7 @@ def train(opts) -> float:
                     critic_lr=common.make_lr(opts, opts.critic_learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)
+    common.check_nstep_capacity(opts, st.replay)
     start_segment, restored = 0, None
     if opts.ckpt_dir:
         st, restored = common.restore_for_startup(opts, st)
@@ -456,34 +471,13 @@ def train(opts) -> float:
         ou_decay_steps=opts.ou_decay_steps, reward_scale=opts.reward_scale,
         aug_shift=opts.aug_shift, twin_critic=opts.twin_critic,
         policy_delay=opts.policy_delay, target_noise=opts.target_noise,
-        target_noise_clip=opts.target_noise_clip, grad_clip=opts.grad_clip)
-    gen = torch.Generator(device=dev).manual_seed(opts.seed + 1)
-    best = common.BestCkptKeeper(opts)
-    final_eval = 0.0
-    for i in range(start_segment, opts.num_train_batches):
-        metrics = segment(st)
-        if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == opts.num_train_batches:
-            elen, erew = common.eval_rollout(eval_venv, act, gen)
-            final_eval = float(elen)
-            best.update(i + 1, final_eval, st)
-            logger.log(
-                "train",
-                segment=i + 1,
-                env_steps=st.env_steps * venv.num_envs,
-                critic_loss=float(metrics["critic_loss"]),
-                actor_loss=float(metrics["actor_loss"]),
-                mean_reward=float(metrics["reward"]),
-                double_reset_frac=float(metrics["double_reset_frac"]),
-                eval_ep_len=float(elen),
-                eval_ep_rew=float(erew),
-            )
-        if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
-            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
-    if opts.ckpt_dir:
-        checkpoint.save(opts.ckpt_dir, max(opts.num_train_batches, start_segment), st,
-                        skip_replay=opts.ckpt_skip_replay)
-    logger.close()
-    return final_eval
+        target_noise_clip=opts.target_noise_clip, grad_clip=opts.grad_clip,
+        per_alpha=opts.per_alpha if opts.per else None, per_beta0=opts.per_beta0,
+        per_eps=opts.per_eps, per_total_steps=opts.num_train_batches * opts.steps_per_segment,
+        n_step=opts.n_step)
+    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger,
+                                 ("critic_loss", "actor_loss"), start_segment,
+                                 opts.num_train_batches)
 
 
 def make_parser():

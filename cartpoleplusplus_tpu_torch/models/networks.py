@@ -1,5 +1,6 @@
 """Agent networks: port of the DDPG ``Actor`` and ``Critic`` of
-cartpoleplusplus_tpu.models.networks, and the TD3 twin critic."""
+cartpoleplusplus_tpu.models.networks, the TD3 twin critic and SAC's
+``GaussianActor``."""
 
 from __future__ import annotations
 
@@ -63,6 +64,40 @@ class Actor(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return torch.tanh(self.mu(self.encoder(obs)))
+
+
+class GaussianActor(nn.Module):
+    """SAC's tanh-squashed Gaussian policy π(a|s): the :class:`Actor`'s
+    encoder, then two heads, the pre-squash mean ``mu`` and ``log_std``
+    clamped to [``log_std_min``, ``log_std_max``]; ``forward`` → (mu,
+    log_std).  Sampling and the log-prob live in ``agents/sac.py``.
+
+    Parameters as for :class:`Actor`; both heads take the final-layer init.
+    The encoder computes in bfloat16, the heads in float32.
+    """
+
+    def __init__(self, obs_shape: Sequence[int], action_dim: int = 2,
+                 use_raw_pixels: bool = False, pixel_pool: int = 1,
+                 height: int = 50, width: int = 50,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense",
+                 log_std_min: float = -20.0, log_std_max: float = 2.0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
+                                  pixel_pool=pixel_pool, height=height, width=width,
+                                  pixel_encoder=pixel_encoder)
+        self.mu = nn.Linear(hidden[-1], action_dim)
+        self.log_std = nn.Linear(hidden[-1], action_dim)
+        self.log_std_min, self.log_std_max = log_std_min, log_std_max
+        _init_hidden(self.encoder.modules(), generator)
+        final_layer_init(self.mu, generator)
+        final_layer_init(self.log_std, generator)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        h = self.encoder(obs)
+        return self.mu(h), torch.clamp(self.log_std(h), self.log_std_min, self.log_std_max)
 
 
 class Critic(nn.Module):

@@ -30,7 +30,7 @@ import torch
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
 _BEST_NAME = "ckpt_best.pt"
 _REPLAY_SIG = {"s1", "action", "reward", "s2", "terminal", "cursor", "size"}
-_REPLAY_DATA = ("s1", "action", "reward", "s2", "terminal")
+_REPLAY_DATA = ("s1", "action", "reward", "s2", "terminal", "priority")
 _LOAD_ERRORS = (OSError, RuntimeError, EOFError, pickle.UnpicklingError)
 
 
@@ -51,13 +51,14 @@ def strip_replay(tree: Any) -> Any:
     0.  The ``--ckpt-skip-replay`` mode: a pixel run's replay is hundreds
     of MB to GB and refills within capacity/num_envs steps on resume;
     cursor and size are zeroed too, or a restore would sample unwritten
-    rows."""
+    rows.  A prioritized replay's priorities go with its data."""
     if not isinstance(tree, dict):
         return tree
     if _REPLAY_SIG <= set(tree):
         out = dict(tree)
         for k in _REPLAY_DATA:
-            out[k] = torch.zeros((0,), dtype=tree[k].dtype)
+            if k in tree:
+                out[k] = torch.zeros((0,), dtype=tree[k].dtype)
         out["cursor"], out["size"] = 0, 0
         return out
     return {k: strip_replay(v) for k, v in tree.items()}

@@ -1,5 +1,5 @@
-"""Parameter conversion from the JAX package's flax trees, and the reader
-of a JAX DDPG checkpoint.
+"""Parameter conversion from the JAX package's flax trees, and the readers
+of a JAX DDPG or SAC checkpoint.
 
 Takes plain numpy (a flax params tree converted with ``np.asarray``, or
 read by :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`), so neither
@@ -65,6 +65,18 @@ def actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
     return {**_encoder(tree["ObsEncoder_0"], ""), **_linear(tree["mu"], "mu")}
 
 
+def gaussian_actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ``GaussianActor`` params (with or without the top-level
+    ``"params"``) → a state_dict for
+    :class:`~cartpoleplusplus_tpu_torch.models.networks.GaussianActor`:
+    ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and the
+    heads ``mu`` and ``log_std``."""
+    if "params" in tree:
+        tree = tree["params"]
+    return {**_encoder(tree["ObsEncoder_0"], ""), **_linear(tree["mu"], "mu"),
+            **_linear(tree["log_std"], "log_std")}
+
+
 def _critic_tree(tree, prefix: str) -> dict[str, torch.Tensor]:
     return {**_encoder(tree["ObsEncoder_0"], prefix),
             **_linear(tree["MLPTrunk_0"]["hidden0"], f"{prefix}head.hidden.0"),
@@ -98,6 +110,19 @@ def _index_tree(tree, i: int):
     return np.asarray(tree)[i]
 
 
+def _carried(raw) -> dict:
+    """The env states, observations and step counter a JAX training state
+    carries, as CPU tensors and an int."""
+    env = raw["env_states"]
+    tensor = lambda a: torch.from_numpy(np.array(a))
+    return {
+        "env_states": {**{k: tensor(v) for k, v in env["rigid"].items()},
+                       "steps": tensor(env["steps"]), "done": tensor(env["done"])},
+        "obs": tensor(raw["obs"]),
+        "env_steps": int(raw["env_steps"]),
+    }
+
+
 def ddpg_params_from_jax_checkpoint(path: str) -> dict:
     """A checkpoint of the JAX DDPG trainer (``ckpt_<step>.msgpack``, flax
     msgpack of its ``DDPGState``) → the port's pieces, on the CPU:
@@ -117,15 +142,52 @@ def ddpg_params_from_jax_checkpoint(path: str) -> dict:
     and the RNG key are not carried over.
     """
     raw = flax_msgpack.load(path)
-    env = raw["env_states"]
-    tensor = lambda a: torch.from_numpy(np.array(a))
     return {
         "actor": actor_params_from_flax(raw["actor_params"]),
         "critic": critic_params_from_flax(raw["critic_params"]),
         "target_actor": actor_params_from_flax(raw["target_actor_params"]),
         "target_critic": critic_params_from_flax(raw["target_critic_params"]),
-        "env_states": {**{k: tensor(v) for k, v in env["rigid"].items()},
-                       "steps": tensor(env["steps"]), "done": tensor(env["done"])},
-        "obs": tensor(raw["obs"]),
-        "env_steps": int(raw["env_steps"]),
+        **_carried(raw),
     }
+
+
+def sac_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX SAC trainer (flax msgpack of its
+    ``SACState``) → the port's pieces, on the CPU: ``actor`` (a
+    :class:`GaussianActor` state_dict), ``critic`` and ``target_critic``
+    (:class:`TwinCritic` state_dicts, split from the stacked leading axis
+    of 2), ``log_alpha`` (a 0-d float32 tensor), and ``env_states``,
+    ``obs`` and ``env_steps`` as :func:`ddpg_params_from_jax_checkpoint`
+    gives them.  The optimizer states, the replay and the RNG key are not
+    carried over."""
+    raw = flax_msgpack.load(path)
+    return {
+        "actor": gaussian_actor_params_from_flax(raw["actor_params"]),
+        "critic": critic_params_from_flax(raw["critic_params"]),
+        "target_critic": critic_params_from_flax(raw["target_critic_params"]),
+        "log_alpha": torch.from_numpy(np.array(raw["log_alpha"], dtype=np.float32)),
+        **_carried(raw),
+    }
+
+
+def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:
+    """A nested dict of arrays → ``{"a/b/c": array}`` by flax path."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v)
+    return out
+
+
+def unflatten_tree(flat: Mapping[str, np.ndarray]) -> dict:
+    """Inverse of :func:`flatten_tree`."""
+    out: dict = {}
+    for path, v in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return out

@@ -49,7 +49,25 @@ set to 0 just before it and read just after:
   on the latest and the best checkpoint; finite losses, the JAX jsonl
   fields, monotonic env steps and checkpoint numbers, restored networks
   byte-equal to the saved ones, the eval-only eval equal to a fresh eval
-  of the in-memory actor.
+  of the in-memory actor;
+- the SAC cross-load (``sac_crossload``): the JAX config-5 SAC checkpoint's
+  GaussianActor (its leaves in ``chip_inputs/sac_cfg5_15000_actor.npz``,
+  sha256 checked) on the card against the CPU on the eval's first
+  observations (bf16 bound), then its greedy eval on 64 envs of config 5
+  (slab: K1-K4) over 5 generator seeds, beside the JAX run's recorded
+  final and the JAX package's own eval of the checkpoint on the CPU;
+- the SAC program (``sac_cli``): ``sac.main`` in-process with the config-5
+  pixel recipe at full width (512 envs, conv encoder, replay 65536, batch
+  256) through the runs of ``ddpg_cli``, with its checks and SAC's own
+  (alpha at or above ``--alpha-min``, ``log_alpha`` and ``alpha_opt`` in
+  the checkpoint);
+- the replay extensions (``replay_ext``): ``ddpg.main`` at config 5 with
+  ``--per --n-step 3`` (replay of 4 blocks of 4096 envs, the TD3 flags of
+  ``ddpg_cli``), 2 segments; inserts carry the running max priority,
+  write-backs ``|td| + per_eps``, and on the card's own replay
+  ``sample_prioritized`` and ``nstep_batch`` equal the CPU's on the same
+  uniforms, up to indices at CDF boundaries within the two cumsums'
+  rounding gap.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -60,8 +78,9 @@ frame sizes too large to stage three repeats of in shared memory, and
 K1/K2 at 8192 envs and at 4097, a count that is not a multiple of 32;
 ``parity_training_end`` for K3 on poses from the end of the config-5
 training row, where it is also timed); torch.profiler traces of a few
-acting steps and of one training segment per row give the card's busy
-share and the learner's share of it.  On every slab pose set the cull of
+acting steps and of one training segment of config 5, the 1-camera exact
+row and the low-dim row give the card's busy share and the learner's share
+of it.  On every slab pose set the cull of
 K3/K4 and of K5b is checked where it could fail (``cull_check``: no
 skipped cast that the plain cast of the mode hits, frames byte-equal to
 the kernel's own with culling off, and K5b's byte-equal to the plain ratio
@@ -90,6 +109,7 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import dataclasses
 import faulthandler
 import hashlib
 import json
@@ -105,17 +125,18 @@ import tempfile
 import time
 from types import SimpleNamespace
 
+import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import common, ddpg
+from cartpoleplusplus_tpu_torch.agents import common, ddpg, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
-from cartpoleplusplus_tpu_torch.models.networks import Actor, TwinCritic
+from cartpoleplusplus_tpu_torch.models.networks import Actor, GaussianActor, TwinCritic
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
@@ -124,7 +145,8 @@ from cartpoleplusplus_tpu_torch.render.cuda_render import (
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, roofline
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
-from cartpoleplusplus_tpu_torch.utils.params import ddpg_params_from_jax_checkpoint
+from cartpoleplusplus_tpu_torch.utils.params import (
+    ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, unflatten_tree)
 
 WATCHDOG_S = 300
 SEED = 0
@@ -137,6 +159,13 @@ SIM_ONLY_WINDOWS = 3
 EVAL_ROLLOUTS = 3
 SIM_ONLY_STEPS = 350  # per window: over half a second at 1.6-1.9 ms per step
 PROFILE_STEPS = 20
+# Training rows split by a profiled segment (profile phase): the two main
+# rows and the low-dim one.  The render-mode rows are timed and checked in
+# their train phases; profiling them too would take the script past its
+# watchdog on a slow host.
+PROFILE_ROWS = ("2cam_samples2", "1cam_exact", "lowdim")
+# Runs of each plain version in the kernels line (after one warm-up run).
+PLAIN_REPS = 1
 # Published H100 SXM peaks: HBM bandwidth and float32 (non-tensor-core)
 # rate; the non-tensor-core bfloat16 rate is twice the float32 one
 # (NVIDIA's Hopper architecture whitepaper: 133.8 TFLOP/s).
@@ -220,6 +249,41 @@ TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "critic_loss
                 "mean_reward", "double_reset_frac", "eval_ep_len", "eval_ep_rew"]
 EVENT_FIELDS = {"train": TRAIN_FIELDS, "restore": ["ts", "elapsed_s", "event", "step"],
                 "eval_only": ["ts", "elapsed_s", "event", "segment", "eval_ep_len", "eval_ep_rew"]}
+
+# The JAX package's config-5 SAC checkpoint (BASELINE.md "Round 5: SAC
+# solves at the PRODUCTION bench config": 2 cameras, obs_pool 2, obs_samples
+# 2, conv encoder, 512 envs), its GaussianActor's leaves by flax path in an
+# npz (scripts/export_sac_actor_npz.py from
+# runs/ckpt_sac_cfg5_s0/ckpt_15000.msgpack; tests/test_torch_sac.py holds
+# it equal to the checkpoint).  Its eval config is CONFIG5 (slab: K1-K4).
+SAC_ACTOR = os.path.join("chip_inputs", "sac_cfg5_15000_actor.npz")
+SAC_ACTOR_SHA256 = "c5f49bdcee669b7a1b093a9e5c3223169089269c43f1d11f0b8cf4226c74194e"
+# The JAX references: the TPU run's recorded final eval
+# (runs/sac_cfg5_s0.jsonl, segment 15000) and the JAX package's own greedy
+# eval of the checkpoint on the CPU, 5 keys × 64 envs, XLA slab
+# (scripts/jax_sac_eval_cpu.py, kept in runs/jax_sac_eval_cpu.jsonl).
+JAX_RECORDED_SAC = {"segment": 15000, "eval_ep_len": 200.0, "eval_ep_rew": 200.0}
+JAX_CPU_SAC_LENS = (198.28125, 200.0, 197.9375, 198.59375, 198.0)
+# The SAC program at config 5 (sac_cli phase): the pixel SAC recipe
+# (scripts/chip_queue6.sh's sac_pixels_fix) at obs_samples 2, short runs.
+SAC_ENVS = 512
+SAC_ALPHA_MIN = 0.02
+SAC_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
+            f"--num-envs {SAC_ENVS} --replay-capacity 65536 --batch-size 256 "
+            "--steps-per-segment 25 --actor-learning-rate 1e-4 --critic-learning-rate 3e-4 "
+            "--lr-schedule cosine --reward-scale 0.1 --grad-clip 10 --aug-shift 2 "
+            f"--alpha-min {SAC_ALPHA_MIN} --warmup-steps 1 --num-eval 64 --eval-freq 2 "
+            "--ckpt-freq 2").split()
+SAC_TRAIN_FIELDS = TRAIN_FIELDS[:7] + ["alpha", "entropy"] + TRAIN_FIELDS[7:]
+SAC_EVENT_FIELDS = {**EVENT_FIELDS, "train": SAC_TRAIN_FIELDS}
+# Prioritized replay and 3-step returns in DDPG at config 5 (replay_ext
+# phase): ddpg_cli's TD3 flags, a replay of 4 blocks of 4096 envs, 2
+# segments; the sampler held card against CPU on REPLAY_EXT_DRAWS draws.
+REPLAY_EXT_ARGV = [*CLI_ARGV[:CLI_ARGV.index("--replay-capacity")],
+                   "--replay-capacity", "16384",
+                   *CLI_ARGV[CLI_ARGV.index("--replay-capacity") + 2:CLI_ARGV.index("--ckpt-freq")],
+                   "--per", "--n-step", "3", "--num-train-batches", "2"]
+REPLAY_EXT_DRAWS = 4096
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -1125,6 +1189,205 @@ def crossload_eval(actor, dev) -> tuple[dict, dict]:
     return line, launches
 
 
+def load_sac_actor(root: str) -> dict:
+    """The SAC checkpoint's actor leaves from their npz, its bytes checked
+    by sha256 → a GaussianActor state_dict."""
+    path = os.path.join(root, SAC_ACTOR)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path} is absent: the sac_crossload phase reads it")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if digest != SAC_ACTOR_SHA256:
+        raise AssertionError(f"{path} has sha256 {digest}, not the exported actor's")
+    with np.load(path) as z:
+        tree = unflatten_tree({k: z[k] for k in z.files})
+    return gaussian_actor_params_from_flax(tree)
+
+
+def sac_crossload(sd: dict, dev) -> tuple[dict, dict]:
+    """The config-5 SAC checkpoint's GaussianActor on the card: its (mu,
+    log_std) on the eval's first observations against the same module on
+    the CPU (bf16 bound), then greedy evals on a 64-env venv of the
+    recipe's config (slab: K1-K4), one per generator seed."""
+    actors = {}
+    for where in ("cpu", dev):
+        actors[str(where)] = GaussianActor(CONFIG5.obs_shape, device=where, **TD3_NET)
+        actors[str(where)].load_state_dict(sd)
+    actor_c, actor_g = actors["cpu"], actors[str(dev)]
+    venv = make_venv(CONFIG5, CROSSLOAD_ENVS, device=dev)
+    _, obs = venv.reset(torch.Generator(device=dev).manual_seed(0))
+    with torch.no_grad():
+        mu_g, ls_g = actor_g(obs)
+        mu_c, ls_c = actor_c(obs.cpu())
+        actor_ms = time_ms(lambda: actor_g(obs), reps=50)
+    errs = {"mu": float((mu_g.cpu() - mu_c).abs().max()),
+            "log_std": float((ls_g.cpu() - ls_c).abs().max())}
+    act = sac.greedy_act(actor_g)
+    per_seed = []
+    kernels.reset_launches()
+    for seed in range(CROSSLOAD_SEEDS):
+        t = time.monotonic()
+        mean_len, mean_rew = eval_rollout(venv, act, torch.Generator(device=dev).manual_seed(seed))
+        per_seed.append({"seed": seed, "mean_len": float(mean_len), "mean_rew": float(mean_rew),
+                         "eval_s": time.monotonic() - t})
+    launches = dict(kernels.LAUNCHES)
+    lens = [p["mean_len"] for p in per_seed]
+    mean_len = sum(lens) / len(lens)
+    lo, hi = min(JAX_CPU_SAC_LENS) - CROSSLOAD_WIDEN, max(JAX_CPU_SAC_LENS) + CROSSLOAD_WIDEN
+    checks = {
+        **{f"{k}_within_bound": v <= CONV_ATOL for k, v in errs.items()},
+        "finite": all(math.isfinite(p[k]) for p in per_seed for k in ("mean_len", "mean_rew"))
+        and bool(torch.isfinite(mu_g).all() and torch.isfinite(ls_g).all()),
+        "episode_len_in_range": all(1.0 <= v <= CONFIG5.max_episode_len for v in lens),
+        "slab_launched": all(launches[k] > 0 for k in (
+            "step_repeats", "step_substeps", "render_repeats", "render_batched")),
+        "raster_not_launched": all(v == 0 for k, v in launches.items()
+                                   if k.startswith(("render", "pack")) and k not in (
+                                       "render_repeats", "render_batched")),
+    }
+    line = dict(envs=CROSSLOAD_ENVS, bound=CONV_ATOL, max_abs_err=errs, actor_ms=actor_ms,
+                max_abs_mu=float(mu_c.abs().max()), per_seed=per_seed, mean_len=mean_len,
+                min_len=min(lens), max_len=max(lens),
+                mean_rew=sum(p["mean_rew"] for p in per_seed) / len(per_seed),
+                jax_recorded_final=JAX_RECORDED_SAC, jax_cpu_eval_lens=JAX_CPU_SAC_LENS,
+                jax_cpu_mean_len=sum(JAX_CPU_SAC_LENS) / len(JAX_CPU_SAC_LENS),
+                jax_cpu_range_widened=(lo, hi), within_jax_cpu_range_widened=lo <= mean_len <= hi,
+                launches=launches, checks=checks)
+    return line, launches
+
+
+def replay_cpu(replay):
+    """A host copy of a replay (the cursor, size and block as they are)."""
+    return dataclasses.replace(replay, **{k: getattr(replay, k).cpu() for k in (
+        "s1", "action", "reward", "s2", "terminal", "priority")})
+
+
+def sampler_check(replay, alpha: float, beta: float, n_step: int, gamma: float) -> dict:
+    """``sample_prioritized`` and ``nstep_batch`` on the card against the
+    same functions on a CPU copy of the card's replay, fed the same
+    uniforms.  Indices may differ only where a draw lies within the two
+    CDFs' rounding gap of a slot boundary (the card's cumsum associates
+    otherwise); every other index, and every gathered field at equal
+    indices, must agree exactly (the weights to float32 rounding)."""
+    dev = replay.s1.device
+    host = replay_cpu(replay)
+    u = torch.rand((REPLAY_EXT_DRAWS,), generator=torch.Generator().manual_seed(SEED))
+    (b_g, idx_g, iw_g) = replay_mod.sample_prioritized(replay, REPLAY_EXT_DRAWS, alpha, beta,
+                                                       n_step=n_step, gamma=gamma, u=u.to(dev))
+    (b_c, idx_c, iw_c) = replay_mod.sample_prioritized(host, REPLAY_EXT_DRAWS, alpha, beta,
+                                                       n_step=n_step, gamma=gamma, u=u)
+    idx_g = idx_g.cpu()
+    mask, _ = replay_mod.valid_mask(host, n_step)
+    w = torch.where(mask, host.priority ** alpha, 0.0)
+    cdf_c = torch.cumsum(w, 0)
+    cdf_g = torch.cumsum(torch.where(mask.to(dev), replay.priority ** alpha, 0.0), 0).cpu()
+    gap = float((cdf_g - cdf_c).abs().max())
+    total = float(cdf_c[-1])
+    scaled = (u * (1.0 - torch.finfo(torch.float32).eps)) * cdf_c[-1]
+    differ = (idx_g != idx_c).nonzero().flatten()
+    ulp = math.ulp(total)
+    boundary = torch.minimum(idx_g, idx_c)[differ]
+    close = (scaled[differ] - cdf_c[boundary]).abs() <= gap + 4 * ulp
+    same = idx_g == idx_c
+    fields_equal = all(torch.equal(g.cpu()[same], c[same]) for g, c in zip(b_g, b_c))
+    iw_rel = float(((iw_g.cpu() - iw_c).abs() / iw_c)[same].max())
+    nb_g = replay_mod.nstep_batch(replay, idx_c.to(dev), n_step, gamma)
+    nb_c = replay_mod.nstep_batch(host, idx_c, n_step, gamma)
+    return dict(draws=REPLAY_EXT_DRAWS, index_differences=int(differ.numel()),
+                index_differences_at_boundaries=int(close.sum()),
+                cdf_max_abs_gap=gap, cdf_total=total,
+                iw_max_rel_err=iw_rel, fields_equal_at_equal_indices=fields_equal,
+                nstep_batch_equal=all(torch.equal(g.cpu(), c) for g, c in zip(nb_g, nb_c)),
+                other_index_differences=int((~close).sum()))
+
+
+def replay_ext(dev) -> tuple[dict, dict]:
+    """``ddpg.main`` at config 5 with ``--per --n-step 3`` (replay of 4
+    blocks of 4096 envs, ddpg_cli's TD3 flags, 2 segments).  Spies on the
+    replay: each insert's rows must carry the running max priority (at
+    least 1), each write-back ``|td| + per_eps`` at the sampled rows; then
+    the sampler on the card against the CPU (:func:`sampler_check`)."""
+    states, betas, seg_s = [], [], []
+    stamp_ok, written_ok, counts = [], [], collections.Counter()
+
+    def spy_add(real):
+        def add(replay, s1, *rest):
+            if not replay.prioritized:
+                return real(replay, s1, *rest)
+            pmax = torch.clamp(replay.priority.max(), min=1.0)
+            at = replay.cursor
+            out = real(replay, s1, *rest)
+            stamp_ok.append((replay.priority[at:at + s1.shape[0]] == pmax).all())
+            counts["inserts"] += 1
+            return out
+        return add
+
+    def spy_sample(real):
+        def sample_p(replay, batch_size, alpha, beta, **kw):
+            betas.append(beta)
+            return real(replay, batch_size, alpha, beta, **kw)
+        return sample_p
+
+    def spy_update(real):
+        def update(replay, idx, td_abs, eps=1e-2, gate=None):
+            out = real(replay, idx, td_abs, eps, gate)
+            got, want = replay.priority[idx], td_abs + eps
+            written_ok.append(torch.isin(idx, idx[got == want]).all())
+            counts["write_backs"] += 1
+            return out
+        return update
+
+    def spy_segment(real):
+        def make(*a, **kw):
+            segment = real(*a, **kw)
+
+            def timed(st):
+                states.append(st)
+                t = time.monotonic()
+                out = segment(st)
+                torch.cuda.synchronize()
+                seg_s.append(time.monotonic() - t)
+                return out
+            return timed
+        return make
+
+    kernels.reset_launches()
+    with patched(replay_mod, "add_batch", spy_add), \
+            patched(replay_mod, "sample_prioritized", spy_sample), \
+            patched(replay_mod, "update_priorities", spy_update), \
+            patched(ddpg, "make_segment", spy_segment):
+        final = ddpg.main(REPLAY_EXT_ARGV)
+    launches = dict(kernels.LAUNCHES)
+    opts = ddpg.make_parser().parse_args(REPLAY_EXT_ARGV)
+    st = states[-1]
+    sampler = sampler_check(st.replay, opts.per_alpha, betas[-1], opts.n_step, opts.gamma)
+    pri = st.replay.priority
+    checks = {
+        "prioritized_replay": st.replay.prioritized and st.replay.block == NUM_ENVS
+        and st.replay.capacity == 4 * NUM_ENVS,
+        "inserts_stamp_max_priority": counts["inserts"] > 0 and bool(torch.stack(stamp_ok).all()),
+        "write_backs_are_td_plus_eps": counts["write_backs"] > 0
+        and bool(torch.stack(written_ok).all()),
+        # n = 3 excludes the newest 3 blocks: the gate opens once the ring
+        # holds 4, at step 4 of 40.
+        "updates_after_gate": counts["write_backs"] == 2 * 20 - 3,
+        "beta_anneals": betas[0] < betas[-1] <= 1.0,
+        "priorities_finite_positive": bool(torch.isfinite(pri).all() and (pri > 0).all()),
+        "eval_finite": math.isfinite(final),
+        "sampler_only_boundary_index_differences": sampler["other_index_differences"] == 0,
+        "sampler_fields_equal": sampler["fields_equal_at_equal_indices"],
+        "sampler_weights_close": sampler["iw_max_rel_err"] <= 1e-5,
+        "nstep_batch_equal": sampler["nstep_batch_equal"],
+        "slab_kernels_launched": all(launches[k] > 0 for k in (
+            "step_repeats", "step_substeps", "render_repeats", "render_batched")),
+    }
+    line = dict(argv=REPLAY_EXT_ARGV, segment_s=seg_s, final_eval=final, inserts=counts["inserts"],
+                write_backs=counts["write_backs"], beta_first=betas[0], beta_last=betas[-1],
+                priority_max=float(pri.max()), priority_min=float(pri.min()),
+                sampler=sampler, launches=launches, checks=checks)
+    return line, launches
+
+
 @contextlib.contextmanager
 def patched(obj, name: str, make):
     """Replace ``obj.name`` by ``make(original)`` for the block."""
@@ -1137,14 +1400,19 @@ def patched(obj, name: str, make):
 
 
 def net_state(st) -> dict:
-    """Host copies of the four networks' parameters of a DDPGState."""
-    return {k: {n: t.detach().cpu().clone() for n, t in getattr(st, k).state_dict().items()}
-            for k in ("actor", "critic", "target_actor", "target_critic")}
+    """Host copies of a training state's networks' parameters (and of SAC's
+    ``log_alpha``)."""
+    nets = {k: {n: t.detach().cpu().clone() for n, t in getattr(st, k).state_dict().items()}
+            for k in type(st)._NETS}
+    if hasattr(st, "log_alpha"):
+        nets["log_alpha"] = {"": st.log_alpha.detach().cpu().clone()}
+    return nets
 
 
 def nets_equal(a: dict, b: dict) -> bool:
-    return all(torch.equal(a[k][n].view(torch.uint8), b[k][n].view(torch.uint8))
-               for k in a for n in a[k])
+    return a.keys() == b.keys() and all(
+        torch.equal(a[k][n].reshape(-1).view(torch.uint8), b[k][n].reshape(-1).view(torch.uint8))
+        for k in a for n in a[k])
 
 
 def read_jsonl(path: str) -> list:
@@ -1152,12 +1420,13 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
-    """``ddpg.main`` in-process at config 5 full width: 2 segments; a resume
-    to 4 (both with --ckpt-best); a --ckpt-skip-replay save and resume;
-    --eval-only on the latest and on --ckpt-best.  Spies on checkpoint.save/restore_latest (the
-    networks at each save and after each restore), make_segment and
-    eval_rollout (their seconds)."""
+def drive_cli(agent, argv: list, work: str) -> SimpleNamespace:
+    """``agent.main`` in-process on ``argv``: 2 segments; a resume to 4 (both
+    with --ckpt-best); a --ckpt-skip-replay save and resume to 3;
+    --eval-only on the latest and on --ckpt-best.  Spies on
+    checkpoint.save/restore_latest (the networks at each save and after
+    each restore), ``agent.make_segment`` and eval_rollout (their seconds)
+    → what the runs left behind."""
     ckpt_dir, lean_dir = os.path.join(work, "ckpt"), os.path.join(work, "lean")
     metrics, lean_metrics = os.path.join(work, "m.jsonl"), os.path.join(work, "lean.jsonl")
     saved, restored, seg_s, eval_s = {}, [], [], []
@@ -1199,15 +1468,16 @@ def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
         return timed
 
     def run(d, jsonl, n, *extra):
-        return ddpg.main([*CLI_ARGV, "--ckpt-dir", d, "--metrics-jsonl", jsonl,
-                          "--num-train-batches", str(n), *extra])
+        return agent.main([*argv, "--ckpt-dir", d, "--metrics-jsonl", jsonl,
+                           "--num-train-batches", str(n), *extra])
 
     kernels.reset_launches()
     with patched(checkpoint, "save", spy_save), \
             patched(checkpoint, "restore_latest", spy_restore), \
-            patched(ddpg, "make_segment", spy_segment), patched(common, "eval_rollout", spy_eval):
+            patched(agent, "make_segment", spy_segment), patched(common, "eval_rollout", spy_eval):
         run(ckpt_dir, metrics, 2, "--ckpt-best")
-        first = {n: os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt")) for n in (1, 2)}
+        first = {n: os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt"))
+                 for n in (1, 2) if os.path.exists(os.path.join(ckpt_dir, f"ckpt_{n}.pt"))}
         run(ckpt_dir, metrics, 4, "--ckpt-best")
         files_after_resume = sorted(os.listdir(ckpt_dir))
         run(lean_dir, lean_metrics, 2, "--ckpt-skip-replay")
@@ -1216,55 +1486,109 @@ def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
         n_eval = len(eval_s)
         eval_latest = run(ckpt_dir, metrics, 4, "--eval-only")
         eval_best = run(ckpt_dir, metrics, 4, "--eval-only", "--ckpt-best")
-    launches = dict(kernels.LAUNCHES)
-    # A fresh eval of the in-memory actor at its last save, same generator seed.
-    actor = Actor(CONFIG5.obs_shape, device=dev, **TD3_NET)
-    actor.load_state_dict(saved[(ckpt_dir, 4)]["actor"])
-    fresh_len, fresh_rew = eval_rollout(make_venv(CONFIG5, 64, device=dev), greedy_act(actor),
-                                        torch.Generator(device=dev).manual_seed(SEED + 1))
     events, lean_events = read_jsonl(metrics), read_jsonl(lean_metrics)
-    trains = [e for e in events if e["event"] == "train"]
-    evals = [e for e in events if e["event"] == "eval_only"]
-    best = checkpoint.best_meta(ckpt_dir)
-    resume = {(d, step): (nets, size) for d, step, nets, size in restored}
-    checks = {
-        "losses_finite": all(math.isfinite(e[k]) for e in trains + [
-            e for e in lean_events if e["event"] == "train"] for k in ("critic_loss", "actor_loss")),
-        "jax_field_sets": all(list(e) == EVENT_FIELDS[e["event"]] for e in events + lean_events),
-        "events": [e["event"] for e in events] == [
+    return SimpleNamespace(
+        ckpt_dir=ckpt_dir, lean_dir=lean_dir, saved=saved, seg_s=seg_s, eval_s=eval_s,
+        n_eval=n_eval, first=first, files_after_resume=files_after_resume, lean_raw=lean_raw,
+        last_raw=checkpoint.load_raw(ckpt_dir, 4), eval_latest=eval_latest,
+        eval_best=eval_best, launches=dict(kernels.LAUNCHES), events=events,
+        lean_events=lean_events, best=checkpoint.best_meta(ckpt_dir),
+        resume={(d, step): (nets, size) for d, step, nets, size in restored},
+        trains=[e for e in events if e["event"] == "train"],
+        evals=[e for e in events if e["event"] == "eval_only"])
+
+
+def cli_checks(r: SimpleNamespace, fresh: tuple, fields: dict, steps_per_segment: int,
+               num_envs: int, full_size: int, loss_keys=("critic_loss", "actor_loss")) -> dict:
+    """The checks ``ddpg_cli`` and ``sac_cli`` share: finite losses, the JAX
+    jsonl fields, the events in order, monotonic env steps and checkpoint
+    numbers, restored networks byte-equal to the saved ones, the replay
+    restored whole from a full file and empty from a skip-replay one, and
+    both eval-only evals (the latest equal to ``fresh``, a fresh eval of
+    the in-memory actor at its last save)."""
+    fresh_len, fresh_rew = fresh
+    lean_trains = [e for e in r.lean_events if e["event"] == "train"]
+    return {
+        "losses_finite": all(math.isfinite(e[k]) for e in r.trains + lean_trains
+                             for k in loss_keys),
+        "jax_field_sets": all(list(e) == fields[e["event"]] for e in r.events + r.lean_events),
+        "events": [e["event"] for e in r.events] == [
             "train", "restore", "train", "restore", "eval_only", "restore", "eval_only"],
-        "env_steps_monotonic": [e["env_steps"] for e in trains] == [
-            s * 20 * NUM_ENVS for s in (2, 4)],
-        "resume_numbering": files_after_resume == [
-            "ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt",
-            "ckpt_best.pt.json"] and all(
-            os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt")) == t
-            for n, t in first.items()),
-        "restored_equals_saved": nets_equal(resume[(ckpt_dir, 2)][0], saved[(ckpt_dir, 2)])
-        and nets_equal(resume[(lean_dir, 2)][0], saved[(lean_dir, 2)]),
-        "full_replay_restored": resume[(ckpt_dir, 2)][1] == 8192,
-        "skip_replay_file_empty": tuple(lean_raw["replay"]["s1"].shape) == (0,)
-        and lean_raw["replay"]["size"] == 0,
-        "skip_replay_restores_empty": resume[(lean_dir, 2)][1] == 0,
-        "skip_replay_resume_trained": [e["segment"] for e in lean_events if e["event"] == "train"]
-        == [2, 3],
-        "eval_only_latest": evals[0]["segment"] == 4
-        and (evals[0]["eval_ep_len"], evals[0]["eval_ep_rew"]) == (float(fresh_len),
-                                                                  float(fresh_rew))
-        and eval_latest == evals[0]["eval_ep_len"],
-        "eval_only_best": best is not None and evals[1]["segment"] == best["step"]
-        and eval_best == evals[1]["eval_ep_len"],
-        "slab_kernels_launched": all(launches[k] > 0 for k in (
+        "env_steps_monotonic": [e["env_steps"] for e in r.trains] == [
+            s * steps_per_segment * num_envs for s in (2, 4)],
+        "resume_numbering": r.files_after_resume[-2:] == ["ckpt_best.pt", "ckpt_best.pt.json"]
+        and "ckpt_4.pt" in r.files_after_resume and all(
+            os.path.getmtime(os.path.join(r.ckpt_dir, f"ckpt_{n}.pt")) == t
+            for n, t in r.first.items()),
+        "restored_equals_saved": nets_equal(r.resume[(r.ckpt_dir, 2)][0], r.saved[(r.ckpt_dir, 2)])
+        and nets_equal(r.resume[(r.lean_dir, 2)][0], r.saved[(r.lean_dir, 2)]),
+        "full_replay_restored": r.resume[(r.ckpt_dir, 2)][1] == full_size,
+        "skip_replay_file_empty": tuple(r.lean_raw["replay"]["s1"].shape) == (0,)
+        and r.lean_raw["replay"]["size"] == 0,
+        "skip_replay_restores_empty": r.resume[(r.lean_dir, 2)][1] == 0,
+        "skip_replay_resume_trained": [e["segment"] for e in lean_trains] == [2, 3],
+        "eval_only_latest": r.evals[0]["segment"] == 4
+        and (r.evals[0]["eval_ep_len"], r.evals[0]["eval_ep_rew"]) == (float(fresh_len),
+                                                                      float(fresh_rew))
+        and r.eval_latest == r.evals[0]["eval_ep_len"],
+        "eval_only_best": r.best is not None and r.evals[1]["segment"] == r.best["step"]
+        and r.eval_best == r.evals[1]["eval_ep_len"],
+        "slab_kernels_launched": all(r.launches[k] > 0 for k in (
             "step_repeats", "step_substeps", "render_repeats", "render_batched")),
     }
-    train_evals = eval_s[:n_eval]
-    line = dict(argv=CLI_ARGV, segments_run=len(seg_s),
-                segment_s=seg_s, mean_segment_s=sum(seg_s[1:]) / max(len(seg_s) - 1, 1),
-                eval_s=eval_s, mean_eval_s=sum(train_evals) / max(len(train_evals), 1),
-                train_events=trains, eval_only_events=evals,
-                fresh_eval={"eval_ep_len": float(fresh_len), "eval_ep_rew": float(fresh_rew)},
-                best_meta=best, launches=launches, checks=checks)
-    return line, launches
+
+
+def cli_line(r: SimpleNamespace, argv: list, fresh: tuple, checks: dict) -> dict:
+    train_evals = r.eval_s[:r.n_eval]
+    return dict(argv=argv, segments_run=len(r.seg_s),
+                segment_s=r.seg_s, mean_segment_s=sum(r.seg_s[1:]) / max(len(r.seg_s) - 1, 1),
+                eval_s=r.eval_s, mean_eval_s=sum(train_evals) / max(len(train_evals), 1),
+                train_events=r.trains, eval_only_events=r.evals,
+                fresh_eval={"eval_ep_len": float(fresh[0]), "eval_ep_rew": float(fresh[1])},
+                best_meta=r.best, launches=r.launches, checks=checks)
+
+
+def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
+    """``ddpg.main`` in-process at config 5 full width through
+    :func:`drive_cli`'s runs, and its checks."""
+    r = drive_cli(ddpg, CLI_ARGV, work)
+    # A fresh eval of the in-memory actor at its last save, same generator seed.
+    actor = Actor(CONFIG5.obs_shape, device=dev, **TD3_NET)
+    actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
+    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), greedy_act(actor),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = cli_checks(r, fresh, EVENT_FIELDS, 20, NUM_ENVS, 8192)
+    checks["resume_numbering"] = checks["resume_numbering"] and r.files_after_resume == [
+        "ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt", "ckpt_best.pt.json"]
+    return cli_line(r, CLI_ARGV, fresh, checks), r.launches
+
+
+def sac_cli(work: str, dev) -> tuple[dict, dict]:
+    """``sac.main`` in-process with the config-5 SAC recipe at full width
+    (512 envs, conv encoder, replay 65536, batch 256) through
+    :func:`drive_cli`'s runs; the checks of ``ddpg_cli`` and SAC's own:
+    ``alpha`` at or above ``--alpha-min`` on every trained segment, and
+    ``log_alpha`` and ``alpha_opt`` in the checkpoint."""
+    r = drive_cli(sac, SAC_ARGV, work)
+    actor = GaussianActor(CONFIG5.obs_shape, device=dev, **TD3_NET)
+    actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
+    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), sac.greedy_act(actor),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = cli_checks(r, fresh, SAC_EVENT_FIELDS, 25, SAC_ENVS, 2 * 25 * SAC_ENVS,
+                        loss_keys=("critic_loss", "actor_loss", "alpha", "entropy"))
+    lean_trains = [e for e in r.lean_events if e["event"] == "train"]
+    log_alpha = r.last_raw.get("log_alpha")
+    alpha_opt = r.last_raw.get("alpha_opt") or {}
+    checks.update({
+        "alpha_at_or_above_floor": all(e["alpha"] >= SAC_ALPHA_MIN for e in r.trains + lean_trains),
+        "checkpoint_holds_log_alpha": torch.is_tensor(log_alpha) and log_alpha.dim() == 0
+        and math.exp(float(log_alpha)) >= SAC_ALPHA_MIN * (1 - 1e-6),
+        "checkpoint_holds_alpha_opt": bool(alpha_opt.get("state")),
+        "restored_log_alpha": "log_alpha" in r.resume[(r.ckpt_dir, 2)][0],
+    })
+    line = cli_line(r, SAC_ARGV, fresh, checks)
+    line["log_alpha"] = None if log_alpha is None else float(log_alpha)
+    return line, r.launches
 
 
 def main() -> int:
@@ -1766,7 +2090,7 @@ def run() -> int:
                 "ms": time_ms(raw[name], reps=50),
                 "device_ms": kernel_device_ms(raw[name]),
                 "wrapper_ms": None if wrapper_fn is None else time_ms(wrapper_fn, reps=50),
-                "plain_ms": time_ms(plain_fn, reps=3, warmup=1),
+                "plain_ms": time_ms(plain_fn, reps=PLAIN_REPS, warmup=1),
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None,
@@ -1799,8 +2123,8 @@ def run() -> int:
 
     # 9. device time from torch.profiler traces: a few sim-only steps (the
     # card's busy share and the kernels that take it), then one training
-    # segment per row split into the port's kernels, the learner and the
-    # rest.  Null where a trace holds no device time.
+    # segment per row of PROFILE_ROWS split into the port's kernels, the
+    # learner and the rest.  Null where a trace holds no device time.
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.no_grad(), torch.profiler.profile(activities=acts) as prof:
         for _ in range(PROFILE_STEPS):
@@ -1816,7 +2140,7 @@ def run() -> int:
     device_step_ms = sum(device_ms.values()) or None
     top = sorted(device_ms.items(), key=lambda kv: -kv[1])[:8]
     training = {name: training_profile(t["state"], t["segment"], t["step_ms"])
-                for name, t in trained.items()}
+                for name, t in trained.items() if name in PROFILE_ROWS}
     emit("profile", steps=PROFILE_STEPS, device_ms_per_step=device_step_ms,
          device_busy_share=device_step_ms and device_step_ms / step_ms,
          device_kernels=len(device_ms), top_device_ms_per_step=dict(top),
@@ -1865,8 +2189,31 @@ def run() -> int:
     emit("ddpg_cli", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"ddpg_cli checks failed: {line['checks']}")
+
+    # 14. the JAX config-5 SAC checkpoint's actor on the card and its greedy
+    # eval (slab: K1-K4)
+    line, launches_by_path["sac_crossload"] = sac_crossload(load_sac_actor(root), dev)
+    emit("sac_crossload", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"sac_crossload checks failed: {line['checks']}")
+
+    # 15. the SAC program: sac.main with the config-5 pixel recipe (K1-K4)
+    work = tempfile.mkdtemp(prefix="chip_smoke_sac_")
+    try:
+        line, launches_by_path["sac_cli"] = sac_cli(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("sac_cli", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"sac_cli checks failed: {line['checks']}")
+
+    # 16. prioritized replay and 3-step returns in DDPG at config 5 (K1-K4)
+    line, launches_by_path["replay_ext"] = replay_ext(dev)
+    emit("replay_ext", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"replay_ext checks failed: {line['checks']}")
     for row in rows:
-        for path in ("crossload_td3", "ddpg_cli"):
+        for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

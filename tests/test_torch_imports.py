@@ -1,7 +1,8 @@
 """The port stands alone: it never imports JAX, flax, optax, msgpack or the
-JAX package (nor do chip_smoke.py, bench_torch.py and
-scripts/torch_ddpg_it3.py), its CLI answers ``--help`` where JAX is not
-importable, and its entry points refuse to fall back to the CPU quietly."""
+JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
+scripts/torch_sac_lowdim.py and scripts/export_sac_actor_npz.py), its CLIs
+(DDPG and SAC) answer ``--help`` where JAX is not importable, and its entry
+points refuse to fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -36,14 +37,23 @@ import chip_smoke
 import bench_torch
 import runpy
 runpy.run_path("scripts/torch_ddpg_it3.py", run_name="not_main")
+runpy.run_path("scripts/torch_sac_lowdim.py", run_name="not_main")
+runpy.run_path("scripts/export_sac_actor_npz.py", run_name="not_main")
+for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer"):
+    assert name in sys.modules, name
+from cartpoleplusplus_tpu_torch.replay import buffer
+for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
+    assert callable(getattr(buffer, fn)), fn
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
 """
 _HELP = _REFUSE + r"""
 import runpy
-sys.argv = ["ddpg", "--help"]
-runpy.run_module("cartpoleplusplus_tpu_torch.agents.ddpg", run_name="__main__", alter_sys=True)
+agent = sys.argv[1]
+sys.argv = [agent, "--help"]
+runpy.run_module(f"cartpoleplusplus_tpu_torch.agents.{agent}", run_name="__main__",
+                 alter_sys=True)
 """
 
 
@@ -59,16 +69,21 @@ def test_port_never_imports_jax():
     assert int(out.stdout.split()[-1]) >= 31
 
 
-def test_cli_help_without_jax():
-    """``python -m cartpoleplusplus_tpu_torch.agents.ddpg --help`` where
+@pytest.mark.parametrize("agent,flags", [
+    ("ddpg", ("--pixel-encoder", "--ckpt-skip-replay", "--twin-critic", "--device",
+              "--solver-iters", "--obs-samples", "--per", "--n-step")),
+    ("sac", ("--pixel-encoder", "--ckpt-skip-replay", "--alpha-min", "--init-alpha",
+             "--target-entropy", "--device", "--obs-samples")),
+])
+def test_cli_help_without_jax(agent, flags):
+    """``python -m cartpoleplusplus_tpu_torch.agents.<agent> --help`` where
     jax, flax, optax and msgpack cannot be imported."""
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = REPO
-    out = subprocess.run([sys.executable, "-c", _HELP], cwd=REPO, env=env, capture_output=True,
-                         text=True, timeout=120)
+    out = subprocess.run([sys.executable, "-c", _HELP, agent], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    for flag in ("--pixel-encoder", "--ckpt-skip-replay", "--twin-critic", "--device",
-                 "--solver-iters", "--obs-samples"):
+    for flag in flags:
         assert flag in out.stdout
 
 
@@ -78,7 +93,8 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
 
 @pytest.mark.parametrize("entry", ["make_venv", "VectorCartpole", "Actor", "resolve_device",
                                    "make_venv_exact", "Critic", "init_state", "make_segment",
-                                   "train", "main"])
+                                   "train", "main", "GaussianActor", "sac_init_state",
+                                   "sac_make_segment", "sac_main"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
     ``init_state`` and ``make_segment`` run on their vector env's device;
@@ -86,11 +102,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     from types import SimpleNamespace
 
     from cartpoleplusplus_tpu_torch import resolve_device
-    from cartpoleplusplus_tpu_torch.agents import ddpg
+    from cartpoleplusplus_tpu_torch.agents import ddpg, sac
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
-    from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic
+    from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic, GaussianActor
 
     cfg = CartpoleConfig(discrete_actions=False, use_raw_pixels=True, num_cameras=2,
                          obs_pool=2, obs_samples=2)
@@ -116,7 +132,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
 
     def cli(run, device=None):
         argv = toy + ([] if device is None else ["--device", device])
-        return run(argv) if run is ddpg.main else run(ddpg.make_parser().parse_args(argv))
+        return run(argv) if run in (ddpg.main, sac.main) else run(
+            ddpg.make_parser().parse_args(argv))
     build = {
         "make_venv": lambda **kw: make_venv(cfg, 4, **kw),
         "VectorCartpole": lambda **kw: VectorCartpole(cfg, 4, None, None, None, **kw),
@@ -128,6 +145,12 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
         "make_segment": lambda **kw: ddpg.make_segment(venv_on(**kw), **seg_kw),
         "train": lambda **kw: cli(ddpg.train, **kw),
         "main": lambda **kw: cli(ddpg.main, **kw),
+        "GaussianActor": lambda **kw: GaussianActor(cfg.obs_shape, **net_kw, **kw),
+        "sac_init_state": lambda **kw: sac.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
+        "sac_make_segment": lambda **kw: sac.make_segment(
+            venv_on(**kw), target_entropy=-2.0,
+            **{k: v for k, v in seg_kw.items() if not k.startswith("ou_")}),
+        "sac_main": lambda **kw: cli(sac.main, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
