@@ -243,14 +243,17 @@ def ou_sigma_at(env_steps: int, sigma: float, sigma_min: float | None,
     return sigma + (sigma_min - sigma) * frac
 
 
-def make_lr(opts, lr: float):
+def make_lr(opts, lr: float, total_updates: int | None = None):
     """Learning rate per ``opts.lr_schedule``: ``lr`` for "const", or for
     "cosine" a function of the update count (optax's
     ``cosine_decay_schedule(lr, total_updates, alpha=0.02)``), to be read
-    before each optimizer step."""
+    before each optimizer step.  ``total_updates`` defaults to the
+    off-policy agents' optimizer steps, segments × steps per segment."""
     if getattr(opts, "lr_schedule", "const") != "cosine":
         return lr
-    total = max(opts.num_train_batches * opts.steps_per_segment, 1)
+    if total_updates is None:
+        total_updates = opts.num_train_batches * opts.steps_per_segment
+    total = max(total_updates, 1)
 
     def schedule(count: int) -> float:
         frac = min(count, total) / total
@@ -388,34 +391,49 @@ _RIGID = ("pos", "quat", "vel", "ang")
 _REPLAY_DATA = ("s1", "action", "reward", "s2", "terminal", "priority")
 
 
+def env_state_dict(st) -> dict:
+    """The env states, ``obs`` and the generator's state a training state
+    carries, as checkpoint entries (live tensor references)."""
+    e = st.env_states
+    return {
+        "env_states": {**{k: getattr(e.rigid, k) for k in _RIGID}, "steps": e.steps,
+                       "done": e.done},
+        "obs": st.obs, "generator": st.generator.get_state(),
+    }
+
+
+def load_env_state(st, sd: dict) -> None:
+    """Restore :func:`env_state_dict`'s entries into ``st`` in place, onto
+    its device."""
+    dev = st.obs.device
+    e = sd["env_states"]
+    st.env_states = EnvState(rigid=RigidState(**{k: e[k].to(dev) for k in _RIGID}),
+                             steps=e["steps"].to(dev), done=e["done"].to(dev))
+    st.obs = sd["obs"].to(dev)
+    st.generator.set_state(sd["generator"])
+
+
 def carried_state_dict(st) -> dict:
-    """What every agent's training state carries besides its networks, as
-    checkpoint entries (live tensor references and host ints): the replay
-    with its cursor, fill and block, the env states, ``obs``, the
-    generator's state and ``env_steps``."""
-    r, e = st.replay, st.env_states
+    """What every off-policy agent's training state carries besides its
+    networks, as checkpoint entries (live tensor references and host ints):
+    the replay with its cursor, fill and block, :func:`env_state_dict`'s
+    entries and ``env_steps``."""
+    r = st.replay
     return {
         "replay": {**{k: getattr(r, k) for k in _REPLAY_DATA}, "cursor": r.cursor,
                    "size": r.size, "block": r.block},
-        "env_states": {**{k: getattr(e.rigid, k) for k in _RIGID}, "steps": e.steps,
-                       "done": e.done},
-        "obs": st.obs, "generator": st.generator.get_state(), "env_steps": st.env_steps,
+        **env_state_dict(st), "env_steps": st.env_steps,
     }
 
 
 def load_carried_state(st, sd: dict) -> None:
     """Restore :func:`carried_state_dict`'s entries into ``st`` in place,
     onto its device."""
-    dev = st.obs.device
     r = sd["replay"]
     for k in _REPLAY_DATA:
         getattr(st.replay, k).copy_(r[k])
     st.replay.cursor, st.replay.size = int(r["cursor"]), int(r["size"])
-    e = sd["env_states"]
-    st.env_states = EnvState(rigid=RigidState(**{k: e[k].to(dev) for k in _RIGID}),
-                             steps=e["steps"].to(dev), done=e["done"].to(dev))
-    st.obs = sd["obs"].to(dev)
-    st.generator.set_state(sd["generator"])
+    load_env_state(st, sd)
     st.env_steps = int(sd["env_steps"])
 
 
@@ -450,6 +468,38 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
                 eval_ep_len=float(elen),
                 eval_ep_rew=float(erew),
             )
+        if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
+            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
+    if opts.ckpt_dir:
+        checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+    logger.close()
+    return final_eval
+
+
+def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
+                  act_fn: Callable[[torch.Tensor], torch.Tensor], logger,
+                  fields: Callable[[int, dict], dict], start: int, end: int) -> float:
+    """The on-policy agents' loop (the JAX PPO and LRPG ``train``): updates
+    ``start .. end`` of ``train_step(st) -> metrics``, each advancing
+    ``st.update`` → the last eval's mean episode length.  A greedy eval
+    every ``--eval-freq`` updates and at the last (generator seeded from
+    ``--seed`` + 1; the update's metrics are read from the card there
+    only), logged as a ``train`` event of ``update``, the agent's
+    ``fields(update, metrics)``, ``eval_ep_len`` and ``eval_ep_rew``;
+    ``ckpt_<update>`` every ``--ckpt-freq`` and at the end;
+    ``ckpt_best`` on improvement with ``--ckpt-best``.  Closes
+    ``logger``."""
+    gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
+    best = BestCkptKeeper(opts)
+    final_eval = 0.0
+    for i in range(start, end):
+        metrics = train_step(st)
+        if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == end:
+            elen, erew = eval_rollout(eval_venv, act_fn, gen)
+            final_eval = float(elen)
+            best.update(i + 1, final_eval, st)
+            logger.log("train", update=i + 1, **fields(i + 1, metrics),
+                       eval_ep_len=float(elen), eval_ep_rew=float(erew))
         if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:

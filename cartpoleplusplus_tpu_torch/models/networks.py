@@ -1,6 +1,6 @@
 """Agent networks: port of the DDPG ``Actor`` and ``Critic`` of
-cartpoleplusplus_tpu.models.networks, the TD3 twin critic and SAC's
-``GaussianActor``."""
+cartpoleplusplus_tpu.models.networks, the TD3 twin critic, SAC's and PPO's
+``GaussianActor``, PPO's ``ValueNetwork`` and LRPG's ``DiscretePolicy``."""
 
 from __future__ import annotations
 
@@ -37,6 +37,12 @@ def _init_hidden(modules, generator: torch.Generator | None) -> None:
             lecun_init(m, generator)
 
 
+def _encoder(obs_shape: Sequence[int], use_raw_pixels: bool, hidden: Sequence[int],
+             pixel_pool: int, height: int, width: int, pixel_encoder: str) -> ObsEncoder:
+    return ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden, pixel_pool=pixel_pool,
+                      height=height, width=width, pixel_encoder=pixel_encoder)
+
+
 class Actor(nn.Module):
     """Deterministic policy µ(s): encoder → Dense → tanh, actions in [-1, 1]².
 
@@ -54,9 +60,8 @@ class Actor(nn.Module):
                  generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
         super().__init__()
         dev = resolve_device(device)
-        self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
-                                  pixel_pool=pixel_pool, height=height, width=width,
-                                  pixel_encoder=pixel_encoder)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
         self.mu = nn.Linear(hidden[-1], action_dim)
         _init_hidden(self.encoder.modules(), generator)
         final_layer_init(self.mu, generator)
@@ -84,9 +89,8 @@ class GaussianActor(nn.Module):
                  log_std_min: float = -20.0, log_std_max: float = 2.0):
         super().__init__()
         dev = resolve_device(device)
-        self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
-                                  pixel_pool=pixel_pool, height=height, width=width,
-                                  pixel_encoder=pixel_encoder)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
         self.mu = nn.Linear(hidden[-1], action_dim)
         self.log_std = nn.Linear(hidden[-1], action_dim)
         self.log_std_min, self.log_std_max = log_std_min, log_std_max
@@ -117,9 +121,8 @@ class Critic(nn.Module):
                  generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
         super().__init__()
         dev = resolve_device(device)
-        self.encoder = ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden,
-                                  pixel_pool=pixel_pool, height=height, width=width,
-                                  pixel_encoder=pixel_encoder)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
         self.head = MLPTrunk(hidden[-1] + action_dim, (hidden[-1],))
         self.q = nn.Linear(hidden[-1], 1)
         _init_hidden((*self.encoder.modules(), *self.head.modules()), generator)
@@ -147,3 +150,55 @@ class TwinCritic(nn.Module):
 
     def q1(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         return self.critics[0](obs, action)
+
+
+class ValueNetwork(nn.Module):
+    """PPO's state value V(s): the :class:`Actor`'s encoder, then one head
+    ``v`` with the final-layer init; ``forward`` → (B,).
+
+    Parameters as for :class:`Actor`.  The encoder computes in bfloat16,
+    the head in float32.
+    """
+
+    def __init__(self, obs_shape: Sequence[int], use_raw_pixels: bool = False,
+                 pixel_pool: int = 1, height: int = 50, width: int = 50,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
+        self.v = nn.Linear(hidden[-1], 1)
+        _init_hidden(self.encoder.modules(), generator)
+        final_layer_init(self.v, generator)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.v(self.encoder(obs))[..., 0]
+
+
+class DiscretePolicy(nn.Module):
+    """LRPG's softmax policy over the discrete actions: the :class:`Actor`'s
+    encoder, then a head ``logits`` of ``num_actions`` outputs; ``forward``
+    → logits (B, num_actions).
+
+    Parameters as for :class:`Actor`, but the head takes the hidden layers'
+    init (a plain flax ``Dense``: LeCun normal, zero bias), not the
+    final-layer one.  The encoder computes in bfloat16, the head in float32.
+    """
+
+    def __init__(self, obs_shape: Sequence[int], num_actions: int = 5,
+                 use_raw_pixels: bool = False, pixel_pool: int = 1,
+                 height: int = 50, width: int = 50,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
+        self.logits = nn.Linear(hidden[-1], num_actions)
+        _init_hidden((*self.encoder.modules(), self.logits), generator)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.logits(self.encoder(obs))

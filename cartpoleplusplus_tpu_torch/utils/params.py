@@ -1,5 +1,5 @@
 """Parameter conversion from the JAX package's flax trees, and the readers
-of a JAX DDPG or SAC checkpoint.
+of a JAX DDPG, SAC, PPO or LRPG checkpoint.
 
 Takes plain numpy (a flax params tree converted with ``np.asarray``, or
 read by :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`), so neither
@@ -50,6 +50,18 @@ def _encoder(enc, prefix: str) -> dict[str, torch.Tensor]:
     return out
 
 
+def _encoder_and_heads(tree, *heads: str) -> dict[str, torch.Tensor]:
+    """flax params of an ``ObsEncoder_0`` and Dense heads (with or without
+    the top-level ``"params"``) → a state_dict of ``encoder.*`` and the
+    heads under their flax names."""
+    if "params" in tree:
+        tree = tree["params"]
+    out = _encoder(tree["ObsEncoder_0"], "")
+    for head in heads:
+        out.update(_linear(tree[head], head))
+    return out
+
+
 def actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
     """flax ``Actor`` params (with or without the top-level ``"params"``)
     → a state_dict for :class:`cartpoleplusplus_tpu_torch.models.networks.Actor`.
@@ -60,21 +72,31 @@ def actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
     OIHW), ``ObsEncoder_0/MLPTrunk_0/hidden{i}`` →
     ``encoder.trunk.hidden.{i}`` and ``mu`` → ``mu``.
     """
-    if "params" in tree:
-        tree = tree["params"]
-    return {**_encoder(tree["ObsEncoder_0"], ""), **_linear(tree["mu"], "mu")}
+    return _encoder_and_heads(tree, "mu")
 
 
 def gaussian_actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
-    """flax ``GaussianActor`` params (with or without the top-level
-    ``"params"``) → a state_dict for
+    """flax ``GaussianActor`` params → a state_dict for
     :class:`~cartpoleplusplus_tpu_torch.models.networks.GaussianActor`:
     ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and the
     heads ``mu`` and ``log_std``."""
-    if "params" in tree:
-        tree = tree["params"]
-    return {**_encoder(tree["ObsEncoder_0"], ""), **_linear(tree["mu"], "mu"),
-            **_linear(tree["log_std"], "log_std")}
+    return _encoder_and_heads(tree, "mu", "log_std")
+
+
+def value_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ``ValueNetwork`` params → a state_dict for
+    :class:`~cartpoleplusplus_tpu_torch.models.networks.ValueNetwork`:
+    ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and the
+    head ``v``."""
+    return _encoder_and_heads(tree, "v")
+
+
+def discrete_policy_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ``DiscretePolicy`` params → a state_dict for
+    :class:`~cartpoleplusplus_tpu_torch.models.networks.DiscretePolicy`:
+    ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and the
+    head ``logits``."""
+    return _encoder_and_heads(tree, "logits")
 
 
 def _critic_tree(tree, prefix: str) -> dict[str, torch.Tensor]:
@@ -110,17 +132,22 @@ def _index_tree(tree, i: int):
     return np.asarray(tree)[i]
 
 
-def _carried(raw) -> dict:
-    """The env states, observations and step counter a JAX training state
-    carries, as CPU tensors and an int."""
+def _env(raw) -> dict:
+    """The env states and observations a JAX training state carries, as CPU
+    tensors."""
     env = raw["env_states"]
     tensor = lambda a: torch.from_numpy(np.array(a))
     return {
         "env_states": {**{k: tensor(v) for k, v in env["rigid"].items()},
                        "steps": tensor(env["steps"]), "done": tensor(env["done"])},
         "obs": tensor(raw["obs"]),
-        "env_steps": int(raw["env_steps"]),
     }
+
+
+def _carried(raw) -> dict:
+    """The env states, observations and step counter a JAX off-policy
+    training state carries, as CPU tensors and an int."""
+    return {**_env(raw), "env_steps": int(raw["env_steps"])}
 
 
 def ddpg_params_from_jax_checkpoint(path: str) -> dict:
@@ -168,6 +195,32 @@ def sac_params_from_jax_checkpoint(path: str) -> dict:
         "log_alpha": torch.from_numpy(np.array(raw["log_alpha"], dtype=np.float32)),
         **_carried(raw),
     }
+
+
+def ppo_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX PPO trainer (flax msgpack of its
+    ``PPOState``, whose ``params`` are ``{"actor", "value"}``) → the port's
+    pieces, on the CPU: ``actor`` (a :class:`GaussianActor` state_dict),
+    ``value`` (a :class:`ValueNetwork` state_dict), ``env_states`` and
+    ``obs`` as :func:`ddpg_params_from_jax_checkpoint` gives them, and
+    ``update``, the update counter, an int.  The optimizer state and the
+    RNG key are not carried over."""
+    raw = flax_msgpack.load(path)
+    return {
+        "actor": gaussian_actor_params_from_flax(raw["params"]["actor"]),
+        "value": value_params_from_flax(raw["params"]["value"]),
+        **_env(raw), "update": int(raw["update"]),
+    }
+
+
+def lrpg_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX LRPG trainer (flax msgpack of its
+    ``TrainState``) → ``policy`` (a :class:`DiscretePolicy` state_dict, on
+    the CPU) and ``update``, an int.  The optimizer state and the RNG key
+    are not carried over."""
+    raw = flax_msgpack.load(path)
+    return {"policy": discrete_policy_params_from_flax(raw["params"]),
+            "update": int(raw["update"])}
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:

@@ -67,7 +67,19 @@ set to 0 just before it and read just after:
   write-backs ``|td| + per_eps``, and on the card's own replay
   ``sample_prioritized`` and ``nstep_batch`` equal the CPU's on the same
   uniforms, up to indices at CDF boundaries within the two cumsums'
-  rounding gap.
+  rounding gap;
+- the on-policy programs (``ppo_cli``, ``lrpg_cli``): ``ppo.main`` and
+  ``lrpg.main`` in-process at config 5 (slab: K1-K4), 512 envs, the conv
+  encoder at the default widths; PPO with 32-step rollouts, 4 epochs × 4
+  minibatches and the cosine schedule, LRPG with 40-step episodes: 2
+  updates, a resume to 4 (both with ``--ckpt-best``), ``--eval-only`` on
+  the latest and the best checkpoint; finite losses, the JAX jsonl fields,
+  the update and env-step numbering, the restored state (networks,
+  optimizer, env states, obs, generator, ``update``) byte-equal to the
+  saved one, the eval-only eval equal to a fresh eval of the in-memory
+  policy, K2 and K4 launched on every update (its reset), PPO's
+  ``clip_frac`` in [0, 1], LRPG's sampled actions indices in [0, 5) and its
+  episodes at most 40 steps.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -78,9 +90,8 @@ frame sizes too large to stage three repeats of in shared memory, and
 K1/K2 at 8192 envs and at 4097, a count that is not a multiple of 32;
 ``parity_training_end`` for K3 on poses from the end of the config-5
 training row, where it is also timed); torch.profiler traces of a few
-acting steps and of one training segment of config 5, the 1-camera exact
-row and the low-dim row give the card's busy share and the learner's share
-of it.  On every slab pose set the cull of
+acting steps and of one training segment of config 5 and of the low-dim
+row give the card's busy share and the learner's share of it.  On every slab pose set the cull of
 K3/K4 and of K5b is checked where it could fail (``cull_check``: no
 skipped cast that the plain cast of the mode hits, frames byte-equal to
 the kernel's own with culling off, and K5b's byte-equal to the plain ratio
@@ -130,13 +141,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import common, ddpg, sac
+from cartpoleplusplus_tpu_torch.agents import common, ddpg, lrpg, ppo, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
-from cartpoleplusplus_tpu_torch.models.networks import Actor, GaussianActor, TwinCritic
+from cartpoleplusplus_tpu_torch.models.networks import (
+    Actor, DiscretePolicy, GaussianActor, TwinCritic)
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
@@ -155,15 +167,18 @@ PARITY_ENVS = 1024
 OWED_PHYS_ENVS = 8192  # K1/K2 parity at twice the main path's width
 RAGGED_ENVS = 4097     # K1/K2 parity at a count that is not a multiple of 32
 PROBE_POSES = 4096     # raycast.cull_probe_poses: poses chosen to break K3's cull
-SIM_ONLY_WINDOWS = 3
-EVAL_ROLLOUTS = 3
+# Acting at config 5: 2 eval rollouts and 2 sim-only windows (cut in depth
+# from 3 each to make room for the on-policy phases under the watchdog).
+SIM_ONLY_WINDOWS = 2
+EVAL_ROLLOUTS = 2
 SIM_ONLY_STEPS = 350  # per window: over half a second at 1.6-1.9 ms per step
 PROFILE_STEPS = 20
-# Training rows split by a profiled segment (profile phase): the two main
-# rows and the low-dim one.  The render-mode rows are timed and checked in
-# their train phases; profiling them too would take the script past its
-# watchdog on a slow host.
-PROFILE_ROWS = ("2cam_samples2", "1cam_exact", "lowdim")
+# Training rows split by a profiled segment (profile phase): config 5 and the
+# low-dim row.  The other rows are timed and checked in their train phases;
+# profiling them too would take the script past its watchdog on a slow host
+# (the 1-camera exact row, whose split is config 5's within 0.3 ms of
+# device time per step, left the profile when the on-policy phases came).
+PROFILE_ROWS = ("2cam_samples2", "lowdim")
 # Runs of each plain version in the kernels line (after one warm-up run).
 PLAIN_REPS = 1
 # Published H100 SXM peaks: HBM bandwidth and float32 (non-tensor-core)
@@ -265,7 +280,9 @@ SAC_ACTOR_SHA256 = "c5f49bdcee669b7a1b093a9e5c3223169089269c43f1d11f0b8cf4226c74
 JAX_RECORDED_SAC = {"segment": 15000, "eval_ep_len": 200.0, "eval_ep_rew": 200.0}
 JAX_CPU_SAC_LENS = (198.28125, 200.0, 197.9375, 198.59375, 198.0)
 # The SAC program at config 5 (sac_cli phase): the pixel SAC recipe
-# (scripts/chip_queue6.sh's sac_pixels_fix) at obs_samples 2, short runs.
+# (scripts/chip_queue6.sh's sac_pixels_fix) at obs_samples 2, short runs, with
+# the recipe's --ckpt-freq 5000, so each run writes its 0.74 GB replay only at
+# its end and at a new best.
 SAC_ENVS = 512
 SAC_ALPHA_MIN = 0.02
 SAC_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
@@ -273,7 +290,7 @@ SAC_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pix
             "--steps-per-segment 25 --actor-learning-rate 1e-4 --critic-learning-rate 3e-4 "
             "--lr-schedule cosine --reward-scale 0.1 --grad-clip 10 --aug-shift 2 "
             f"--alpha-min {SAC_ALPHA_MIN} --warmup-steps 1 --num-eval 64 --eval-freq 2 "
-            "--ckpt-freq 2").split()
+            "--ckpt-freq 5000").split()
 SAC_TRAIN_FIELDS = TRAIN_FIELDS[:7] + ["alpha", "entropy"] + TRAIN_FIELDS[7:]
 SAC_EVENT_FIELDS = {**EVENT_FIELDS, "train": SAC_TRAIN_FIELDS}
 # Prioritized replay and 3-step returns in DDPG at config 5 (replay_ext
@@ -284,6 +301,25 @@ REPLAY_EXT_ARGV = [*CLI_ARGV[:CLI_ARGV.index("--replay-capacity")],
                    *CLI_ARGV[CLI_ARGV.index("--replay-capacity") + 2:CLI_ARGV.index("--ckpt-freq")],
                    "--per", "--n-step", "3", "--num-train-batches", "2"]
 REPLAY_EXT_DRAWS = 4096
+# The on-policy programs at config 5 (ppo_cli, lrpg_cli phases): 512 envs
+# (the pixel recipes' count), the conv encoder at the default widths [100,
+# 50].  PPO's rollout is 32 steps (the recipe's is 128: a cut in depth that
+# keeps the obs buffer near 0.2 GB), 4 epochs × 4 minibatches of 4096; LRPG's
+# episodes are capped at 40 steps (the recipe's 200: a cut in depth).
+ONPOLICY_ENVS = 512
+PPO_ROLLOUT = 32
+PPO_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
+            f"--num-envs {ONPOLICY_ENVS} --rollout-steps {PPO_ROLLOUT} --ppo-epochs 4 "
+            "--ppo-minibatches 4 --learning-rate 3e-4 --lr-schedule cosine --reward-scale 0.1 "
+            "--grad-clip 0.5 --num-eval 64 --eval-freq 1 --ckpt-freq 1").split()
+PPO_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "update", "env_steps", *ppo.METRIC_KEYS,
+                    "eval_ep_len", "eval_ep_rew"]
+LRPG_MAX_LEN = 40
+LRPG_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
+             f"--num-envs {ONPOLICY_ENVS} --max-episode-len {LRPG_MAX_LEN} --num-eval 64 "
+             "--eval-freq 1 --ckpt-freq 1").split()
+LRPG_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "update", "loss", "train_ep_len",
+                     "train_ep_rew", "eval_ep_len", "eval_ep_rew"]
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -885,10 +921,11 @@ def target_step_err(t0, online, t1, tau) -> float:
 
 # The training rows' and the bench phase's timed windows, cut from the
 # bench's defaults (3 windows of 5 segments, each at least 0.5 s) to fit the
-# watchdog: 2 windows of 2 segments, each at least 0.25 s.  Their rates are
-# the bench's own measure at a smaller depth; bench_torch.py's suite run at
-# its defaults gives the rows' numbers (PERF.md §5).
-SMOKE_WINDOWS = dict(segments=2, bench_windows=2, min_wall_s=0.25)
+# watchdog: 2 windows of 1 segment, each at least 0.1 s (a 20-step segment
+# takes 0.15-0.2 s at 4096 pixel or 8192 low-dim envs).  Their rates are the
+# bench's own measure at a smaller depth; bench_torch.py's suite run at its
+# defaults gives the rows' numbers (PERF.md §5).
+SMOKE_WINDOWS = dict(segments=1, bench_windows=2, min_wall_s=0.1)
 
 
 def bench_opts(**overrides) -> argparse.Namespace:
@@ -1399,20 +1436,31 @@ def patched(obj, name: str, make):
         setattr(obj, name, real)
 
 
+def host_tree(tree):
+    """A host copy of a nested state dict (tensors cloned to the CPU)."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().clone() if torch.is_tensor(tree) else tree
+
+
+def trees_equal(a, b) -> bool:
+    """Nested dicts equal key for key, tensors byte for byte."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and a.keys() == b.keys() and all(
+            trees_equal(a[k], b[k]) for k in a)
+    if torch.is_tensor(a):
+        return torch.is_tensor(b) and a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+    return a == b
+
+
 def net_state(st) -> dict:
     """Host copies of a training state's networks' parameters (and of SAC's
     ``log_alpha``)."""
-    nets = {k: {n: t.detach().cpu().clone() for n, t in getattr(st, k).state_dict().items()}
-            for k in type(st)._NETS}
+    nets = {k: host_tree(getattr(st, k).state_dict()) for k in type(st)._NETS}
     if hasattr(st, "log_alpha"):
         nets["log_alpha"] = {"": st.log_alpha.detach().cpu().clone()}
     return nets
-
-
-def nets_equal(a: dict, b: dict) -> bool:
-    return a.keys() == b.keys() and all(
-        torch.equal(a[k][n].reshape(-1).view(torch.uint8), b[k][n].reshape(-1).view(torch.uint8))
-        for k in a for n in a[k])
 
 
 def read_jsonl(path: str) -> list:
@@ -1520,8 +1568,8 @@ def cli_checks(r: SimpleNamespace, fresh: tuple, fields: dict, steps_per_segment
         and "ckpt_4.pt" in r.files_after_resume and all(
             os.path.getmtime(os.path.join(r.ckpt_dir, f"ckpt_{n}.pt")) == t
             for n, t in r.first.items()),
-        "restored_equals_saved": nets_equal(r.resume[(r.ckpt_dir, 2)][0], r.saved[(r.ckpt_dir, 2)])
-        and nets_equal(r.resume[(r.lean_dir, 2)][0], r.saved[(r.lean_dir, 2)]),
+        "restored_equals_saved": trees_equal(r.resume[(r.ckpt_dir, 2)][0], r.saved[(r.ckpt_dir, 2)])
+        and trees_equal(r.resume[(r.lean_dir, 2)][0], r.saved[(r.lean_dir, 2)]),
         "full_replay_restored": r.resume[(r.ckpt_dir, 2)][1] == full_size,
         "skip_replay_file_empty": tuple(r.lean_raw["replay"]["s1"].shape) == (0,)
         and r.lean_raw["replay"]["size"] == 0,
@@ -1588,6 +1636,184 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
     })
     line = cli_line(r, SAC_ARGV, fresh, checks)
     line["log_alpha"] = None if log_alpha is None else float(log_alpha)
+    return line, r.launches
+
+
+def drive_onpolicy(agent, argv: list, work: str) -> SimpleNamespace:
+    """``agent.main`` in-process on ``argv``: 2 updates and a resume to 4
+    (both with --ckpt-best), then --eval-only on the latest checkpoint and
+    on --ckpt-best.  Spies on checkpoint.save/restore_latest (the whole
+    state dict at each save and after each restore), ``agent.make_train_step``
+    (each update's seconds and launches) and eval_rollout (its seconds) →
+    what the runs left behind."""
+    ckpt_dir, metrics = os.path.join(work, "ckpt"), os.path.join(work, "m.jsonl")
+    saved, restored, step_s, step_launches, eval_s = {}, {}, [], [], []
+
+    def spy_save(real):
+        def save(d, step, tree, skip_replay=False):
+            saved[step] = host_tree(tree.state_dict())
+            return real(d, step, tree, skip_replay)
+        return save
+
+    def spy_restore(real):
+        def restore(d, target):
+            out, step = real(d, target)
+            if step is not None:
+                restored[step] = host_tree(out.state_dict())
+            return out, step
+        return restore
+
+    def spy_train_step(real):
+        def make(*a, **kw):
+            train_step = real(*a, **kw)
+
+            def timed(st):
+                before = dict(kernels.LAUNCHES)
+                t = time.monotonic()
+                out = train_step(st)
+                torch.cuda.synchronize()
+                step_s.append(time.monotonic() - t)
+                step_launches.append({k: v - before[k] for k, v in kernels.LAUNCHES.items()})
+                return out
+            return timed
+        return make
+
+    def spy_eval(real):
+        def timed(*a, **kw):
+            t = time.monotonic()
+            out = real(*a, **kw)
+            torch.cuda.synchronize()
+            eval_s.append(time.monotonic() - t)
+            return out
+        return timed
+
+    def run(n, *extra):
+        return agent.main([*argv, "--ckpt-dir", ckpt_dir, "--metrics-jsonl", metrics,
+                           "--num-train-batches", str(n), *extra])
+
+    kernels.reset_launches()
+    with patched(checkpoint, "save", spy_save), \
+            patched(checkpoint, "restore_latest", spy_restore), \
+            patched(agent, "make_train_step", spy_train_step), \
+            patched(common, "eval_rollout", spy_eval):
+        run(2, "--ckpt-best")
+        first = {n: os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt")) for n in (1, 2)}
+        run(4, "--ckpt-best")
+        files = sorted(os.listdir(ckpt_dir))
+        n_eval = len(eval_s)
+        eval_latest = run(4, "--eval-only")
+        eval_best = run(4, "--eval-only", "--ckpt-best")
+    events = read_jsonl(metrics)
+    return SimpleNamespace(
+        ckpt_dir=ckpt_dir, saved=saved, restored=restored, step_s=step_s,
+        step_launches=step_launches, eval_s=eval_s, n_eval=n_eval, first=first, files=files,
+        eval_latest=eval_latest, eval_best=eval_best, launches=dict(kernels.LAUNCHES),
+        events=events, best=checkpoint.best_meta(ckpt_dir),
+        trains=[e for e in events if e["event"] == "train"],
+        evals=[e for e in events if e["event"] == "eval_only"])
+
+
+def onpolicy_checks(r: SimpleNamespace, fresh: tuple, train_fields: list,
+                    loss_keys: tuple) -> dict:
+    """The checks ``ppo_cli`` and ``lrpg_cli`` share: finite losses, the JAX
+    jsonl fields, the events in order, updates 1-4 with a checkpoint each
+    (the first run's files untouched by the resume), the restored state
+    (networks, optimizer, env states, obs, generator, ``update``) byte-equal
+    to the saved one at the resume and at the eval-only restore, both
+    eval-only evals (the latest equal to ``fresh``, a fresh eval of the
+    in-memory policy at its last save), K1-K4 launched and K2 and K4 on
+    every update (its reset)."""
+    fields = {"train": train_fields, "restore": EVENT_FIELDS["restore"],
+              "eval_only": EVENT_FIELDS["eval_only"]}
+    fresh_len, fresh_rew = fresh
+    return {
+        "losses_finite": all(math.isfinite(e[k]) for e in r.trains for k in loss_keys),
+        "jax_field_sets": all(list(e) == fields[e["event"]] for e in r.events),
+        "events": [e["event"] for e in r.events] == [
+            "train", "train", "restore", "train", "train", "restore", "eval_only", "restore",
+            "eval_only"],
+        "update_numbering": [e["update"] for e in r.trains] == [1, 2, 3, 4]
+        and r.files == ["ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt",
+                        "ckpt_best.pt.json"]
+        and all(os.path.getmtime(os.path.join(r.ckpt_dir, f"ckpt_{n}.pt")) == t
+                for n, t in r.first.items()),
+        "saved_updates": all(r.saved[n]["update"] == n for n in (1, 2, 3, 4)),
+        "restored_equals_saved": sorted(r.restored) == [2, 4]
+        and all(trees_equal(r.restored[n], r.saved[n]) for n in (2, 4)),
+        "eval_only_latest": r.evals[0]["segment"] == 4
+        and (r.evals[0]["eval_ep_len"], r.evals[0]["eval_ep_rew"]) == (float(fresh_len),
+                                                                      float(fresh_rew))
+        and r.eval_latest == r.evals[0]["eval_ep_len"],
+        "eval_only_best": r.best is not None and r.evals[1]["segment"] == r.best["step"]
+        and r.eval_best == r.evals[1]["eval_ep_len"],
+        "slab_kernels_launched": all(r.launches[k] > 0 for k in (
+            "step_repeats", "step_substeps", "render_repeats", "render_batched")),
+        "reset_kernels_every_update": len(r.step_launches) == 4 and all(
+            d["step_substeps"] >= 1 and d["render_batched"] >= 1 for d in r.step_launches),
+    }
+
+
+def onpolicy_line(r: SimpleNamespace, argv: list, fresh: tuple, checks: dict) -> dict:
+    train_evals = r.eval_s[:r.n_eval]
+    return dict(argv=argv, updates_run=len(r.step_s), update_s=r.step_s,
+                mean_update_s=sum(r.step_s[1:]) / max(len(r.step_s) - 1, 1),
+                update_launches=r.step_launches, eval_s=r.eval_s,
+                mean_eval_s=sum(train_evals) / max(len(train_evals), 1),
+                train_events=r.trains, eval_only_events=r.evals,
+                fresh_eval={"eval_ep_len": float(fresh[0]), "eval_ep_rew": float(fresh[1])},
+                best_meta=r.best, launches=r.launches, checks=checks)
+
+
+def ppo_cli(work: str, dev) -> tuple[dict, dict]:
+    """``ppo.main`` in-process at config 5 (512 envs, conv encoder, 32-step
+    rollouts, 4 × 4 minibatches of 4096, cosine schedule) through
+    :func:`drive_onpolicy`'s runs; its checks and PPO's own: ``clip_frac``
+    in [0, 1], ``env_steps`` = update × 32 × 512."""
+    r = drive_onpolicy(ppo, PPO_ARGV, work)
+    actor = GaussianActor(CONFIG5.obs_shape, device=dev, **TD3_NET)
+    actor.load_state_dict(r.saved[4]["params"]["actor"])
+    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), ppo.greedy_act(actor),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = onpolicy_checks(r, fresh, PPO_TRAIN_FIELDS,
+                             ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"))
+    checks.update({
+        "clip_frac_in_unit": all(0.0 <= e["clip_frac"] <= 1.0 for e in r.trains),
+        "env_steps": [e["env_steps"] for e in r.trains] == [
+            u * PPO_ROLLOUT * ONPOLICY_ENVS for u in (1, 2, 3, 4)],
+    })
+    return onpolicy_line(r, PPO_ARGV, fresh, checks), r.launches
+
+
+def lrpg_cli(work: str, dev) -> tuple[dict, dict]:
+    """``lrpg.main`` in-process at config 5 (512 envs, conv encoder,
+    40-step episodes) through :func:`drive_onpolicy`'s runs; its checks
+    and LRPG's own: every sampled action an index in [0, 5) (a spy on
+    ``lrpg.rollout_batch``), ``train_ep_len`` ≤ 40."""
+    actions = []
+
+    def spy_rollout(real):
+        def rollout(*a, **kw):
+            out = real(*a, **kw)
+            actions.append((int(out[1].min()), int(out[1].max()), out[1].dtype == torch.int64))
+            return out
+        return rollout
+
+    with patched(lrpg, "rollout_batch", spy_rollout):
+        r = drive_onpolicy(lrpg, LRPG_ARGV, work)
+    policy = DiscretePolicy(CONFIG5.obs_shape, device=dev, **TD3_NET)
+    policy.load_state_dict(r.saved[4]["params"])
+    cfg = dataclasses.replace(CONFIG5, discrete_actions=True, max_episode_len=LRPG_MAX_LEN)
+    fresh = eval_rollout(make_venv(cfg, 64, device=dev), lrpg.greedy_act(policy),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = onpolicy_checks(r, fresh, LRPG_TRAIN_FIELDS, ("loss", "train_ep_len",
+                                                          "train_ep_rew"))
+    checks.update({
+        "actions_in_range": len(actions) == 4 and all(
+            lo >= 0 and hi < 5 and is_int for lo, hi, is_int in actions),
+        "train_ep_len_capped": all(0.0 < e["train_ep_len"] <= LRPG_MAX_LEN for e in r.trains),
+    })
+    line = onpolicy_line(r, LRPG_ARGV, fresh, checks)
+    line["sampled_action_range"] = actions
     return line, r.launches
 
 
@@ -2212,8 +2438,20 @@ def run() -> int:
     emit("replay_ext", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"replay_ext checks failed: {line['checks']}")
+
+    # 17-18. the on-policy programs: ppo.main and lrpg.main at config 5 (K1-K4)
+    for name, drive in (("ppo_cli", ppo_cli), ("lrpg_cli", lrpg_cli)):
+        work = tempfile.mkdtemp(prefix=f"chip_smoke_{name}_")
+        try:
+            line, launches_by_path[name] = drive(work, dev)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)
+        emit(name, **line)
+        if not all(line["checks"].values()):
+            raise AssertionError(f"{name} checks failed: {line['checks']}")
     for row in rows:
-        for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext"):
+        for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
+                     "ppo_cli", "lrpg_cli"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

@@ -26,19 +26,13 @@ a TPU, ``runs/sac_lowdim_fix_s{0,1,2}.jsonl``: first ≥ 190 at segments
 from __future__ import annotations
 
 import argparse
-import faulthandler
-import json
 import os
-import shutil
-import subprocess
 import sys
-import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-import torch  # noqa: E402
-
 from cartpoleplusplus_tpu_torch.agents import sac  # noqa: E402
+from cartpoleplusplus_tpu_torch.utils import learning_run  # noqa: E402
 
 WATCHDOG_S = 1800
 GATE = 190.0
@@ -50,23 +44,6 @@ RECIPE = """--num-envs 128 --num-eval 64 --eval-freq 100
   --alpha-min 0.02""".split()
 
 
-def _emit(f, record: dict) -> None:
-    line = json.dumps(record)
-    f.write(line + "\n")
-    f.flush()
-    print(line, flush=True)
-
-
-def _card() -> str | None:
-    """``nvidia-smi``'s name and power limit of the first card, or None
-    where there is no ``nvidia-smi``."""
-    if shutil.which("nvidia-smi") is None:
-        return None
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip().splitlines()[0]
-
-
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=0)
@@ -76,44 +53,11 @@ def main(argv=None) -> int:
                    help="metrics jsonl (default runs/torch_sac_lowdim_s<seed>.jsonl)")
     p.add_argument("extra", nargs="*", help="flags appended to the recipe's (after --)")
     args = p.parse_args(argv)
-    argv = [*RECIPE, "--seed", str(args.seed), *args.extra]
-    on_cpu = sac.make_parser().parse_args(argv).device == "cpu"
-    if not on_cpu and not torch.cuda.is_available():
-        print("torch_sac_lowdim: torch.cuda.is_available() is False", file=sys.stderr)
-        return 1
-    out = args.out or os.path.join("runs", f"torch_sac_lowdim_s{args.seed}.jsonl")
-    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
-    smi = _card()
-    train_log = out + ".train"
-    if os.path.exists(train_log):
-        os.remove(train_log)
-    faulthandler.dump_traceback_later(WATCHDOG_S, exit=True)
-    t0 = time.monotonic()
-    try:
-        final = sac.main([*argv, "--metrics-jsonl", train_log], stop_at=args.segments)
-    finally:
-        faulthandler.cancel_dump_traceback_later()
-    wall = time.monotonic() - t0
-    with open(train_log) as f:
-        events = [json.loads(line) for line in f]
-    os.remove(train_log)
-    trains = [e for e in events if e["event"] == "train"]
-    lens = [e["eval_ep_len"] for e in trains]
-    best = max(lens)
-    first_gate = next((e["segment"] for e in trains if e["eval_ep_len"] >= GATE), None)
-    with open(out, "w") as f:
-        _emit(f, {"event": "header", "nvidia_smi": smi,
-                  "device": "cpu" if on_cpu else torch.cuda.get_device_name(0),
-                  "torch": torch.__version__, "cuda": torch.version.cuda,
-                  "script": "scripts/torch_sac_lowdim.py", "argv": argv,
-                  "segments": args.segments})
-        for e in events:
-            _emit(f, e)
-        _emit(f, {"event": "summary", "seed": args.seed, "wall_s": wall, "final_eval": final,
-                  "best_eval": best, "best_segment": trains[lens.index(best)]["segment"],
-                  "first_segment_at_gate": first_gate, "gate": GATE,
-                  "reached_gate": best >= GATE, "env_steps": trains[-1]["env_steps"]})
-    return 0
+    return learning_run.run(
+        script="scripts/torch_sac_lowdim.py", agent_main=sac.main, parser=sac.make_parser(),
+        argv=[*RECIPE, "--seed", str(args.seed), *args.extra], stop_at=args.segments,
+        counter="segment", gate=GATE, seed=args.seed, watchdog_s=WATCHDOG_S,
+        out=args.out or os.path.join("runs", f"torch_sac_lowdim_s{args.seed}.jsonl"))
 
 
 if __name__ == "__main__":

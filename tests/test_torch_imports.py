@@ -1,8 +1,8 @@
 """The port stands alone: it never imports JAX, flax, optax, msgpack or the
 JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
-scripts/torch_sac_lowdim.py and scripts/export_sac_actor_npz.py), its CLIs
-(DDPG and SAC) answer ``--help`` where JAX is not importable, and its entry
-points refuse to fall back to the CPU quietly."""
+scripts/torch_{sac,ppo,lrpg}_lowdim.py and scripts/export_sac_actor_npz.py),
+its CLIs (DDPG, SAC, PPO and LRPG) answer ``--help`` where JAX is not
+importable, and its entry points refuse to fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -38,8 +38,12 @@ import bench_torch
 import runpy
 runpy.run_path("scripts/torch_ddpg_it3.py", run_name="not_main")
 runpy.run_path("scripts/torch_sac_lowdim.py", run_name="not_main")
+runpy.run_path("scripts/torch_ppo_lowdim.py", run_name="not_main")
+runpy.run_path("scripts/torch_lrpg_lowdim.py", run_name="not_main")
 runpy.run_path("scripts/export_sac_actor_npz.py", run_name="not_main")
-for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer"):
+for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer",
+             "cartpoleplusplus_tpu_torch.agents.ppo", "cartpoleplusplus_tpu_torch.agents.lrpg",
+             "cartpoleplusplus_tpu_torch.utils.learning_run"):
     assert name in sys.modules, name
 from cartpoleplusplus_tpu_torch.replay import buffer
 for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
@@ -65,8 +69,9 @@ def test_port_never_imports_jax():
         text=True, timeout=120,
     )
     assert out.returncode == 0, out.stderr
-    # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too
-    assert int(out.stdout.split()[-1]) >= 31
+    # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too,
+    # and agents.{ppo,lrpg}, utils.learning_run
+    assert int(out.stdout.split()[-1]) >= 34
 
 
 @pytest.mark.parametrize("agent,flags", [
@@ -74,6 +79,9 @@ def test_port_never_imports_jax():
               "--solver-iters", "--obs-samples", "--per", "--n-step")),
     ("sac", ("--pixel-encoder", "--ckpt-skip-replay", "--alpha-min", "--init-alpha",
              "--target-entropy", "--device", "--obs-samples")),
+    ("ppo", ("--rollout-steps", "--ppo-epochs", "--ppo-minibatches", "--ppo-clip",
+             "--gae-lambda", "--entropy-coef", "--value-coef", "--lr-schedule", "--device")),
+    ("lrpg", ("--num-devices", "--reward-calc", "--pixel-encoder", "--device")),
 ])
 def test_cli_help_without_jax(agent, flags):
     """``python -m cartpoleplusplus_tpu_torch.agents.<agent> --help`` where
@@ -94,7 +102,10 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
 @pytest.mark.parametrize("entry", ["make_venv", "VectorCartpole", "Actor", "resolve_device",
                                    "make_venv_exact", "Critic", "init_state", "make_segment",
                                    "train", "main", "GaussianActor", "sac_init_state",
-                                   "sac_make_segment", "sac_main"])
+                                   "sac_make_segment", "sac_main", "ValueNetwork",
+                                   "DiscretePolicy", "ppo_init_state", "ppo_make_train_step",
+                                   "ppo_main", "lrpg_init_state", "lrpg_make_train_step",
+                                   "lrpg_main"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
     ``init_state`` and ``make_segment`` run on their vector env's device;
@@ -102,11 +113,12 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     from types import SimpleNamespace
 
     from cartpoleplusplus_tpu_torch import resolve_device
-    from cartpoleplusplus_tpu_torch.agents import ddpg, sac
+    from cartpoleplusplus_tpu_torch.agents import ddpg, lrpg, ppo, sac
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
-    from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic, GaussianActor
+    from cartpoleplusplus_tpu_torch.models.networks import (
+        Actor, Critic, DiscretePolicy, GaussianActor, ValueNetwork)
 
     cfg = CartpoleConfig(discrete_actions=False, use_raw_pixels=True, num_cameras=2,
                          obs_pool=2, obs_samples=2)
@@ -130,9 +142,14 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
            "--batch-size", "2", "--replay-capacity", "16", "--warmup-steps", "0",
            "--metrics-jsonl", str(tmp_path / "m.jsonl")]
 
+    onpolicy_toy = [*toy[:toy.index("--steps-per-segment")], "--metrics-jsonl",
+                    str(tmp_path / "m.jsonl")]
+    ppo_opts = ppo.make_parser().parse_args(["--rollout-steps", "2", "--ppo-minibatches", "2"])
+
     def cli(run, device=None):
-        argv = toy + ([] if device is None else ["--device", device])
-        return run(argv) if run in (ddpg.main, sac.main) else run(
+        argv = (onpolicy_toy if run in (ppo.main, lrpg.main) else toy) + (
+            [] if device is None else ["--device", device])
+        return run(argv) if run in (ddpg.main, sac.main, ppo.main, lrpg.main) else run(
             ddpg.make_parser().parse_args(argv))
     build = {
         "make_venv": lambda **kw: make_venv(cfg, 4, **kw),
@@ -151,6 +168,15 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
             venv_on(**kw), target_entropy=-2.0,
             **{k: v for k, v in seg_kw.items() if not k.startswith("ou_")}),
         "sac_main": lambda **kw: cli(sac.main, **kw),
+        "ValueNetwork": lambda **kw: ValueNetwork(cfg.obs_shape, **net_kw, **kw),
+        "DiscretePolicy": lambda **kw: DiscretePolicy(cfg.obs_shape, **net_kw, **kw),
+        "ppo_init_state": lambda **kw: ppo.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
+        "ppo_make_train_step": lambda **kw: ppo.make_train_step(venv_on(**kw), ppo_opts),
+        "ppo_main": lambda **kw: cli(ppo.main, **kw),
+        "lrpg_init_state": lambda **kw: lrpg.init_state(opts, exact, venv_on(**kw),
+                                                        hidden=(8, 4)),
+        "lrpg_make_train_step": lambda **kw: lrpg.make_train_step(venv_on(**kw), 0.99),
+        "lrpg_main": lambda **kw: cli(lrpg.main, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
