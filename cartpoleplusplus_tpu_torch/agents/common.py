@@ -437,15 +437,28 @@ def load_carried_state(st, sd: dict) -> None:
     st.env_steps = int(sd["env_steps"])
 
 
+def replay_fields(metric_keys: tuple) -> Callable[[dict], dict]:
+    """DDPG's and SAC's ``train``-event fields after ``env_steps``, read
+    from a segment's metrics: the agent's ``metric_keys``, then
+    ``mean_reward`` and ``double_reset_frac``."""
+
+    def fields(metrics: dict) -> dict:
+        return {**{k: float(metrics[k]) for k in metric_keys},
+                "mean_reward": float(metrics["reward"]),
+                "double_reset_frac": float(metrics["double_reset_frac"])}
+
+    return fields
+
+
 def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCartpole,
                    act_fn: Callable[[torch.Tensor], torch.Tensor], logger,
-                   metric_keys: tuple, start: int, end: int) -> float:
+                   fields: Callable[[dict], dict], start: int, end: int) -> float:
     """The JAX ``train``'s loop over segments ``start .. end`` → the last
     eval's mean episode length.  A greedy eval every ``--eval-freq``
     segments and at the last (generator seeded from ``--seed`` + 1; the
     segment's metrics are read from the card there only), logged as a
-    ``train`` event with the JAX fields: ``segment``, ``env_steps``, the
-    agent's ``metric_keys``, ``mean_reward``, ``double_reset_frac``,
+    ``train`` event of ``segment``, ``env_steps``, the agent's
+    ``fields(metrics)`` (:func:`replay_fields` for DDPG and SAC),
     ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
     ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
     ``--ckpt-best``.  Closes ``logger``."""
@@ -458,16 +471,8 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
             elen, erew = eval_rollout(eval_venv, act_fn, gen)
             final_eval = float(elen)
             best.update(i + 1, final_eval, st)
-            logger.log(
-                "train",
-                segment=i + 1,
-                env_steps=st.env_steps * venv.num_envs,
-                **{k: float(metrics[k]) for k in metric_keys},
-                mean_reward=float(metrics["reward"]),
-                double_reset_frac=float(metrics["double_reset_frac"]),
-                eval_ep_len=float(elen),
-                eval_ep_rew=float(erew),
-            )
+            logger.log("train", segment=i + 1, env_steps=st.env_steps * venv.num_envs,
+                       **fields(metrics), eval_ep_len=float(elen), eval_ep_rew=float(erew))
         if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:

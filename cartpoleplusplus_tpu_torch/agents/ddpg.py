@@ -476,8 +476,8 @@ def train(opts) -> float:
         per_eps=opts.per_eps, per_total_steps=opts.num_train_batches * opts.steps_per_segment,
         n_step=opts.n_step)
     return common.train_segments(opts, st, segment, venv, eval_venv, act, logger,
-                                 ("critic_loss", "actor_loss"), start_segment,
-                                 opts.num_train_batches)
+                                 common.replay_fields(("critic_loss", "actor_loss")),
+                                 start_segment, opts.num_train_batches)
 
 
 def make_parser():

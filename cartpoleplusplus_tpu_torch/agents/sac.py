@@ -389,8 +389,8 @@ def train(opts, stop_at: int | None = None) -> float:
         target_entropy=target_entropy, log_alpha_min=log_alpha_min,
         reward_scale=opts.reward_scale, aug_shift=opts.aug_shift, grad_clip=opts.grad_clip)
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
-    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger, METRIC_KEYS,
-                                 start_segment, end)
+    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger,
+                                 common.replay_fields(METRIC_KEYS), start_segment, end)
 
 
 def make_parser():

@@ -1,6 +1,7 @@
 """Agent networks: port of the DDPG ``Actor`` and ``Critic`` of
 cartpoleplusplus_tpu.models.networks, the TD3 twin critic, SAC's and PPO's
-``GaussianActor``, PPO's ``ValueNetwork`` and LRPG's ``DiscretePolicy``."""
+``GaussianActor``, PPO's ``ValueNetwork``, LRPG's ``DiscretePolicy``, and
+DQN's ``QNetwork`` with its NoisyNet layer ``NoisyLinear``."""
 
 from __future__ import annotations
 
@@ -202,3 +203,121 @@ class DiscretePolicy(nn.Module):
 
     def forward(self, obs: torch.Tensor) -> torch.Tensor:
         return self.logits(self.encoder(obs))
+
+
+def _scaled_noise(e: torch.Tensor) -> torch.Tensor:
+    """NoisyNet's f(e) = sign(e)·√|e|."""
+    return torch.sign(e) * torch.sqrt(torch.abs(e))
+
+
+class NoisyLinear(nn.Module):
+    """Factorized-Gaussian noisy linear layer (Fortunato et al. 2018), the
+    port of flax ``NoisyDense``: ``weight``/``bias`` (flax's
+    ``kernel``/``bias``, the mu weights) and ``weight_sigma``/``bias_sigma``.
+
+    Init: the mu weights and bias uniform in ±1/√in (from ``generator``,
+    the global RNG when None), both sigmas the constant ``sigma0``/√in.
+    ``forward(x, noise=None)``: the mu weights alone, or with ``noise`` =
+    ``(eps_in, eps_out)``, standard normals of shapes (in,) and (out,), ``W
+    = W_mu + W_sigma ⊙ f(e_out) f(e_in)ᵀ`` and ``b = b_mu + b_sigma ⊙
+    f(e_out)``: one draw per forward, shared by every row of the batch, as
+    in JAX.  Computes in float32.
+    """
+
+    def __init__(self, in_features: int, out_features: int, sigma0: float = 0.5,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_features, self.out_features = in_features, out_features
+        bound = 1.0 / math.sqrt(in_features)
+        uniform = lambda *shape: (torch.rand(shape, generator=generator) * 2.0 - 1.0) * bound
+        self.weight = nn.Parameter(uniform(out_features, in_features))
+        self.bias = nn.Parameter(uniform(out_features))
+        sig0 = sigma0 / math.sqrt(in_features)
+        self.weight_sigma = nn.Parameter(torch.full((out_features, in_features), sig0))
+        self.bias_sigma = nn.Parameter(torch.full((out_features,), sig0))
+
+    def draw(self, generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+        """One ``(eps_in, eps_out)`` from ``generator``, on the layer's
+        device, in flax's order (in, then out)."""
+        dev = self.weight.device
+        return (torch.randn((self.in_features,), generator=generator, device=dev),
+                torch.randn((self.out_features,), generator=generator, device=dev))
+
+    def forward(self, x: torch.Tensor, noise=None) -> torch.Tensor:
+        if noise is None:
+            return x @ self.weight.t() + self.bias
+        e_in, e_out = (_scaled_noise(e.to(self.weight.device)) for e in noise)
+        w = self.weight + self.weight_sigma * (e_out[:, None] * e_in[None, :])
+        return x @ w.t() + (self.bias + self.bias_sigma * e_out)
+
+
+class QNetwork(nn.Module):
+    """DQN's per-action values over the :class:`Actor`'s encoder, the port of
+    flax ``QNetwork``; ``forward`` → (B, num_actions), or under C51
+    (``num_atoms`` > 0) the atom logits (B, num_actions, num_atoms).
+
+    Heads, by their flax names: plain ``q``; ``dueling`` a ``value`` (1)
+    and an ``advantage`` (A) head, ``v + a − mean_a(a)``; C51 an
+    ``advantage`` head of A·K logits (so named with or without dueling),
+    with ``dueling`` a ``value`` head of K logits, the mean over actions
+    taken per atom in logit space.  ``noisy`` makes every head a
+    :class:`NoisyLinear`; plain heads take flax ``Dense``'s init (LeCun
+    normal, zero bias).  Parameters otherwise as for :class:`Actor`; the
+    encoder computes in bfloat16, the heads in float32.
+
+    ``forward(obs, noise=None, generator=None)``: without either the noisy
+    heads run their mu weights (greedy acting); with ``noise`` (``{head
+    name: (eps_in, eps_out)}``) or ``generator`` they run noisy, each head
+    not in ``noise`` drawing its own from ``generator``.  The heads run (and
+    draw) in JAX's order, :attr:`head_order`.
+    """
+
+    def __init__(self, obs_shape: Sequence[int], num_actions: int = 5, dueling: bool = False,
+                 num_atoms: int = 0, noisy: bool = False, use_raw_pixels: bool = False,
+                 pixel_pool: int = 1, height: int = 50, width: int = 50,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.num_actions, self.dueling, self.num_atoms = num_actions, dueling, num_atoms
+        self.noisy = noisy
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder)
+        _init_hidden(self.encoder.modules(), generator)
+        k = max(num_atoms, 1)
+        if num_atoms:
+            widths = {"advantage": num_actions * k, **({"value": k} if dueling else {})}
+        elif dueling:
+            widths = {"value": 1, "advantage": num_actions}
+        else:
+            widths = {"q": num_actions}
+        self.head_order = tuple(widths)
+        for name, out in widths.items():
+            if noisy:
+                head = NoisyLinear(hidden[-1], out, generator=generator)
+            else:
+                head = nn.Linear(hidden[-1], out)
+                lecun_init(head, generator)
+            self.add_module(name, head)
+        self.to(dev)
+
+    def _head(self, name: str, h: torch.Tensor, noise, generator) -> torch.Tensor:
+        head = getattr(self, name)
+        if not self.noisy or (noise is None and generator is None):
+            return head(h)
+        eps = (noise or {}).get(name)
+        return head(h, eps if eps is not None else head.draw(generator))
+
+    def forward(self, obs: torch.Tensor, noise: dict | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        h = self.encoder(obs)
+        out = {name: self._head(name, h, noise, generator) for name in self.head_order}
+        if self.num_atoms:
+            a = out["advantage"].reshape(h.shape[0], self.num_actions, self.num_atoms)
+            if self.dueling:
+                return out["value"][:, None, :] + a - a.mean(dim=-2, keepdim=True)
+            return a
+        if self.dueling:
+            a = out["advantage"]
+            return out["value"] + a - a.mean(dim=-1, keepdim=True)
+        return out["q"]

@@ -1,5 +1,5 @@
 """Parameter conversion from the JAX package's flax trees, and the readers
-of a JAX DDPG, SAC, PPO or LRPG checkpoint.
+of a JAX DDPG, SAC, PPO, LRPG or DQN checkpoint.
 
 Takes plain numpy (a flax params tree converted with ``np.asarray``, or
 read by :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`), so neither
@@ -97,6 +97,28 @@ def discrete_policy_params_from_flax(tree) -> dict[str, torch.Tensor]:
     ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and the
     head ``logits``."""
     return _encoder_and_heads(tree, "logits")
+
+
+def q_network_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ``QNetwork`` params (with or without the top-level ``"params"``)
+    → a state_dict for
+    :class:`~cartpoleplusplus_tpu_torch.models.networks.QNetwork`:
+    ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it, and each
+    head present (``q``, ``value``, ``advantage``) under its flax name;
+    a NoisyNet head's ``kernel_sigma``/``bias_sigma`` become
+    ``weight_sigma`` (transposed) and ``bias_sigma``."""
+    if "params" in tree:
+        tree = tree["params"]
+    out = _encoder(tree["ObsEncoder_0"], "")
+    for head in ("q", "value", "advantage"):
+        if head not in tree:
+            continue
+        out.update(_linear(tree[head], head))
+        if "kernel_sigma" in tree[head]:
+            sigma = {"kernel": tree[head]["kernel_sigma"], "bias": tree[head]["bias_sigma"]}
+            for k, v in _linear(sigma, head).items():
+                out[k.replace(".weight", ".weight_sigma").replace(".bias", ".bias_sigma")] = v
+    return out
 
 
 def _critic_tree(tree, prefix: str) -> dict[str, torch.Tensor]:
@@ -221,6 +243,19 @@ def lrpg_params_from_jax_checkpoint(path: str) -> dict:
     raw = flax_msgpack.load(path)
     return {"policy": discrete_policy_params_from_flax(raw["params"]),
             "update": int(raw["update"])}
+
+
+def dqn_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX DQN trainer (flax msgpack of its
+    ``DQNState``) → the port's pieces, on the CPU: ``params`` and
+    ``target_params`` (:class:`QNetwork` state_dicts), and ``env_states``,
+    ``obs`` and ``env_steps`` as :func:`ddpg_params_from_jax_checkpoint`
+    gives them.  The optimizer state, the replay (empty in a
+    ``--ckpt-skip-replay`` file) and the RNG key are not carried over."""
+    raw = flax_msgpack.load(path)
+    return {"params": q_network_params_from_flax(raw["params"]),
+            "target_params": q_network_params_from_flax(raw["target_params"]),
+            **_carried(raw)}
 
 
 def flatten_tree(tree, prefix: str = "") -> dict[str, np.ndarray]:

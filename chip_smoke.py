@@ -57,7 +57,7 @@ set to 0 just before it and read just after:
   (slab: K1-K4) over 5 generator seeds, beside the JAX run's recorded
   final and the JAX package's own eval of the checkpoint on the CPU;
 - the SAC program (``sac_cli``): ``sac.main`` in-process with the config-5
-  pixel recipe at full width (512 envs, conv encoder, replay 65536, batch
+  pixel recipe at full width (512 envs, conv encoder, replay 16384, batch
   256) through the runs of ``ddpg_cli``, with its checks and SAC's own
   (alpha at or above ``--alpha-min``, ``log_alpha`` and ``alpha_opt`` in
   the checkpoint);
@@ -141,14 +141,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import common, ddpg, lrpg, ppo, sac
+from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, ppo, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import (
-    Actor, DiscretePolicy, GaussianActor, TwinCritic)
+    Actor, DiscretePolicy, GaussianActor, QNetwork, TwinCritic)
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
@@ -158,7 +158,8 @@ from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, roofline
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
 from cartpoleplusplus_tpu_torch.utils.params import (
-    ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, unflatten_tree)
+    ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, q_network_params_from_flax,
+    unflatten_tree)
 
 WATCHDOG_S = 300
 SEED = 0
@@ -281,12 +282,14 @@ JAX_RECORDED_SAC = {"segment": 15000, "eval_ep_len": 200.0, "eval_ep_rew": 200.0
 JAX_CPU_SAC_LENS = (198.28125, 200.0, 197.9375, 198.59375, 198.0)
 # The SAC program at config 5 (sac_cli phase): the pixel SAC recipe
 # (scripts/chip_queue6.sh's sac_pixels_fix) at obs_samples 2, short runs, with
-# the recipe's --ckpt-freq 5000, so each run writes its 0.74 GB replay only at
-# its end and at a new best.
+# the recipe's --ckpt-freq 5000, so each run writes its replay only at its end
+# and at a new best; the replay holds 16384 (32 blocks of 512, 0.18 GB), a cut
+# in depth from the recipe's 65536 that shortens each write and read.
 SAC_ENVS = 512
+SAC_REPLAY = 16384
 SAC_ALPHA_MIN = 0.02
 SAC_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
-            f"--num-envs {SAC_ENVS} --replay-capacity 65536 --batch-size 256 "
+            f"--num-envs {SAC_ENVS} --replay-capacity {SAC_REPLAY} --batch-size 256 "
             "--steps-per-segment 25 --actor-learning-rate 1e-4 --critic-learning-rate 3e-4 "
             "--lr-schedule cosine --reward-scale 0.1 --grad-clip 10 --aug-shift 2 "
             f"--alpha-min {SAC_ALPHA_MIN} --warmup-steps 1 --num-eval 64 --eval-freq 2 "
@@ -320,6 +323,38 @@ LRPG_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pi
              "--eval-freq 1 --ckpt-freq 1").split()
 LRPG_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "update", "loss", "train_ep_len",
                      "train_ep_rew", "eval_ep_len", "eval_ep_rew"]
+
+# The JAX package's full Rainbow DQN checkpoint (scripts/chip_queue6.sh step 2:
+# low-dim, 128 envs, dueling, C51 with 51 atoms on [0, 10], NoisyNet heads, PER,
+# 3-step returns, double-Q), its online QNetwork's leaves in an npz
+# (scripts/export_dqn_q_npz.py from runs/ckpt_dqn_rainbow/ckpt_50000.msgpack;
+# tests/test_torch_dqn.py holds it equal to the checkpoint).  Its eval config
+# is the default low-dim discrete one (K1, K2).
+DQN_Q = os.path.join("chip_inputs", "dqn_rainbow_50000_q.npz")
+DQN_Q_SHA256 = "4a90bf40f9789fb2394bc2e635798d1a4e90cca77694569e88794a9687e895a0"
+DQN_NET = dict(dueling=True, num_atoms=51, noisy=True)
+CONFIG_DQN = CartpoleConfig(discrete_actions=True)
+# The JAX references: the TPU run's recorded final eval and its eval-only run of
+# the checkpoint (runs/dqn_rainbow_s0.jsonl, runs/dqn_rainbow_eval.jsonl, segment
+# 50000) and the JAX package's own greedy eval of the checkpoint on the CPU, 5
+# keys × 64 envs (scripts/jax_dqn_eval_cpu.py, kept in runs/jax_dqn_eval_cpu.jsonl).
+JAX_RECORDED_DQN = {"segment": 50000, "eval_ep_len": 198.703125, "eval_ep_rew": 198.671875,
+                    "eval_only_ep_len": 195.921875}
+JAX_CPU_DQN_LENS = (198.171875, 195.921875, 198.578125, 198.34375, 195.359375)
+# The DQN program at config 5 (dqn_cli phase): the full Rainbow flags of the
+# recipe (--per --n-step 3 --dueling --c51 51 --c51-vmax 10 --noisy, reward
+# scale 0.1, clip 10, batch 256, cosine) on the conv encoder at the default
+# widths, 512 envs (the pixel recipes' count), and a replay of 8192 (16 blocks
+# of 512), a cut in depth from the recipe's 131072.
+DQN_ENVS = 512
+DQN_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
+            f"--num-envs {DQN_ENVS} --replay-capacity 8192 --batch-size 256 "
+            "--steps-per-segment 25 --warmup-steps 1 --lr-schedule cosine --reward-scale 0.1 "
+            "--grad-clip 10 --per --n-step 3 --dueling --c51 51 --c51-vmax 10 --noisy "
+            "--num-eval 64 --eval-freq 2 --ckpt-freq 1").split()
+DQN_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", "eps",
+                    "mean_reward", "eval_ep_len", "eval_ep_rew"]
+DQN_EVENT_FIELDS = {**EVENT_FIELDS, "train": DQN_TRAIN_FIELDS}
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -1468,20 +1503,24 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def drive_cli(agent, argv: list, work: str) -> SimpleNamespace:
+def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamespace:
     """``agent.main`` in-process on ``argv``: 2 segments; a resume to 4 (both
     with --ckpt-best); a --ckpt-skip-replay save and resume to 3;
     --eval-only on the latest and on --ckpt-best.  Spies on
     checkpoint.save/restore_latest (the networks at each save and after
-    each restore), ``agent.make_segment`` and eval_rollout (their seconds)
-    → what the runs left behind."""
+    each restore; with ``whole`` the whole state dict too),
+    ``agent.make_segment`` (each segment's seconds and launches) and
+    eval_rollout (its seconds) → what the runs left behind."""
     ckpt_dir, lean_dir = os.path.join(work, "ckpt"), os.path.join(work, "lean")
     metrics, lean_metrics = os.path.join(work, "m.jsonl"), os.path.join(work, "lean.jsonl")
-    saved, restored, seg_s, eval_s = {}, [], [], []
+    saved, restored, seg_s, seg_launches, eval_s = {}, [], [], [], []
+    saved_whole, restored_whole = {}, {}
 
     def spy_save(real):
         def save(d, step, tree, skip_replay=False):
             saved[(d, step)] = net_state(tree)
+            if whole:
+                saved_whole[(d, step)] = host_tree(tree.state_dict())
             return real(d, step, tree, skip_replay)
         return save
 
@@ -1490,6 +1529,8 @@ def drive_cli(agent, argv: list, work: str) -> SimpleNamespace:
             out, step = real(d, target)
             if step is not None:
                 restored.append((d, step, net_state(out), out.replay.size))
+                if whole:
+                    restored_whole[(d, step)] = host_tree(out.state_dict())
             return out, step
         return restore
 
@@ -1498,10 +1539,12 @@ def drive_cli(agent, argv: list, work: str) -> SimpleNamespace:
             segment = real(*a, **kw)
 
             def timed(st):
+                before = dict(kernels.LAUNCHES)
                 t = time.monotonic()
                 out = segment(st)
                 torch.cuda.synchronize()
                 seg_s.append(time.monotonic() - t)
+                seg_launches.append({k: v - before[k] for k, v in kernels.LAUNCHES.items()})
                 return out
             return timed
         return make
@@ -1536,7 +1579,9 @@ def drive_cli(agent, argv: list, work: str) -> SimpleNamespace:
         eval_best = run(ckpt_dir, metrics, 4, "--eval-only", "--ckpt-best")
     events, lean_events = read_jsonl(metrics), read_jsonl(lean_metrics)
     return SimpleNamespace(
-        ckpt_dir=ckpt_dir, lean_dir=lean_dir, saved=saved, seg_s=seg_s, eval_s=eval_s,
+        ckpt_dir=ckpt_dir, lean_dir=lean_dir, saved=saved, seg_s=seg_s,
+        seg_launches=seg_launches, saved_whole=saved_whole, restored_whole=restored_whole,
+        eval_s=eval_s,
         n_eval=n_eval, first=first, files_after_resume=files_after_resume, lean_raw=lean_raw,
         last_raw=checkpoint.load_raw(ckpt_dir, 4), eval_latest=eval_latest,
         eval_best=eval_best, launches=dict(kernels.LAUNCHES), events=events,
@@ -1613,7 +1658,7 @@ def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
 
 def sac_cli(work: str, dev) -> tuple[dict, dict]:
     """``sac.main`` in-process with the config-5 SAC recipe at full width
-    (512 envs, conv encoder, replay 65536, batch 256) through
+    (512 envs, conv encoder, replay 16384, batch 256) through
     :func:`drive_cli`'s runs; the checks of ``ddpg_cli`` and SAC's own:
     ``alpha`` at or above ``--alpha-min`` on every trained segment, and
     ``log_alpha`` and ``alpha_opt`` in the checkpoint."""
@@ -1622,7 +1667,8 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
     actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
     fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), sac.greedy_act(actor),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
-    checks = cli_checks(r, fresh, SAC_EVENT_FIELDS, 25, SAC_ENVS, 2 * 25 * SAC_ENVS,
+    checks = cli_checks(r, fresh, SAC_EVENT_FIELDS, 25, SAC_ENVS,
+                        min(2 * 25 * SAC_ENVS, SAC_REPLAY),
                         loss_keys=("critic_loss", "actor_loss", "alpha", "entropy"))
     lean_trains = [e for e in r.lean_events if e["event"] == "train"]
     log_alpha = r.last_raw.get("log_alpha")
@@ -1636,6 +1682,131 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
     })
     line = cli_line(r, SAC_ARGV, fresh, checks)
     line["log_alpha"] = None if log_alpha is None else float(log_alpha)
+    return line, r.launches
+
+
+def load_dqn_q(root: str) -> dict:
+    """The Rainbow checkpoint's online QNetwork leaves from their npz, its
+    bytes checked by sha256 → a QNetwork state_dict."""
+    path = os.path.join(root, DQN_Q)
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"{path} is absent: the dqn_crossload phase reads it")
+    with open(path, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()
+    if digest != DQN_Q_SHA256:
+        raise AssertionError(f"{path} has sha256 {digest}, not the exported network's")
+    with np.load(path) as z:
+        tree = unflatten_tree({k: z[k] for k in z.files})
+    return q_network_params_from_flax(tree)
+
+
+def dqn_crossload(sd: dict, dev) -> tuple[dict, dict]:
+    """The JAX full Rainbow checkpoint's QNetwork (dueling, C51, noisy) on
+    the card: its atom logits and C51 means (the unit support greedy acting
+    reads) on the eval's first observations against the same module on the
+    CPU (bf16 bound), then greedy evals on a 64-env venv of the low-dim
+    discrete config (K1, K2), one per generator seed."""
+    qs = {}
+    for where in ("cpu", dev):
+        qs[str(where)] = QNetwork(CONFIG_DQN.obs_shape, device=where, **DQN_NET)
+        qs[str(where)].load_state_dict(sd)
+    q_c, q_g = qs["cpu"], qs[str(dev)]
+    venv = make_venv(CONFIG_DQN, CROSSLOAD_ENVS, device=dev)
+    _, obs = venv.reset(torch.Generator(device=dev).manual_seed(0))
+    z = dqn.support(0.0, 1.0, DQN_NET["num_atoms"])
+    with torch.no_grad():
+        out_g, out_c = q_g(obs), q_c(obs.cpu())
+        mean_g, mean_c = dqn.q_scalar(out_g.cpu(), z), dqn.q_scalar(out_c, z)
+        q_ms = time_ms(lambda: q_g(obs), reps=50)
+    errs = {"logits": float((out_g.cpu() - out_c).abs().max()),
+            "c51_mean": float((mean_g - mean_c).abs().max())}
+    act = dqn.greedy_act(q_g)
+    per_seed = []
+    kernels.reset_launches()
+    for seed in range(CROSSLOAD_SEEDS):
+        t = time.monotonic()
+        mean_len, mean_rew = eval_rollout(venv, act, torch.Generator(device=dev).manual_seed(seed))
+        per_seed.append({"seed": seed, "mean_len": float(mean_len), "mean_rew": float(mean_rew),
+                         "eval_s": time.monotonic() - t})
+    launches = dict(kernels.LAUNCHES)
+    lens = [p["mean_len"] for p in per_seed]
+    mean_len = sum(lens) / len(lens)
+    lo, hi = min(JAX_CPU_DQN_LENS) - CROSSLOAD_WIDEN, max(JAX_CPU_DQN_LENS) + CROSSLOAD_WIDEN
+    checks = {
+        **{f"{k}_within_bound": v <= CONV_ATOL for k, v in errs.items()},
+        "finite": all(math.isfinite(p[k]) for p in per_seed for k in ("mean_len", "mean_rew"))
+        and bool(torch.isfinite(out_g).all()),
+        "episode_len_in_range": all(1.0 <= v <= CONFIG_DQN.max_episode_len for v in lens),
+        "physics_launched": launches["step_repeats"] > 0 and launches["step_substeps"] > 0,
+        "render_not_launched": all(v == 0 for k, v in launches.items()
+                                   if k.startswith(("render", "pack"))),
+    }
+    line = dict(envs=CROSSLOAD_ENVS, bound=CONV_ATOL, max_abs_err=errs, q_ms=q_ms,
+                greedy_actions_equal_cpu=int((torch.argmax(mean_g, -1)
+                                              == torch.argmax(mean_c, -1)).sum()),
+                per_seed=per_seed, mean_len=mean_len, min_len=min(lens), max_len=max(lens),
+                mean_rew=sum(p["mean_rew"] for p in per_seed) / len(per_seed),
+                jax_recorded=JAX_RECORDED_DQN, jax_cpu_eval_lens=JAX_CPU_DQN_LENS,
+                jax_cpu_mean_len=sum(JAX_CPU_DQN_LENS) / len(JAX_CPU_DQN_LENS),
+                jax_cpu_range_widened=(lo, hi), within_jax_cpu_range_widened=lo <= mean_len <= hi,
+                launches=launches, checks=checks)
+    return line, launches
+
+
+def dqn_cli(work: str, dev) -> tuple[dict, dict]:
+    """``dqn.main`` in-process at config 5 with the full Rainbow flags (512
+    envs, conv encoder, replay 8192, batch 256) through :func:`drive_cli`'s
+    runs; the checks of ``ddpg_cli`` and DQN's own: ``eps`` 0 (NoisyNet
+    exploration) on every trained segment, the restored state (networks,
+    Adam, schedule, replay, env states, obs, generator, ``env_steps``)
+    byte-equal to the saved one (a skip-replay file's without the replay),
+    every stored action an index in [0, 5), priorities written back once
+    per update, and K2 and K4 launched once per segment (its reset pool)."""
+    writes, samples = [], []
+
+    def spy_update(real):
+        def update(replay, idx, priority, *a, **kw):
+            writes.append(int(priority.shape[0]))
+            return real(replay, idx, priority, *a, **kw)
+        return update
+
+    def spy_sample(real):
+        def sample(*a, **kw):
+            samples.append(1)
+            return real(*a, **kw)
+        return sample
+
+    with patched(replay_mod, "update_priorities", spy_update), \
+            patched(replay_mod, "sample_prioritized", spy_sample):
+        r = drive_cli(dqn, DQN_ARGV, work, whole=True)
+    q = QNetwork(CONFIG5.obs_shape, device=dev, **TD3_NET, **DQN_NET)
+    q.load_state_dict(r.saved[(r.ckpt_dir, 4)]["q"])
+    cfg = dataclasses.replace(CONFIG5, discrete_actions=True)
+    fresh = eval_rollout(make_venv(cfg, 64, device=dev), dqn.greedy_act(q),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = cli_checks(r, fresh, DQN_EVENT_FIELDS, 25, DQN_ENVS, 8192, loss_keys=("loss",))
+    lean_trains = [e for e in r.lean_events if e["event"] == "train"]
+    actions = r.last_raw["replay"]["action"]
+    priority = r.last_raw["replay"]["priority"]
+    no_replay = lambda tree: {k: v for k, v in tree.items() if k != "replay"}
+    checks.update({
+        "eps_zero": all(e["eps"] == 0.0 for e in r.trains + lean_trains),
+        "restored_state_equals_saved": trees_equal(r.restored_whole[(r.ckpt_dir, 2)],
+                                                   r.saved_whole[(r.ckpt_dir, 2)])
+        and trees_equal(no_replay(r.restored_whole[(r.lean_dir, 2)]),
+                        no_replay(r.saved_whole[(r.lean_dir, 2)])),
+        "actions_in_range": actions.dtype == torch.int32 and int(actions.min()) >= 0
+        and int(actions.max()) < 5,
+        "priorities_written_back": len(writes) > 0 and len(writes) == len(samples)
+        and all(n == int(DQN_ARGV[DQN_ARGV.index("--batch-size") + 1]) for n in writes)
+        and int(torch.unique(priority).numel()) > 1
+        and float(priority.min()) > 0.0,
+        "reset_kernels_every_segment": len(r.seg_launches) == 7 and all(
+            d["step_substeps"] == 1 and d["render_batched"] == 1 for d in r.seg_launches),
+    })
+    line = cli_line(r, DQN_ARGV, fresh, checks)
+    line.update(priority_writes=len(writes), segment_launches=r.seg_launches,
+                action_range=(int(actions.min()), int(actions.max())))
     return line, r.launches
 
 
@@ -2373,9 +2544,12 @@ def run() -> int:
          training=training)
 
     # 10. the port's bench: bench_torch.py's suite in a child process, the
-    # four rows of the JAX bench, each in a child of its own.
+    # four rows of the JAX bench, each in a child of its own.  The suite's own
+    # card probe (a child that only multiplies on the card) is off: this
+    # script has found the card, and each row's watchdog bounds a lost one.
     argv = [sys.executable, "bench_torch.py", "--row-timeout", str(BENCH_ROW_TIMEOUT_S),
-            "--row-attempts", "1", *(f"--{k.replace('_', '-')}={v}" for k, v in
+            "--row-attempts", "1", "--probe-timeout", "0",
+            *(f"--{k.replace('_', '-')}={v}" for k, v in
                                      SMOKE_WINDOWS.items())]
     budget = WATCHDOG_S - (time.monotonic() - t0) - BENCH_MARGIN_S
     rc, out, err = run_group(argv, budget, os.path.dirname(os.path.abspath(__file__)))
@@ -2449,9 +2623,25 @@ def run() -> int:
         emit(name, **line)
         if not all(line["checks"].values()):
             raise AssertionError(f"{name} checks failed: {line['checks']}")
+    # 19. the JAX full Rainbow checkpoint's QNetwork on the card and its greedy
+    # eval (low-dim: K1, K2)
+    line, launches_by_path["dqn_crossload"] = dqn_crossload(load_dqn_q(root), dev)
+    emit("dqn_crossload", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"dqn_crossload checks failed: {line['checks']}")
+
+    # 20. the DQN program: dqn.main with the full Rainbow flags at config 5 (K1-K4)
+    work = tempfile.mkdtemp(prefix="chip_smoke_dqn_")
+    try:
+        line, launches_by_path["dqn_cli"] = dqn_cli(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("dqn_cli", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"dqn_cli checks failed: {line['checks']}")
     for row in rows:
         for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
-                     "ppo_cli", "lrpg_cli"):
+                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n
