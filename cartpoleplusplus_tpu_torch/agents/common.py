@@ -140,8 +140,6 @@ UNPORTED = (
     ("export_policy", "--export-policy", lambda v: v is not None, "Queue 1 item 6 (export)"),
     ("tb_dir", "--tb-dir", lambda v: v is not None,
      "Queue 1 item 5 (the remaining utils: the TensorBoard half of metrics)"),
-    ("use_batch_norm", "--use-batch-norm", bool,
-     "Queue 1 item 3 (other agents: batch norm comes with NAF)"),
     ("num_devices", "--num-devices", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
     ("num_processes", "--num-processes", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
 )

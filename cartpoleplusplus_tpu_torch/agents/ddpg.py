@@ -11,7 +11,10 @@ Per env step the segment acts with µ(s) + OU noise, steps the env through
 the kernels, writes the transition into the on-device replay and, once
 the train gate is open, runs one update: critic MSE on
 ``reward_scale·r + γ·(1 − terminal)·Q'(s2, µ'(s2))``, actor ascent through
-the critic, soft target updates.  The JAX version compiles the whole
+the critic, soft target updates.  With ``--use-batch-norm`` each forward
+runs in the JAX update's mode: the critic's loss and the actor's own
+forward in train mode (moving their running statistics), the critic under
+the actor's loss, the targets and acting in eval mode.  The JAX version compiles the whole
 segment into one ``lax.scan``; here it is a Python loop of PyTorch calls
 and kernel launches on the current stream.  The step counter, the replay
 cursor and its fill level are host ints, so the train gate (a ``lax.cond``
@@ -192,7 +195,7 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
 
         # Twin: both critics regress the same target; the loss is the mean
         # over both axes, as in the JAX package.
-        td = st.critic(s1, a) - y
+        td = st.critic(s1, a, train=True) - y
         closs = torch.mean(td ** 2 if iw is None else iw * td ** 2)
         st.critic_opt.zero_grad(set_to_none=True)
         closs.backward()
@@ -201,8 +204,9 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
         if policy_delay > 1 and (step - warmup_steps - 1) % policy_delay != 0:
             aloss = torch.zeros((), device=closs.device)
         else:
-            # The actor ascends Q1 of the updated critic.
-            mu = st.actor(s1)
+            # The actor ascends Q1 of the updated critic, which runs in eval
+            # mode on its just-updated statistics.
+            mu = st.actor(s1, train=True)
             qa = st.critic.q1(s1, mu) if twin_critic else st.critic(s1, mu)
             aloss = -torch.mean(qa)
             st.actor_opt.zero_grad(set_to_none=True)
@@ -348,9 +352,10 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
                hidden: Sequence[int] = DEFAULT_HIDDEN, pixel_pool: int = 1,
                pixel_encoder: str = "dense") -> DDPGState:
     """Fresh training state on ``venv``'s device: networks initialised from
-    ``opts.seed`` (twin critics with ``opts.twin_critic``; pixel encoders
-    of kind ``pixel_encoder``, average-pooling their frames
-    ``pixel_pool``×``pixel_pool``), targets as copies, Adam optimizers, an
+    ``opts.seed`` (twin critics with ``opts.twin_critic``, batch norm with
+    ``opts.use_batch_norm``; pixel encoders of kind ``pixel_encoder``,
+    average-pooling their frames ``pixel_pool``×``pixel_pool``), targets as
+    copies, Adam optimizers, an
     empty replay of ``opts.replay_capacity`` (uint8 frames for pixel
     configs; s2-free when it holds two blocks, and then trimmed to a
     multiple of the env count, :func:`common.replay_capacity`) and the env
@@ -360,7 +365,8 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     init_gen = torch.Generator().manual_seed(opts.seed)
     kw = dict(use_raw_pixels=config.use_raw_pixels, height=config.obs_height,
               width=config.obs_width, hidden=tuple(hidden), pixel_pool=pixel_pool, device=dev,
-              generator=init_gen, pixel_encoder=pixel_encoder)
+              generator=init_gen, pixel_encoder=pixel_encoder,
+              use_batch_norm=getattr(opts, "use_batch_norm", False))
     actor = Actor(config.obs_shape, **kw)
     critic = (TwinCritic if getattr(opts, "twin_critic", False) else Critic)(
         config.obs_shape, **kw)
@@ -401,7 +407,8 @@ def add_ddpg_opts(parser) -> None:
     parser.add_argument("--ou-sigma", type=float, default=0.2)
     common.add_ou_anneal_opts(parser)
     parser.add_argument("--use-batch-norm", action="store_true",
-                        help="not ported yet: refused at startup")
+                        help="batch norm of the encoders' features (train mode in the "
+                             "losses, eval mode for acting and the targets)")
     parser.add_argument("--reward-scale", type=float, default=1.0,
                         help="scale rewards in the TD target")
     parser.add_argument("--grad-clip", type=float, default=0.0,

@@ -1,7 +1,13 @@
 """Agent networks: port of the DDPG ``Actor`` and ``Critic`` of
 cartpoleplusplus_tpu.models.networks, the TD3 twin critic, SAC's and PPO's
-``GaussianActor``, PPO's ``ValueNetwork``, LRPG's ``DiscretePolicy``, and
-DQN's ``QNetwork`` with its NoisyNet layer ``NoisyLinear``."""
+``GaussianActor``, PPO's ``ValueNetwork``, LRPG's ``DiscretePolicy``,
+DQN's ``QNetwork`` with its NoisyNet layer ``NoisyLinear``, and NAF's
+``NAFNetwork``.
+
+``Actor``, ``Critic``, ``TwinCritic`` and ``NAFNetwork`` take
+``use_batch_norm`` and a ``train`` argument in ``forward`` (default False),
+as the flax modules do: with batch norm, ``train=True`` normalises by the
+batch and moves the running statistics, ``train=False`` reads them."""
 
 from __future__ import annotations
 
@@ -39,16 +45,19 @@ def _init_hidden(modules, generator: torch.Generator | None) -> None:
 
 
 def _encoder(obs_shape: Sequence[int], use_raw_pixels: bool, hidden: Sequence[int],
-             pixel_pool: int, height: int, width: int, pixel_encoder: str) -> ObsEncoder:
+             pixel_pool: int, height: int, width: int, pixel_encoder: str,
+             use_batch_norm: bool = False) -> ObsEncoder:
     return ObsEncoder(math.prod(obs_shape), use_raw_pixels, hidden, pixel_pool=pixel_pool,
-                      height=height, width=width, pixel_encoder=pixel_encoder)
+                      height=height, width=width, pixel_encoder=pixel_encoder,
+                      use_batch_norm=use_batch_norm)
 
 
 class Actor(nn.Module):
     """Deterministic policy µ(s): encoder → Dense → tanh, actions in [-1, 1]².
 
     ``obs_shape``: per-env observation shape, e.g. ``config.obs_shape``;
-    ``pixel_encoder``: "dense" or "conv" (:class:`ObsEncoder`).
+    ``pixel_encoder``: "dense" or "conv" (:class:`ObsEncoder`);
+    ``use_batch_norm``: batch norm of the encoder's features.
     Parameters are float32, drawn on the CPU from ``generator`` (the global
     RNG when None) and moved to ``device`` (default CUDA).  The encoder
     computes in bfloat16, the head in float32.
@@ -58,18 +67,19 @@ class Actor(nn.Module):
                  use_raw_pixels: bool = False, pixel_pool: int = 1,
                  height: int = 50, width: int = 50,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
-                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense",
+                 use_batch_norm: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
-                                pixel_encoder)
+                                pixel_encoder, use_batch_norm)
         self.mu = nn.Linear(hidden[-1], action_dim)
         _init_hidden(self.encoder.modules(), generator)
         final_layer_init(self.mu, generator)
         self.to(dev)
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(self.mu(self.encoder(obs)))
+    def forward(self, obs: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return torch.tanh(self.mu(self.encoder(obs, train)))
 
 
 class GaussianActor(nn.Module):
@@ -110,28 +120,30 @@ class Critic(nn.Module):
     ``hidden[-1]`` → Dense → scalar, the action injected after the state
     trunk as in the DDPG paper.
 
-    Parameters as for :class:`Actor`.  The encoder and the late hidden
-    layer compute in bfloat16 (the action is cast with the features), the
-    head in float32.
+    Parameters and ``use_batch_norm`` as for :class:`Actor`.  The encoder
+    and the late hidden layer compute in bfloat16 (the action is cast with
+    the features), the head in float32.
     """
 
     def __init__(self, obs_shape: Sequence[int], action_dim: int = 2,
                  use_raw_pixels: bool = False, pixel_pool: int = 1,
                  height: int = 50, width: int = 50,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
-                 generator: torch.Generator | None = None, pixel_encoder: str = "dense"):
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense",
+                 use_batch_norm: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
-                                pixel_encoder)
+                                pixel_encoder, use_batch_norm)
         self.head = MLPTrunk(hidden[-1] + action_dim, (hidden[-1],))
         self.q = nn.Linear(hidden[-1], 1)
         _init_hidden((*self.encoder.modules(), *self.head.modules()), generator)
         final_layer_init(self.q, generator)
         self.to(dev)
 
-    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        h = self.encoder(obs)
+    def forward(self, obs: torch.Tensor, action: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        h = self.encoder(obs, train)
         h = self.head(torch.cat([h, action.to(h.dtype)], dim=-1))
         return self.q(h)[..., 0]
 
@@ -139,18 +151,20 @@ class Critic(nn.Module):
 class TwinCritic(nn.Module):
     """TD3's clipped double-Q pair: two independently initialised critics
     (the JAX package stacks their params on a leading axis of 2 and vmaps
-    one critic).  ``forward`` → (2, B); ``q1`` → the first critic's Q."""
+    one critic, its batch statistics stacked the same way).  ``forward`` →
+    (2, B); ``q1`` → the first critic's Q."""
 
     def __init__(self, *args, generator: torch.Generator | None = None, **kwargs):
         super().__init__()
         self.critics = nn.ModuleList(
             Critic(*args, generator=generator, **kwargs) for _ in range(2))
 
-    def forward(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        return torch.stack([c(obs, action) for c in self.critics])
+    def forward(self, obs: torch.Tensor, action: torch.Tensor,
+                train: bool = False) -> torch.Tensor:
+        return torch.stack([c(obs, action, train) for c in self.critics])
 
-    def q1(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
-        return self.critics[0](obs, action)
+    def q1(self, obs: torch.Tensor, action: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return self.critics[0](obs, action, train)
 
 
 class ValueNetwork(nn.Module):
@@ -321,3 +335,68 @@ class QNetwork(nn.Module):
             a = out["advantage"]
             return out["value"] + a - a.mean(dim=-1, keepdim=True)
         return out["q"]
+
+
+class NAFNetwork(nn.Module):
+    """Normalized Advantage Function heads over the :class:`Actor`'s encoder,
+    the port of flax ``NAFNetwork``: ``value`` (V(s), → (B,)), ``mu`` (tanh,
+    → (B, action_dim)) and ``l_entries`` (the n(n+1)/2 entries of the lower
+    triangle of L(s)), each with the final-layer init; ``forward(obs,
+    train=False)`` → (v, mu, l_entries).  ``A(s, a) = −½‖Lᵀ(a − µ)‖²`` and
+    ``Q = V + A`` are the static :meth:`advantage` and :meth:`q_value`.
+
+    Parameters and ``use_batch_norm`` as for :class:`Actor`.  The encoder
+    computes in bfloat16, the heads in float32.
+    """
+
+    # Bounds of L's log-diagonal (exp(d) in [e⁻⁵, e²]), the JAX class's.
+    LOG_DIAG_MIN = -5.0
+    LOG_DIAG_MAX = 2.0
+
+    def __init__(self, obs_shape: Sequence[int], action_dim: int = 2,
+                 use_raw_pixels: bool = False, pixel_pool: int = 1,
+                 height: int = 50, width: int = 50,
+                 hidden: Sequence[int] = DEFAULT_HIDDEN, device=None,
+                 generator: torch.Generator | None = None, pixel_encoder: str = "dense",
+                 use_batch_norm: bool = False):
+        super().__init__()
+        dev = resolve_device(device)
+        self.encoder = _encoder(obs_shape, use_raw_pixels, hidden, pixel_pool, height, width,
+                                pixel_encoder, use_batch_norm)
+        self.value = nn.Linear(hidden[-1], 1)
+        self.mu = nn.Linear(hidden[-1], action_dim)
+        self.l_entries = nn.Linear(hidden[-1], action_dim * (action_dim + 1) // 2)
+        _init_hidden(self.encoder.modules(), generator)
+        for head in (self.value, self.mu, self.l_entries):
+            final_layer_init(head, generator)
+        self.to(dev)
+
+    def forward(self, obs: torch.Tensor, train: bool = False):
+        h = self.encoder(obs, train)
+        return self.value(h)[..., 0], torch.tanh(self.mu(h)), self.l_entries(h)
+
+    @staticmethod
+    def lower_triangular(l_flat: torch.Tensor, action_dim: int) -> torch.Tensor:
+        """(…, n(n+1)/2) entries → L (…, n, n): filled row by row in
+        ``tril_indices`` order, the diagonal clamped to [LOG_DIAG_MIN,
+        LOG_DIAG_MAX] and exponentiated, in the JAX version's operations."""
+        rows, cols = torch.tril_indices(action_dim, action_dim, device=l_flat.device)
+        L = torch.zeros(l_flat.shape[:-1] + (action_dim, action_dim), dtype=l_flat.dtype,
+                        device=l_flat.device)
+        L[..., rows, cols] = l_flat
+        diag = torch.diagonal(L, dim1=-2, dim2=-1)
+        d = torch.clamp(diag, NAFNetwork.LOG_DIAG_MIN, NAFNetwork.LOG_DIAG_MAX)
+        eye = torch.eye(action_dim, dtype=l_flat.dtype, device=l_flat.device)
+        return (L - eye * diag[..., None, :]) + eye * torch.exp(d)[..., None, :]
+
+    @staticmethod
+    def advantage(l_flat: torch.Tensor, mu: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        """A(s, a) = −½ (a − µ)ᵀ L Lᵀ (a − µ)."""
+        L = NAFNetwork.lower_triangular(l_flat, mu.shape[-1])
+        ld = L.transpose(-1, -2) @ (action - mu)[..., None]
+        return -0.5 * torch.sum(ld[..., 0] ** 2, dim=-1)
+
+    @staticmethod
+    def q_value(v: torch.Tensor, l_flat: torch.Tensor, mu: torch.Tensor,
+                action: torch.Tensor) -> torch.Tensor:
+        return v + NAFNetwork.advantage(l_flat, mu, action)

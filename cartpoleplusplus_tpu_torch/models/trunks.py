@@ -5,7 +5,8 @@ flax modules do (``dtype``/``param_dtype`` split): inputs, weights and
 biases are cast to bfloat16, the product is rounded to bfloat16, then the
 bias is added in bfloat16.  Both pixel encoders are ported: the dense
 embedding of the flat frames and the conv stack (``ConvTrunk``, flax
-``SAME`` padding, NHWC flatten order).  Batch norm is not ported.
+``SAME`` padding, NHWC flatten order).  Batch norm (``use_batch_norm``) is
+flax ``nn.BatchNorm``'s: :class:`BatchNorm`.
 """
 
 from __future__ import annotations
@@ -85,6 +86,46 @@ class ConvTrunk(nn.Module):
         return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1).to(torch.float32)
 
 
+FLAX_BN_MOMENTUM = 0.99
+FLAX_BN_EPS = 1e-5
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(use_running_average=not train, dtype=float32)``
+    over the features of a (B, F) batch: parameters ``weight`` and ``bias``
+    (flax ``scale`` and ``bias``, init 1 and 0), float32 buffers ``mean``
+    and ``var`` (flax's ``batch_stats``, init 0 and 1).
+
+    ``forward(x, train)``: in float32, ``(x − m)·rsqrt(v + FLAX_BN_EPS)·weight
+    + bias``.  In train mode ``m`` and ``v`` are the batch's mean and biased
+    variance, ``E[x²] − E[x]²`` clipped at 0 (flax's fast variance), the
+    gradient flowing through both, and the buffers move in place to
+    ``FLAX_BN_MOMENTUM·buffer + (1 − FLAX_BN_MOMENTUM)·batch stat``; in eval
+    mode they are the buffers.  Not ``nn.BatchNorm1d``: its running variance is the
+    unbiased one and it carries an int64 ``num_batches_tracked``, which the
+    Polyak target update cannot average.
+    """
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.to(torch.float32)
+        if train:
+            mean = x.mean(dim=0)
+            var = torch.clamp((x * x).mean(dim=0) - mean * mean, min=0.0)
+            with torch.no_grad():
+                for buf, stat in ((self.mean, mean), (self.var, var)):
+                    buf.mul_(FLAX_BN_MOMENTUM).add_(stat, alpha=1.0 - FLAX_BN_MOMENTUM)
+        else:
+            mean, var = self.mean, self.var
+        return (x - mean) * (torch.rsqrt(var + FLAX_BN_EPS) * self.weight) + self.bias
+
+
 class MLPTrunk(nn.Module):
     """Hidden FC stack with ReLU; float32 out."""
 
@@ -108,7 +149,10 @@ class ObsEncoder(nn.Module):
     """Input processing: low-dim flatten, or a pixel encoder of the frame
     stack (``pixel_encoder`` "dense": one dense embedding of the flat
     frames; "conv": :class:`ConvTrunk` over the frames stacked in the
-    channel axis), then the MLP trunk.
+    channel axis), then with ``use_batch_norm`` a :class:`BatchNorm` of
+    those features in float32, then the MLP trunk.  ``forward(obs,
+    train=False)``: ``train`` selects the batch norm's mode, as flax's
+    ``__call__(obs, train)`` does (``nn.Module.training`` is not read).
 
     ``in_features``: flattened observation width (repeats × frame width).
     uint8 pixel observations are decoded to [0, 1] in ``dtype``; either
@@ -118,7 +162,8 @@ class ObsEncoder(nn.Module):
     def __init__(self, in_features: int, use_raw_pixels: bool = False,
                  hidden: Sequence[int] = DEFAULT_HIDDEN, pixel_embed: int = 256,
                  pixel_pool: int = 1, height: int = 50, width: int = 50,
-                 dtype: torch.dtype = torch.bfloat16, pixel_encoder: str = "dense"):
+                 dtype: torch.dtype = torch.bfloat16, pixel_encoder: str = "dense",
+                 use_batch_norm: bool = False):
         super().__init__()
         if pixel_encoder not in ("dense", "conv"):
             raise ValueError(f"pixel_encoder must be 'dense' or 'conv', got {pixel_encoder!r}")
@@ -137,6 +182,7 @@ class ObsEncoder(nn.Module):
             embed_in = in_features // (pixel_pool * pixel_pool)
             self.pixel_embed = nn.Linear(embed_in, pixel_embed)
             trunk_in = pixel_embed
+        self.batch_norm = BatchNorm(trunk_in) if use_batch_norm else None
         self.trunk = MLPTrunk(trunk_in, hidden, dtype)
 
     def _pool(self, obs: torch.Tensor) -> torch.Tensor:
@@ -153,7 +199,7 @@ class ObsEncoder(nn.Module):
         x = obs.reshape(lead + (planes, h // k, k, w // k, k))
         return x.mean(dim=(-3, -1)).reshape(lead + (-1,))
 
-    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+    def forward(self, obs: torch.Tensor, train: bool = False) -> torch.Tensor:
         if self.use_raw_pixels:
             if obs.dtype == torch.uint8:
                 scale = torch.tensor(1.0 / 255.0, dtype=self.dtype, device=obs.device)
@@ -168,4 +214,6 @@ class ObsEncoder(nn.Module):
                 x = torch.relu(dense(self.pixel_embed, x, self.dtype)).to(torch.float32)
         else:
             x = flatten_obs(obs)
+        if self.batch_norm is not None:
+            x = self.batch_norm(x, train)
         return self.trunk(x)

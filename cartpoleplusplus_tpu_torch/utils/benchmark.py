@@ -29,6 +29,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import subprocess
@@ -175,14 +176,21 @@ def bench_config(opts):
     )
 
 
-def build(opts):
+def build(opts, lap=lambda name: None):
     """(state, segment) for the configured loop; ``segment(state) ->
     (state, metrics)`` runs ``steps_per_segment`` env steps and returns
-    device scalars.  Resolves ``opts.render_raster`` when it is None."""
+    device scalars.  Resolves ``opts.render_raster`` when it is None.
+    ``lap(name)`` is called after each stage: the imports (``imports_s``),
+    the vector env (``venv_s``), ``torch._dynamo``'s import, which the
+    learner's first ``torch.optim`` ``add_param_group`` would make
+    (``dynamo_import_s``), and the learner or the sim-only reset
+    (``learner_s``)."""
     from cartpoleplusplus_tpu_torch.agents import ddpg
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
     from cartpoleplusplus_tpu_torch.render import prefer_raster
+
+    lap("imports_s")
 
     dev = resolve_device(getattr(opts, "device", None))
     config = bench_config(opts)
@@ -199,9 +207,11 @@ def build(opts):
     )
     venv = make_venv(config, opts.num_envs, device=dev, **render)
     e, steps = opts.num_envs, opts.steps_per_segment
+    lap("venv_s")
 
     if opts.sim_only:
         states, obs = venv.reset(torch.Generator(device=dev).manual_seed(0))
+        lap("learner_s")
 
         @torch.no_grad()
         def sim_segment(carry):
@@ -217,6 +227,8 @@ def build(opts):
 
         return (states, obs, torch.zeros((e,), dtype=torch.bool, device=dev)), sim_segment
 
+    importlib.import_module("torch._dynamo")
+    lap("dynamo_import_s")
     st = ddpg.init_state(SimpleNamespace(seed=0, replay_capacity=opts.replay_capacity),
                          config, venv, actor_lr=1e-4, critic_lr=1e-3,
                          pixel_pool=getattr(opts, "pixel_pool", 1))
@@ -224,6 +236,7 @@ def build(opts):
         venv, gamma=0.99, tau=0.005, batch_size=opts.batch_size, warmup_steps=0,
         steps_per_segment=steps, ou_theta=0.15, ou_sigma=0.2,
     )
+    lap("learner_s")
     return st, lambda st: (st, train_segment(st))
 
 
@@ -292,14 +305,33 @@ def best_window(windows, env_steps_per_segment: int):
 def run(opts) -> dict:
     """One row: build, one warm segment, ``bench_windows`` timed windows
     (:func:`timed_windows`), then the card's mix rate → the row's JSON
-    dict, the best window's rate as ``value``."""
+    dict, the best window's rate as ``value``.  ``_split_s`` holds the
+    host seconds of each stage: the card's context (``cuda_init_s``), the
+    kernel library's load (``library_s``), :func:`build`'s imports, vector
+    env and learner (networks, Adam, replay), the warm segment, the windows
+    and the mix probe."""
     dev = resolve_device(getattr(opts, "device", None))
     cuda = dev.type == "cuda"
+    split, t = {}, time.monotonic()
+
+    def lap(name: str) -> None:
+        nonlocal t
+        if cuda:
+            torch.cuda.synchronize(dev)
+        now = time.monotonic()
+        split[name] = round(now - t, 3)
+        t = now
+
     if cuda:
+        torch.zeros((), device=dev)
+        lap("cuda_init_s")
+        kernels.library()
+        lap("library_s")
         torch.cuda.reset_peak_memory_stats(dev)
-    st, segment = build(opts)
+    st, segment = build(opts, lap)
     st, m = segment(st)
     float(m["reward"])  # sync: read one device scalar
+    lap("warm_s")
 
     prof = None
     if opts.trace_dir:
@@ -313,6 +345,7 @@ def run(opts) -> dict:
     finally:
         if prof is not None:
             prof.stop()
+    lap("windows_s")
 
     per_step = opts.steps_per_segment * opts.num_envs
     sps, (segs_run, dt), window_sps = best_window(windows, per_step)
@@ -325,6 +358,7 @@ def run(opts) -> dict:
     peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20 if cuda else None
     mix = roofline.measure_chain(MIX_CHAIN, device=dev)["el_ops_per_s"] if cuda else None
     ceiling = census_ceiling(opts, mix) if mix else None
+    lap("mix_probe_s")
     row = {
         "metric": name,
         "value": round(sps, 1),
@@ -345,6 +379,7 @@ def run(opts) -> dict:
         "_mix_ops_per_s": mix,
         "_census_ops_per_step": census_ops_per_step(opts),
         "_render_raster": bool(getattr(opts, "render_raster", False)) and not opts.lowdim,
+        "_split_s": split,
     }
     if prof is not None:
         os.makedirs(opts.trace_dir, exist_ok=True)
@@ -466,10 +501,25 @@ def _child_env():
     return env
 
 
+def _split_child(result: dict, spawned_at: float, wall_s: float) -> None:
+    """Complete a child row's ``_split_s`` with what only the parent sees:
+    ``start_s`` (the interpreter's start and the imports, up to the child's
+    ``main``), ``exit_s`` (from its result to its exit) and the child's
+    whole ``wall_s``."""
+    split = result.get("_split_s")
+    entered = result.pop("_main_at", None)
+    if split is None or entered is None:
+        return
+    split["start_s"] = round(entered - spawned_at, 3)
+    split["exit_s"] = round(wall_s - split["start_s"] - result.pop("_main_s"), 3)
+    split["wall_s"] = round(wall_s, 3)
+
+
 def _run_row_subprocess(argv, timeout_s):
     """One row attempt in a watchdogged child → its JSON dict, or None.
     The child's stderr is forwarded.  A child killed at the watchdog after
     it printed its result (hung in teardown) is salvaged."""
+    spawned_at = time.time()
     try:
         proc = subprocess.run(argv, timeout=timeout_s, capture_output=True, text=True,
                               env=_child_env())
@@ -490,6 +540,8 @@ def _run_row_subprocess(argv, timeout_s):
     result = _parse_last_json(proc.stdout)
     if result is None:
         print("# row attempt printed no JSON line", file=sys.stderr)
+    else:
+        _split_child(result, spawned_at, time.time() - spawned_at)
     return result
 
 
@@ -594,6 +646,7 @@ def make_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
+    main_at, t_main = time.time(), time.monotonic()
     opts = make_parser().parse_args(argv)
     cuda = torch.device(opts.device).type == "cuda"
 
@@ -614,6 +667,9 @@ def main(argv=None) -> int:
 
     if opts.single or opts.lowdim:
         result = run(opts)
+        # When and how long this process ran main: a suite's parent, which
+        # spawned it as a row's child, completes the row's _split_s from them.
+        result.update(_main_at=main_at, _main_s=round(time.monotonic() - t_main, 3))
         _emit(result)
         record_last_measured(result)
         return 0

@@ -1,5 +1,9 @@
 """Parameter conversion from the JAX package's flax trees, and the readers
-of a JAX DDPG, SAC, PPO, LRPG or DQN checkpoint.
+of a JAX DDPG, SAC, PPO, LRPG, DQN or NAF checkpoint.
+
+A flax variables dict (``{"params": …, "batch_stats": …}``) carries its
+batch norm's running statistics in ``batch_stats``; they become the
+encoder's ``batch_norm.mean``/``batch_norm.var`` buffers.
 
 Takes plain numpy (a flax params tree converted with ``np.asarray``, or
 read by :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`), so neither
@@ -35,9 +39,29 @@ def _conv(tree, prefix: str) -> dict[str, torch.Tensor]:
     }
 
 
-def _encoder(enc, prefix: str) -> dict[str, torch.Tensor]:
-    """flax ``ObsEncoder_0`` → ``{prefix}encoder.*``."""
+def _vector(a) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(a, np.float32).copy())
+
+
+def _variables(tree):
+    """A flax params tree or variables dict → (params, batch_stats or None)."""
+    if "params" in tree:
+        return tree["params"], tree.get("batch_stats")
+    return tree, None
+
+
+def _encoder(enc, prefix: str, stats=None) -> dict[str, torch.Tensor]:
+    """flax ``ObsEncoder_0`` params (and its ``batch_stats``, ``stats``) →
+    ``{prefix}encoder.*``; ``BatchNorm_0``'s ``scale``/``bias`` and
+    ``mean``/``var`` → ``encoder.batch_norm.{weight,bias,mean,var}``."""
     out = {}
+    if "BatchNorm_0" in enc:
+        bn = f"{prefix}encoder.batch_norm"
+        out[f"{bn}.weight"] = _vector(enc["BatchNorm_0"]["scale"])
+        out[f"{bn}.bias"] = _vector(enc["BatchNorm_0"]["bias"])
+        if stats is not None:
+            out[f"{bn}.mean"] = _vector(stats["BatchNorm_0"]["mean"])
+            out[f"{bn}.var"] = _vector(stats["BatchNorm_0"]["var"])
     if "pixel_embed" in enc:
         out.update(_linear(enc["pixel_embed"], f"{prefix}encoder.pixel_embed"))
     if "ConvTrunk_0" in enc:
@@ -51,12 +75,11 @@ def _encoder(enc, prefix: str) -> dict[str, torch.Tensor]:
 
 
 def _encoder_and_heads(tree, *heads: str) -> dict[str, torch.Tensor]:
-    """flax params of an ``ObsEncoder_0`` and Dense heads (with or without
-    the top-level ``"params"``) → a state_dict of ``encoder.*`` and the
-    heads under their flax names."""
-    if "params" in tree:
-        tree = tree["params"]
-    out = _encoder(tree["ObsEncoder_0"], "")
+    """flax params of an ``ObsEncoder_0`` and Dense heads (or a variables
+    dict, whose ``batch_stats`` are read too) → a state_dict of
+    ``encoder.*`` and the heads under their flax names."""
+    tree, stats = _variables(tree)
+    out = _encoder(tree["ObsEncoder_0"], "", None if stats is None else stats["ObsEncoder_0"])
     for head in heads:
         out.update(_linear(tree[head], head))
     return out
@@ -70,7 +93,9 @@ def actor_params_from_flax(tree) -> dict[str, torch.Tensor]:
     pixel encoder), ``ObsEncoder_0/ConvTrunk_0/conv{i}`` →
     ``encoder.conv_trunk.convs.{i}`` (conv pixel encoder; HWIO kernels become
     OIHW), ``ObsEncoder_0/MLPTrunk_0/hidden{i}`` →
-    ``encoder.trunk.hidden.{i}`` and ``mu`` → ``mu``.
+    ``encoder.trunk.hidden.{i}`` and ``mu`` → ``mu``; with batch norm,
+    ``ObsEncoder_0/BatchNorm_0`` → ``encoder.batch_norm`` (its running
+    statistics from a variables dict's ``batch_stats``).
     """
     return _encoder_and_heads(tree, "mu")
 
@@ -99,6 +124,14 @@ def discrete_policy_params_from_flax(tree) -> dict[str, torch.Tensor]:
     return _encoder_and_heads(tree, "logits")
 
 
+def naf_network_params_from_flax(tree) -> dict[str, torch.Tensor]:
+    """flax ``NAFNetwork`` params or variables → a state_dict for
+    :class:`~cartpoleplusplus_tpu_torch.models.networks.NAFNetwork`:
+    ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` maps it (batch
+    norm included), and the heads ``value``, ``mu`` and ``l_entries``."""
+    return _encoder_and_heads(tree, "value", "mu", "l_entries")
+
+
 def q_network_params_from_flax(tree) -> dict[str, torch.Tensor]:
     """flax ``QNetwork`` params (with or without the top-level ``"params"``)
     → a state_dict for
@@ -121,8 +154,9 @@ def q_network_params_from_flax(tree) -> dict[str, torch.Tensor]:
     return out
 
 
-def _critic_tree(tree, prefix: str) -> dict[str, torch.Tensor]:
-    return {**_encoder(tree["ObsEncoder_0"], prefix),
+def _critic_tree(tree, prefix: str, stats=None) -> dict[str, torch.Tensor]:
+    enc_stats = None if stats is None else stats["ObsEncoder_0"]
+    return {**_encoder(tree["ObsEncoder_0"], prefix, enc_stats),
             **_linear(tree["MLPTrunk_0"]["hidden0"], f"{prefix}head.hidden.0"),
             **_linear(tree["q"], f"{prefix}q")}
 
@@ -133,18 +167,19 @@ def critic_params_from_flax(tree) -> dict[str, torch.Tensor]:
     or, for TD3's twin-stacked params (every leaf with a leading axis of
     2), for :class:`~cartpoleplusplus_tpu_torch.models.networks.TwinCritic`.
 
-    Maps ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` does,
+    Maps ``ObsEncoder_0/…`` as :func:`actor_params_from_flax` does (a
+    variables dict's ``batch_stats`` too, stacked as the params are),
     ``MLPTrunk_0/hidden0`` (the layer after the action is joined) →
     ``head.hidden.0`` and ``q`` → ``q``.
     """
-    if "params" in tree:
-        tree = tree["params"]
+    tree, stats = _variables(tree)
     if np.ndim(tree["q"]["kernel"]) == 3:
         out = {}
         for i in range(2):
-            out.update(_critic_tree(_index_tree(tree, i), f"critics.{i}."))
+            out.update(_critic_tree(_index_tree(tree, i), f"critics.{i}.",
+                                    None if stats is None else _index_tree(stats, i)))
         return out
-    return _critic_tree(tree, "")
+    return _critic_tree(tree, "", stats)
 
 
 def _index_tree(tree, i: int):
@@ -186,9 +221,11 @@ def ddpg_params_from_jax_checkpoint(path: str) -> dict:
       frames for pixel runs);
     - ``env_steps``: the vectorized step counter, an int.
 
-    Read with :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`, so
-    neither flax nor msgpack is needed.  The optimizer states, the replay
-    and the RNG key are not carried over.
+    With ``--use-batch-norm`` each network's ``batch_stats`` come with it
+    (twin critics' stacked on axis 0, as their params).  Read with
+    :mod:`~cartpoleplusplus_tpu_torch.utils.flax_msgpack`, so neither flax
+    nor msgpack is needed.  The optimizer states, the replay and the RNG key
+    are not carried over.
     """
     raw = flax_msgpack.load(path)
     return {
@@ -255,6 +292,20 @@ def dqn_params_from_jax_checkpoint(path: str) -> dict:
     raw = flax_msgpack.load(path)
     return {"params": q_network_params_from_flax(raw["params"]),
             "target_params": q_network_params_from_flax(raw["target_params"]),
+            **_carried(raw)}
+
+
+def naf_params_from_jax_checkpoint(path: str) -> dict:
+    """A checkpoint of the JAX NAF trainer (flax msgpack of its
+    ``NAFState``) → the port's pieces, on the CPU: ``net`` and
+    ``target_net`` (:class:`NAFNetwork` state_dicts from its ``variables``
+    and ``target_variables``, batch statistics included), and
+    ``env_states``, ``obs`` and ``env_steps`` as
+    :func:`ddpg_params_from_jax_checkpoint` gives them.  The optimizer
+    state, the replay, the OU noise and the RNG key are not carried over."""
+    raw = flax_msgpack.load(path)
+    return {"net": naf_network_params_from_flax(raw["variables"]),
+            "target_net": naf_network_params_from_flax(raw["target_variables"]),
             **_carried(raw)}
 
 

@@ -28,10 +28,11 @@ set to 0 just before it and read just after:
   as above;
 - the card's element-op rate probe (K6): six op chains timed at N and 2N
   iterations;
-- the port's bench (``bench_torch.py``, its four-row suite, each row in a
-  child process of its own): four row lines and the summary, every row on
-  the card with its mix rate measured there, the low-dim row's metric
-  without ``_pixel_render``;
+- the port's bench (``bench_torch.py``'s four-row suite, its parent run in
+  this process, each row in a child process of its own): four row lines
+  and the summary, every row on the card with its mix rate measured there
+  and its child's seconds split by stage (``_split_s``), the low-dim row's
+  metric without ``_pixel_render``;
 - the conv pixel encoder (``conv``): the JAX pixel-TD3 checkpoint
   (an xz copy of ``runs/ckpt_pixels_td3/ckpt_15000.msgpack`` in
   ``chip_inputs/``, its bytes checked by sha256, read by
@@ -48,8 +49,9 @@ set to 0 just before it and read just after:
   resume to 4, a ``--ckpt-skip-replay`` save and resume, ``--eval-only``
   on the latest and the best checkpoint; finite losses, the JAX jsonl
   fields, monotonic env steps and checkpoint numbers, restored networks
-  byte-equal to the saved ones, the eval-only eval equal to a fresh eval
-  of the in-memory actor;
+  and the whole restored state (replay, optimizers, env states,
+  generator) byte-equal to the saved ones, the eval-only eval equal to a
+  fresh eval of the in-memory actor;
 - the SAC cross-load (``sac_crossload``): the JAX config-5 SAC checkpoint's
   GaussianActor (its leaves in ``chip_inputs/sac_cfg5_15000_actor.npz``,
   sha256 checked) on the card against the CPU on the eval's first
@@ -79,7 +81,18 @@ set to 0 just before it and read just after:
   saved one, the eval-only eval equal to a fresh eval of the in-memory
   policy, K2 and K4 launched on every update (its reset), PPO's
   ``clip_frac`` in [0, 1], LRPG's sampled actions indices in [0, 5) and its
-  episodes at most 40 steps.
+  episodes at most 40 steps;
+- the JAX full Rainbow checkpoint's QNetwork card against CPU and its
+  greedy eval on 64 low-dim envs (``dqn_crossload``), and the DQN program
+  with the Rainbow flags at config 5 (``dqn_cli``);
+- the NAF program (``naf_cli``): ``naf.main`` in-process at config 5 with
+  batch norm and the NAF recipe's optimiser flags (512 envs, conv encoder,
+  replay 8192, batch 256) through the runs of ``ddpg_cli``, with its
+  checks and NAF's own (the whole restored state byte-equal to the saved
+  one, the batch statistics moved, the first update's target step the
+  Polyak step of parameters and statistics), then three updates of its
+  saved network card against CPU: V, µ and ``l_entries`` within the bf16
+  bound, the running statistics within 1e-3 in norm.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -120,16 +133,17 @@ from __future__ import annotations
 import argparse
 import collections
 import contextlib
+import copy
 import dataclasses
 import faulthandler
 import hashlib
+import io
 import json
 import lzma
 import math
 import os
 import re
 import shutil
-import signal
 import subprocess
 import sys
 import tempfile
@@ -141,14 +155,14 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, ppo, sac
+from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, naf, ppo, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
 from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import (
-    Actor, DiscretePolicy, GaussianActor, QNetwork, TwinCritic)
+    Actor, DiscretePolicy, GaussianActor, NAFNetwork, QNetwork, TwinCritic)
 from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
@@ -227,9 +241,12 @@ CONFIG2_EXACT_WIDE = CartpoleConfig(num_cameras=2, obs_samples=0,
 LARGE_FRAME_ENVS = 256
 # The bench's low-dim row: 8192 envs, no renderer.
 LOWDIM_ENVS = 8192
-# The bench phase runs bench_torch.py's suite as a child process: each row in
-# a child of its own, watchdogged at BENCH_ROW_TIMEOUT_S; the whole suite is
-# killed BENCH_MARGIN_S before this script's own watchdog would fire.
+# The bench phase runs bench_torch.py's suite parent in this process, which has
+# torch imported and the kernels built (a child process would pay an
+# interpreter's start and the imports again, about 10 s on an H100 host), and
+# each of the suite's rows in a child of its own, as the suite does.  A row child is killed at its timeout: BENCH_ROW_TIMEOUT_S, or
+# less where the four would not end BENCH_MARGIN_S before this script's own
+# watchdog fires.
 BENCH_ROW_TIMEOUT_S = 60
 BENCH_MARGIN_S = 10
 
@@ -355,6 +372,29 @@ DQN_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pix
 DQN_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", "eps",
                     "mean_reward", "eval_ep_len", "eval_ep_rew"]
 DQN_EVENT_FIELDS = {**EVENT_FIELDS, "train": DQN_TRAIN_FIELDS}
+# The NAF program at config 5 (naf_cli phase): scripts/sweep.sh's NAF recipe's
+# optimiser and exploration flags (lr 3e-4 cosine, reward scale 0.1, clip 10,
+# OU σ annealed to 0.05 over 100000 steps) with batch norm, on the conv
+# encoder at the default widths, 512 envs (the pixel recipes' count), batch
+# 256, and a replay of 8192 (16 blocks of 512), a cut in depth from the
+# recipe's 131072.  NAF_UPDATES updates of its saved network are then held
+# card against CPU on rows of its saved replay: V, µ and l_entries each
+# within CONV_ATOL times its own max |CPU value| (its heads start at ±3e-3,
+# so their outputs may be no larger than CONV_ATOL itself) and within half
+# of what the update moved it on the CPU (one update moves V by about that
+# relative bound, so the bound alone would pass a card that skipped it),
+# the running statistics within NAF_STATS_RTOL in norm.
+NAF_ENVS = 512
+NAF_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
+            f"--num-envs {NAF_ENVS} --replay-capacity 8192 --batch-size 256 "
+            "--steps-per-segment 25 --warmup-steps 1 --learning-rate 3e-4 --lr-schedule cosine "
+            "--reward-scale 0.1 --grad-clip 10 --ou-sigma-min 0.05 --ou-decay-steps 100000 "
+            "--use-batch-norm --num-eval 64 --eval-freq 2 --ckpt-freq 1").split()
+NAF_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", "mean_reward",
+                    "eval_ep_len", "eval_ep_rew"]
+NAF_EVENT_FIELDS = {**EVENT_FIELDS, "train": NAF_TRAIN_FIELDS}
+NAF_UPDATES = 3
+NAF_STATS_RTOL = 1e-3
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -1080,25 +1120,6 @@ def lowdim_parity(scene, venv, rigid, force, name: str) -> dict:
             "byte_equal_to_k2_per_repeat": byte_equal, "max_abs_err_vs_plain_cpu": err}
 
 
-def run_group(argv: list, timeout_s: float, cwd: str) -> tuple[int, str, str]:
-    """Run ``argv`` in a process group of its own → (rc, stdout, stderr);
-    at ``timeout_s`` the whole group (the bench and its row children) is
-    killed and TimeoutError raised."""
-    proc = subprocess.Popen(argv, cwd=cwd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
-    try:
-        out, err = proc.communicate(timeout=timeout_s)
-    except subprocess.TimeoutExpired:
-        os.killpg(proc.pid, signal.SIGKILL)
-        out, err = proc.communicate()
-        raise TimeoutError(f"{argv} killed after {timeout_s:.0f} s:\n{out}\n{err[-4000:]}")
-    finally:
-        if proc.poll() is None:
-            os.killpg(proc.pid, signal.SIGKILL)
-            proc.wait()
-    return proc.returncode, out, err
-
-
 def bench_check(out: str) -> tuple[list, dict, dict]:
     """The bench suite's stdout → (row lines, summary line, checks): four
     row lines in ROW_SPECS' order, then the summary last; every row on
@@ -1508,7 +1529,7 @@ def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamesp
     with --ckpt-best); a --ckpt-skip-replay save and resume to 3;
     --eval-only on the latest and on --ckpt-best.  Spies on
     checkpoint.save/restore_latest (the networks at each save and after
-    each restore; with ``whole`` the whole state dict too),
+    each restore; with ``whole`` the whole state dict too, at step 2),
     ``agent.make_segment`` (each segment's seconds and launches) and
     eval_rollout (its seconds) → what the runs left behind."""
     ckpt_dir, lean_dir = os.path.join(work, "ckpt"), os.path.join(work, "lean")
@@ -1519,7 +1540,7 @@ def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamesp
     def spy_save(real):
         def save(d, step, tree, skip_replay=False):
             saved[(d, step)] = net_state(tree)
-            if whole:
+            if whole and step == 2:  # the saves restored_whole_equals_saved compares
                 saved_whole[(d, step)] = host_tree(tree.state_dict())
             return real(d, step, tree, skip_replay)
         return save
@@ -1529,7 +1550,7 @@ def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamesp
             out, step = real(d, target)
             if step is not None:
                 restored.append((d, step, net_state(out), out.replay.size))
-                if whole:
+                if whole and step == 2:
                     restored_whole[(d, step)] = host_tree(out.state_dict())
             return out, step
         return restore
@@ -1644,7 +1665,7 @@ def cli_line(r: SimpleNamespace, argv: list, fresh: tuple, checks: dict) -> dict
 def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
     """``ddpg.main`` in-process at config 5 full width through
     :func:`drive_cli`'s runs, and its checks."""
-    r = drive_cli(ddpg, CLI_ARGV, work)
+    r = drive_cli(ddpg, CLI_ARGV, work, whole=True)
     # A fresh eval of the in-memory actor at its last save, same generator seed.
     actor = Actor(CONFIG5.obs_shape, device=dev, **TD3_NET)
     actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
@@ -1653,6 +1674,7 @@ def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
     checks = cli_checks(r, fresh, EVENT_FIELDS, 20, NUM_ENVS, 8192)
     checks["resume_numbering"] = checks["resume_numbering"] and r.files_after_resume == [
         "ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt", "ckpt_best.pt.json"]
+    checks["restored_whole_equals_saved"] = restored_whole_equals_saved(r)
     return cli_line(r, CLI_ARGV, fresh, checks), r.launches
 
 
@@ -1662,7 +1684,7 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
     :func:`drive_cli`'s runs; the checks of ``ddpg_cli`` and SAC's own:
     ``alpha`` at or above ``--alpha-min`` on every trained segment, and
     ``log_alpha`` and ``alpha_opt`` in the checkpoint."""
-    r = drive_cli(sac, SAC_ARGV, work)
+    r = drive_cli(sac, SAC_ARGV, work, whole=True)
     actor = GaussianActor(CONFIG5.obs_shape, device=dev, **TD3_NET)
     actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
     fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), sac.greedy_act(actor),
@@ -1679,6 +1701,7 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
         and math.exp(float(log_alpha)) >= SAC_ALPHA_MIN * (1 - 1e-6),
         "checkpoint_holds_alpha_opt": bool(alpha_opt.get("state")),
         "restored_log_alpha": "log_alpha" in r.resume[(r.ckpt_dir, 2)][0],
+        "restored_whole_equals_saved": restored_whole_equals_saved(r),
     })
     line = cli_line(r, SAC_ARGV, fresh, checks)
     line["log_alpha"] = None if log_alpha is None else float(log_alpha)
@@ -1788,13 +1811,9 @@ def dqn_cli(work: str, dev) -> tuple[dict, dict]:
     lean_trains = [e for e in r.lean_events if e["event"] == "train"]
     actions = r.last_raw["replay"]["action"]
     priority = r.last_raw["replay"]["priority"]
-    no_replay = lambda tree: {k: v for k, v in tree.items() if k != "replay"}
     checks.update({
         "eps_zero": all(e["eps"] == 0.0 for e in r.trains + lean_trains),
-        "restored_state_equals_saved": trees_equal(r.restored_whole[(r.ckpt_dir, 2)],
-                                                   r.saved_whole[(r.ckpt_dir, 2)])
-        and trees_equal(no_replay(r.restored_whole[(r.lean_dir, 2)]),
-                        no_replay(r.saved_whole[(r.lean_dir, 2)])),
+        "restored_state_equals_saved": restored_whole_equals_saved(r),
         "actions_in_range": actions.dtype == torch.int32 and int(actions.min()) >= 0
         and int(actions.max()) < 5,
         "priorities_written_back": len(writes) > 0 and len(writes) == len(samples)
@@ -1985,6 +2004,166 @@ def lrpg_cli(work: str, dev) -> tuple[dict, dict]:
     })
     line = onpolicy_line(r, LRPG_ARGV, fresh, checks)
     line["sampled_action_range"] = actions
+    return line, r.launches
+
+
+def naf_update_parity(raw: dict, dev) -> dict:
+    """NAF_UPDATES updates of a naf_cli checkpoint's conv NAFNetwork with
+    batch norm (its network, target and Adam state), on the card and on the
+    CPU from the same weights, statistics and batches: rows of its saved
+    replay at offsets drawn once on the host, with the recipe's γ, τ,
+    reward scale and clip at a constant 3e-4.  After each update, V, µ and
+    l_entries of an eval-mode forward on the replay's first 256 rows, card
+    against CPU (within CONV_ATOL times the output's max |CPU value|, and
+    within half of the update's move of that output on the CPU: nearer the
+    CPU's output after the update than before it), and the online and
+    target running statistics (within NAF_STATS_RTOL in norm); on the card
+    the target's step is held to the Polyak step (``target_step_err``)."""
+    hp = dict(gamma=0.99, tau=0.005, reward_scale=0.1, grad_clip=10.0)
+    rep = raw["replay"]
+
+    def side(where):
+        net, target = (NAFNetwork(CONFIG5.obs_shape, device=where, use_batch_norm=True, **TD3_NET)
+                       for _ in range(2))
+        net.load_state_dict(raw["variables"])
+        target.load_state_dict(raw["target_variables"])
+        target.requires_grad_(False)
+        opt, _ = ddpg.adam(net, 3e-4)
+        # A copy: on the CPU, load_state_dict would keep raw's moments, and
+        # the first side's steps would move them under the second.
+        opt.load_state_dict(copy.deepcopy(raw["opt"]))
+        opt.param_groups[0]["lr"] = 3e-4
+        replay = replay_mod.ReplayState(
+            **{k: rep[k].to(where) for k in ("s1", "action", "reward", "s2", "terminal",
+                                             "priority")},
+            cursor=int(rep["cursor"]), size=int(rep["size"]), block=int(rep["block"]))
+        return naf.NAFState(net=net, target_net=target, opt=opt, sched=None, replay=replay,
+                            env_states=None, obs=None, ou_noise=None, generator=None)
+
+    cpu, card = side("cpu"), side(dev)
+    batch = int(NAF_ARGV[NAF_ARGV.index("--batch-size") + 1])
+    gen = torch.Generator().manual_seed(SEED)
+    offsets = [replay_mod.sample_offsets(cpu.replay, batch, gen) for _ in range(NAF_UPDATES)]
+    probe = replay_mod.decode_obs(cpu.replay.s1[:batch])
+    train_once = naf.make_train_once(**hp)
+    stat = lambda sd: {k: v for k, v in sd.items() if k.endswith(("batch_norm.mean",
+                                                                   "batch_norm.var"))}
+    rel = lambda a, b: float(torch.linalg.vector_norm(a.cpu().double() - b.double())
+                             / torch.linalg.vector_norm(b.double()))
+    with torch.no_grad():
+        prev_c = cpu.net(probe)
+    updates = []
+    for off in offsets:
+        losses = {}
+        t0 = [v.clone() for v in card.target_net.state_dict().values()]
+        for name, st in (("cpu", cpu), ("card", card)):
+            where = st.replay.s1.device
+            losses[name] = float(train_once(st, replay_mod.sample(st.replay, batch,
+                                                                  offsets=off.to(where))))
+        step_err = target_step_err(t0, list(card.net.state_dict().values()),
+                                   list(card.target_net.state_dict().values()), hp["tau"])
+        with torch.no_grad():
+            out_c = cpu.net(probe)
+            out_g = card.net(probe.to(dev))
+        errs = {k: float((g.cpu() - c).abs().max())
+                for k, g, c in zip(("value", "mu", "l_entries"), out_g, out_c)}
+        stats = {f"{which}.{k.rsplit('.', 1)[1]}": rel(v, stat(getattr(cpu, which).state_dict())[k])
+                 for which in ("net", "target_net")
+                 for k, v in stat(getattr(card, which).state_dict()).items()}
+        scale = {k: float(c.abs().max()) for k, c in zip(errs, out_c)}
+        bound = {k: CONV_ATOL * scale[k] for k in errs}
+        moved = {k: float((c - p).abs().max()) for k, c, p in zip(errs, out_c, prev_c)}
+        prev_c = out_c
+        updates.append(dict(losses=losses, max_abs_err=errs, scale=scale, bound=bound,
+                            max_rel_err={k: errs[k] / max(scale[k], 1e-30) for k in errs},
+                            update_moved=moved, stats_rel_err=stats,
+                            target_step_rel_err=step_err,
+                            finite=all(bool(torch.isfinite(g).all()) for g in out_g)))
+    checks = {
+        "outputs_within_bound": all(u["max_abs_err"][k] <= u["bound"][k]
+                                    for u in updates for k in u["bound"]),
+        "outputs_within_half_update": all(u["max_abs_err"][k] < 0.5 * u["update_moved"][k]
+                                          for u in updates for k in u["bound"]),
+        "stats_within_bound": all(v <= NAF_STATS_RTOL for u in updates
+                                  for v in u["stats_rel_err"].values()),
+        "target_moved_by_tau": all(u["target_step_rel_err"] < TARGET_STEP_RTOL for u in updates),
+        "finite": all(u["finite"] and all(map(math.isfinite, u["losses"].values()))
+                      for u in updates),
+        "stats_moved": not all(torch.equal(v.cpu(), raw["variables"][k])
+                               for k, v in stat(card.net.state_dict()).items()),
+    }
+    return dict(updates=updates, batch=batch, rel_bound=CONV_ATOL, stats_rtol=NAF_STATS_RTOL,
+                hyperparameters={**hp, "learning_rate": 3e-4}, checks=checks)
+
+
+def restored_whole_equals_saved(r: SimpleNamespace) -> bool:
+    """A :func:`drive_cli` run with ``whole``: the state restored from the
+    full file of step 2 byte-equal to the one saved, and the one restored
+    from the skip-replay file equal to its save but for the replay."""
+    no_replay = lambda tree: {k: v for k, v in tree.items() if k != "replay"}
+    return trees_equal(r.restored_whole[(r.ckpt_dir, 2)], r.saved_whole[(r.ckpt_dir, 2)]) \
+        and trees_equal(no_replay(r.restored_whole[(r.lean_dir, 2)]),
+                        no_replay(r.saved_whole[(r.lean_dir, 2)]))
+
+
+def naf_cli(work: str, dev) -> tuple[dict, dict]:
+    """``naf.main`` in-process at config 5 with the NAF recipe's optimiser
+    flags and batch norm (512 envs, conv encoder, replay 8192, batch 256)
+    through :func:`drive_cli`'s runs; the checks of ``ddpg_cli`` and NAF's
+    own: the restored state (networks with their statistics, Adam, schedule,
+    replay, env states, obs, OU noise, generator, ``env_steps``) byte-equal
+    to the saved one, the checkpoint's online statistics moved from (0, 1),
+    the first update's target step (parameters, and the statistics alone)
+    the Polyak step of the online network, K2 and K4 launched once per
+    segment, and :func:`naf_update_parity` on the last checkpoint."""
+    first = []
+
+    def spy_make(real):
+        def make(**kw):
+            train_once = real(**kw)
+
+            def once(st, batch):
+                if first:
+                    return train_once(st, batch)
+                keys = list(st.target_net.state_dict())
+                t0 = [v.clone() for v in st.target_net.state_dict().values()]
+                loss = train_once(st, batch)
+                first.append((keys, t0, [v.clone() for v in st.net.state_dict().values()],
+                              [v.clone() for v in st.target_net.state_dict().values()],
+                              kw["tau"]))
+                return loss
+            return once
+        return make
+
+    with patched(naf, "make_train_once", spy_make):
+        r = drive_cli(naf, NAF_ARGV, work, whole=True)
+    net = NAFNetwork(CONFIG5.obs_shape, device=dev, use_batch_norm=True, **TD3_NET)
+    net.load_state_dict(r.saved[(r.ckpt_dir, 4)]["net"])
+    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), naf.greedy_act(net),
+                         torch.Generator(device=dev).manual_seed(SEED + 1))
+    checks = cli_checks(r, fresh, NAF_EVENT_FIELDS, 25, NAF_ENVS, 8192, loss_keys=("loss",))
+    keys, t0, online, t1, tau = first[0]
+    is_stat = [k.endswith(("batch_norm.mean", "batch_norm.var")) for k in keys]
+    pick = lambda vs: [v for v, s in zip(vs, is_stat) if s]
+    step_err = target_step_err(t0, online, t1, tau)
+    stats_step_err = target_step_err(pick(t0), pick(online), pick(t1), tau)
+    sd = r.last_raw["variables"]
+    parity = naf_update_parity(r.last_raw, dev)
+    checks.update({
+        "restored_whole_equals_saved": restored_whole_equals_saved(r),
+        "batch_norm_stats_moved": float(sd["encoder.batch_norm.mean"].abs().max()) > 0.0
+        and float((sd["encoder.batch_norm.var"] - 1.0).abs().max()) > 0.0,
+        "target_moved_by_tau": step_err < TARGET_STEP_RTOL,
+        "target_stats_moved_by_tau": sum(is_stat) == 2 and stats_step_err < TARGET_STEP_RTOL,
+        "reset_kernels_every_segment": len(r.seg_launches) == 7 and all(
+            d["step_substeps"] == 1 and d["render_batched"] == 1 for d in r.seg_launches),
+        **{f"card_vs_cpu_{k}": v for k, v in parity["checks"].items()},
+    })
+    line = cli_line(r, NAF_ARGV, fresh, checks)
+    line.update(segment_launches=r.seg_launches, target_step_rel_err=step_err,
+                target_stats_step_rel_err=stats_step_err, card_vs_cpu=parity,
+                batch_norm={k.rsplit(".", 1)[1]: [float(sd[k].min()), float(sd[k].max())]
+                            for k in ("encoder.batch_norm.mean", "encoder.batch_norm.var")})
     return line, r.launches
 
 
@@ -2543,22 +2722,24 @@ def run() -> int:
          device_kernels=len(device_ms), top_device_ms_per_step=dict(top),
          training=training)
 
-    # 10. the port's bench: bench_torch.py's suite in a child process, the
-    # four rows of the JAX bench, each in a child of its own.  The suite's own
-    # card probe (a child that only multiplies on the card) is off: this
-    # script has found the card, and each row's watchdog bounds a lost one.
-    argv = [sys.executable, "bench_torch.py", "--row-timeout", str(BENCH_ROW_TIMEOUT_S),
-            "--row-attempts", "1", "--probe-timeout", "0",
-            *(f"--{k.replace('_', '-')}={v}" for k, v in
-                                     SMOKE_WINDOWS.items())]
+    # 10. the port's bench: bench_torch.py's suite (its main, in this
+    # process), the four rows of the JAX bench, each in a child of its own.
+    # The suite's own card probe (a child that only multiplies on the card) is
+    # off: this script has found the card, and each row's timeout bounds a
+    # lost one.
     budget = WATCHDOG_S - (time.monotonic() - t0) - BENCH_MARGIN_S
-    rc, out, err = run_group(argv, budget, os.path.dirname(os.path.abspath(__file__)))
-    bench_rows, summary, bench_checks = bench_check(out)
+    row_timeout = min(BENCH_ROW_TIMEOUT_S, budget / len(benchmark.ROW_SPECS))
+    argv = ["--row-timeout", f"{row_timeout:.1f}", "--row-attempts", "1", "--probe-timeout", "0",
+            *(f"--{k.replace('_', '-')}={v}" for k, v in SMOKE_WINDOWS.items())]
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = benchmark.main(argv)
+    bench_rows, summary, bench_checks = bench_check(out.getvalue())
     bench_checks["exit_0"] = rc == 0
-    emit("bench", argv=argv[1:], rc=rc, rows=bench_rows,
+    emit("bench", argv=argv, rc=rc, rows=bench_rows,
          summary={k: v for k, v in summary.items() if k != "rows"}, checks=bench_checks)
     if not all(bench_checks.values()):
-        raise AssertionError(f"bench checks failed: {bench_checks}\n{err[-4000:]}")
+        raise AssertionError(f"bench checks failed: {bench_checks}\n{err.getvalue()[-4000:]}")
 
     # 11. the conv pixel encoder at the TD3 recipe's shape (25×25×18 NHWC →
     # 512 → (100, 50)) with the JAX checkpoint's weights, card against CPU
@@ -2639,9 +2820,20 @@ def run() -> int:
     emit("dqn_cli", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"dqn_cli checks failed: {line['checks']}")
+
+    # 21. the NAF program: naf.main with batch norm at config 5 (K1-K4), and
+    # three updates of its saved network card against CPU
+    work = tempfile.mkdtemp(prefix="chip_smoke_naf_")
+    try:
+        line, launches_by_path["naf_cli"] = naf_cli(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("naf_cli", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"naf_cli checks failed: {line['checks']}")
     for row in rows:
         for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
-                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli"):
+                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "naf_cli"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

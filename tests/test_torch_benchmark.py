@@ -99,7 +99,7 @@ def test_best_of_n_reports_fastest_window_and_every_window_extends(monkeypatch):
     at the size the previous one reached; the best window is the value."""
     calls = {"n": 0}
 
-    def fake_build(opts):
+    def fake_build(opts, lap=None):
         def segment(st):
             calls["n"] += 1
             return st, {"reward": torch.tensor(1.0)}
@@ -124,7 +124,7 @@ def test_failing_row_raises_with_no_retry(monkeypatch):
     render mode."""
     built = []
 
-    def build(opts):
+    def build(opts, lap=None):
         built.append(opts.render_raster)
 
         def segment(st):

@@ -97,7 +97,7 @@ def test_config_from_opts_matches_jax(name):
 UNPORTED = {
     "--event-log-out x.events": "item 4", "--export-policy x.pt2": "item 6",
     "--tb-dir tb": "item 5",
-    "--use-batch-norm": "item 3", "--num-devices 2": "item 7",
+    "--num-devices 2": "item 7",
     "--num-processes 2 --coordinator h:1": "item 7",
 }
 

@@ -1,8 +1,8 @@
 """The port stands alone: it never imports JAX, flax, optax, msgpack or the
 JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
-scripts/torch_{sac,ppo,lrpg}_lowdim.py, scripts/torch_dqn_rainbow.py and
-scripts/export_{sac_actor,dqn_q}_npz.py), its CLIs (DDPG, SAC, PPO, LRPG and
-DQN) answer ``--help`` where JAX is not
+scripts/torch_{sac,ppo,lrpg}_lowdim.py, scripts/torch_dqn_rainbow.py,
+scripts/torch_naf_anneal.py and scripts/export_{sac_actor,dqn_q}_npz.py), its
+CLIs (DDPG, SAC, PPO, LRPG, DQN and NAF) answer ``--help`` where JAX is not
 importable, and its entry points refuse to fall back to the CPU quietly."""
 
 import os
@@ -44,10 +44,11 @@ runpy.run_path("scripts/torch_lrpg_lowdim.py", run_name="not_main")
 runpy.run_path("scripts/export_sac_actor_npz.py", run_name="not_main")
 runpy.run_path("scripts/torch_dqn_rainbow.py", run_name="not_main")
 runpy.run_path("scripts/export_dqn_q_npz.py", run_name="not_main")
+runpy.run_path("scripts/torch_naf_anneal.py", run_name="not_main")
 for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer",
              "cartpoleplusplus_tpu_torch.agents.ppo", "cartpoleplusplus_tpu_torch.agents.lrpg",
              "cartpoleplusplus_tpu_torch.utils.learning_run",
-             "cartpoleplusplus_tpu_torch.agents.dqn"):
+             "cartpoleplusplus_tpu_torch.agents.dqn", "cartpoleplusplus_tpu_torch.agents.naf"):
     assert name in sys.modules, name
 from cartpoleplusplus_tpu_torch.replay import buffer
 for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
@@ -74,8 +75,8 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr
     # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too,
-    # and agents.{ppo,lrpg,dqn}, utils.learning_run
-    assert int(out.stdout.split()[-1]) >= 35
+    # and agents.{ppo,lrpg,dqn,naf}, utils.learning_run
+    assert int(out.stdout.split()[-1]) >= 36
 
 
 @pytest.mark.parametrize("agent,flags", [
@@ -88,6 +89,8 @@ def test_port_never_imports_jax():
     ("lrpg", ("--num-devices", "--reward-calc", "--pixel-encoder", "--device")),
     ("dqn", ("--double-q", "--no-double-q", "--dueling", "--c51", "--c51-vmax", "--noisy",
              "--eps-start", "--per", "--n-step", "--num-devices", "--device")),
+    ("naf", ("--use-batch-norm", "--ou-sigma-min", "--ou-decay-steps", "--reward-scale",
+             "--grad-clip", "--lr-schedule", "--num-devices", "--device")),
 ])
 def test_cli_help_without_jax(agent, flags):
     """``python -m cartpoleplusplus_tpu_torch.agents.<agent> --help`` where
@@ -112,7 +115,8 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
                                    "DiscretePolicy", "ppo_init_state", "ppo_make_train_step",
                                    "ppo_main", "lrpg_init_state", "lrpg_make_train_step",
                                    "lrpg_main", "QNetwork", "dqn_init_state", "dqn_make_segment",
-                                   "dqn_main"])
+                                   "dqn_main", "NAFNetwork", "naf_init_state",
+                                   "naf_make_segment", "naf_main"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
     ``init_state`` and ``make_segment`` run on their vector env's device;
@@ -120,12 +124,12 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     from types import SimpleNamespace
 
     from cartpoleplusplus_tpu_torch import resolve_device
-    from cartpoleplusplus_tpu_torch.agents import ddpg, dqn, lrpg, ppo, sac
+    from cartpoleplusplus_tpu_torch.agents import ddpg, dqn, lrpg, naf, ppo, sac
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
     from cartpoleplusplus_tpu_torch.models.networks import (
-        Actor, Critic, DiscretePolicy, GaussianActor, QNetwork, ValueNetwork)
+        Actor, Critic, DiscretePolicy, GaussianActor, NAFNetwork, QNetwork, ValueNetwork)
 
     cfg = CartpoleConfig(discrete_actions=False, use_raw_pixels=True, num_cameras=2,
                          obs_pool=2, obs_samples=2)
@@ -156,7 +160,8 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     def cli(run, device=None):
         argv = (onpolicy_toy if run in (ppo.main, lrpg.main) else toy) + (
             [] if device is None else ["--device", device])
-        return run(argv) if run in (ddpg.main, sac.main, ppo.main, lrpg.main, dqn.main) else run(
+        return run(argv) if run in (ddpg.main, sac.main, ppo.main, lrpg.main, dqn.main,
+                                    naf.main) else run(
             ddpg.make_parser().parse_args(argv))
     build = {
         "make_venv": lambda **kw: make_venv(cfg, 4, **kw),
@@ -191,6 +196,10 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
             venv_on(**kw), eps_start=1.0, eps_end=0.05, eps_decay_steps=10,
             **{k: v for k, v in seg_kw.items() if not k.startswith("ou_")}),
         "dqn_main": lambda **kw: cli(dqn.main, **kw),
+        "NAFNetwork": lambda **kw: NAFNetwork(cfg.obs_shape, use_batch_norm=True, **net_kw, **kw),
+        "naf_init_state": lambda **kw: naf.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
+        "naf_make_segment": lambda **kw: naf.make_segment(venv_on(**kw), **seg_kw),
+        "naf_main": lambda **kw: cli(naf.main, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
