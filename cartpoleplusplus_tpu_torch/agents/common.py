@@ -1,8 +1,9 @@
 """Agent wiring shared by the agents: port of
 cartpoleplusplus_tpu.agents.common — the CLI flag groups, the vector-env
 construction, greedy evaluation, the schedule and replay-sizing helpers,
-and the checkpoint startup (restore-if-present, ``--ckpt-best``,
-``--eval-only``).
+the checkpoint startup (restore-if-present, ``--ckpt-best``,
+``--eval-only``) and the greedy episodes ``--event-log-out`` records
+(:func:`record_eval_episodes`).
 
 Every JAX flag is parsed with its name, default and choices.  A flag that
 asks for what the port does not have yet stops the run at startup
@@ -55,7 +56,8 @@ def add_agent_opts(parser: argparse.ArgumentParser) -> None:
                              "episode length so far; --eval-only --ckpt-best "
                              "restores it instead of the latest checkpoint")
     parser.add_argument("--event-log-out", type=str, default=None,
-                        help="not ported yet: refused at startup")
+                        help="after training (or --eval-only), record greedy episodes "
+                             "to this event log")
     parser.add_argument("--eval-only", action="store_true",
                         help="restore the latest --ckpt-dir checkpoint and run the "
                              "greedy eval without training")
@@ -135,8 +137,6 @@ def add_lr_schedule_opt(parser) -> None:
 
 # (attribute, flag, predicate on its value, the ROADMAP item that brings it)
 UNPORTED = (
-    ("event_log_out", "--event-log-out", lambda v: v is not None,
-     "Queue 1 item 4 (the per-env AoS step, which the event log rolls)"),
     ("export_policy", "--export-policy", lambda v: v is not None, "Queue 1 item 6 (export)"),
     ("tb_dir", "--tb-dir", lambda v: v is not None,
      "Queue 1 item 5 (the remaining utils: the TensorBoard half of metrics)"),
@@ -372,7 +372,8 @@ def run_eval_only(opts, logger, restored_step, eval_venv: VectorCartpole,
                   act_fn: Callable[[torch.Tensor], torch.Tensor]) -> float:
     """``--eval-only``: one greedy eval of the restored policy (generator
     seeded from ``--seed`` + 1, as the training loop's evals are), logged as
-    an ``eval_only`` event; nothing is trained.  Nothing restored is a hard
+    an ``eval_only`` event, then :func:`event_log_tail`; nothing is
+    trained.  Nothing restored is a hard
     error: evaluating fresh random weights would read as a regressed
     policy."""
     if restored_step is None:
@@ -381,8 +382,63 @@ def run_eval_only(opts, logger, restored_step, eval_venv: VectorCartpole,
     elen, erew = eval_rollout(eval_venv, act_fn, gen)
     logger.log("eval_only", segment=restored_step, eval_ep_len=float(elen),
                eval_ep_rew=float(erew))
+    event_log_tail(opts, eval_venv, act_fn, logger)
     logger.close()
     return float(elen)
+
+
+def record_eval_episodes(config, act_fn: Callable[[torch.Tensor], torch.Tensor], path: str,
+                         num_episodes: int = 3, seed: int = 0, raster: bool = False,
+                         device=None) -> list[int]:
+    """Record ``num_episodes`` greedy episodes to the event log at ``path``
+    → their lengths.
+
+    Each episode is rolled on the per-env step (the AoS engine) through
+    ``random_agent.run_episode``, which owns the event convention (post-step
+    poses, velocity rows, done flags), with ``act_fn`` (obs (E, …) →
+    actions, given one env's obs as a batch of one) for its random draws;
+    the resets draw from a generator seeded with ``seed``.  Pixel configs
+    observe through the render kernels at one env
+    (``gym_env.pixel_observers``) in the training run's cast mode,
+    ``raster``.  GIFs then come from ``python -m
+    cartpoleplusplus_tpu_torch.utils.event_log --log-file X --gif-out D``.
+    """
+    from cartpoleplusplus_tpu_torch.agents.random_agent import run_episode
+    from cartpoleplusplus_tpu_torch.env.gym_env import pixel_observers
+    from cartpoleplusplus_tpu_torch.utils.event_log import EventLog
+
+    dev = resolve_device(device)
+    scene = cartpole.scene_for(config)
+    reset_observe, step_observe = pixel_observers(config, dev, raster)
+    reset_fn = lambda g: cartpole.reset(config, scene, g, reset_observe, device=dev)
+    step_fn = lambda s, a: cartpole.step(config, scene, s, a, step_observe)
+    policy = lambda obs: act_fn(obs[None])[0]
+    generator = torch.Generator(device=dev).manual_seed(seed)
+    log = EventLog(path)
+    lengths = []
+    for _ in range(num_episodes):
+        steps, _, events = run_episode(config, scene, step_fn, reset_fn, generator,
+                                       collect=True, policy=policy)
+        log.add_episode(events)
+        lengths.append(steps)
+    log.close()
+    return lengths
+
+
+def event_log_tail(opts, eval_venv: VectorCartpole,
+                   act_fn: Callable[[torch.Tensor], torch.Tensor], logger) -> None:
+    """``--event-log-out``: the end of a run (after training or
+    ``--eval-only``) records greedy episodes of ``act_fn`` on the eval
+    env's config and device (:func:`record_eval_episodes`, seeded from
+    ``--seed``) and logs an ``event_log`` event of their count and
+    lengths."""
+    if not getattr(opts, "event_log_out", None):
+        return
+    lengths = record_eval_episodes(eval_venv.config, act_fn, opts.event_log_out,
+                                   seed=opts.seed,
+                                   raster=bool(getattr(opts, "render_raster", False)),
+                                   device=eval_venv.device)
+    logger.log("event_log", episodes=len(lengths), lengths=lengths)
 
 
 _RIGID = ("pos", "quat", "vel", "ang")
@@ -459,7 +515,7 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
     ``fields(metrics)`` (:func:`replay_fields` for DDPG and SAC),
     ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
     ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
-    ``--ckpt-best``.  Closes ``logger``."""
+    ``--ckpt-best``; then :func:`event_log_tail`.  Closes ``logger``."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
     best = BestCkptKeeper(opts)
     final_eval = 0.0
@@ -475,6 +531,7 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:
         checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+    event_log_tail(opts, eval_venv, act_fn, logger)
     logger.close()
     return final_eval
 
@@ -490,8 +547,8 @@ def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
     only), logged as a ``train`` event of ``update``, the agent's
     ``fields(update, metrics)``, ``eval_ep_len`` and ``eval_ep_rew``;
     ``ckpt_<update>`` every ``--ckpt-freq`` and at the end;
-    ``ckpt_best`` on improvement with ``--ckpt-best``.  Closes
-    ``logger``."""
+    ``ckpt_best`` on improvement with ``--ckpt-best``; then
+    :func:`event_log_tail`.  Closes ``logger``."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
     best = BestCkptKeeper(opts)
     final_eval = 0.0
@@ -507,5 +564,6 @@ def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:
         checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+    event_log_tail(opts, eval_venv, act_fn, logger)
     logger.close()
     return final_eval

@@ -47,6 +47,7 @@ from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.noise import ou_init, ou_step
+from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LearningRate = float | Callable[[int], float]
 LEARNER_SPAN = "ddpg.train_once"
@@ -61,10 +62,10 @@ class DDPGState:
     critic: Critic | TwinCritic
     target_actor: Actor
     target_critic: Critic | TwinCritic
-    actor_opt: torch.optim.Adam
-    critic_opt: torch.optim.Adam
-    actor_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
-    critic_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    actor_opt: Adam
+    critic_opt: Adam
+    actor_sched: Optional[Schedule]
+    critic_sched: Optional[Schedule]
     replay: ReplayState
     env_states: EnvState
     obs: torch.Tensor        # (E, *obs_shape): the previous step's raw obs
@@ -338,13 +339,14 @@ def make_segment(
 
 
 def adam(module: torch.nn.Module, lr: LearningRate):
-    """optax.adam: torch's Adam at its defaults (β 0.9/0.999, ε 1e-8 outside
-    the square root, bias correction); a schedule from ``common.make_lr``
-    becomes a LambdaLR stepped after every update."""
+    """optax.adam on the module's parameters: the port's :class:`Adam`
+    (torch's Adam at its defaults, outside ``torch.optim``); a schedule
+    from ``common.make_lr`` becomes a :class:`Schedule` stepped after every
+    update."""
     if not callable(lr):
-        return torch.optim.Adam(module.parameters(), lr=lr), None
-    opt = torch.optim.Adam(module.parameters(), lr=1.0)
-    return opt, torch.optim.lr_scheduler.LambdaLR(opt, lr)
+        return Adam(module.parameters(), lr=lr), None
+    opt = Adam(module.parameters(), lr=1.0)
+    return opt, Schedule(opt, lr)
 
 
 def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4,

@@ -41,6 +41,7 @@ from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
+from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "dqn.train_once"
 
@@ -52,8 +53,8 @@ class DQNState:
 
     q: QNetwork
     target_q: QNetwork
-    opt: torch.optim.Adam
-    sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    opt: Adam
+    sched: Optional[Schedule]
     replay: ReplayState
     env_states: EnvState
     obs: torch.Tensor        # (E, *obs_shape): the previous step's raw obs

@@ -35,6 +35,7 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
 from cartpoleplusplus_tpu_torch.models.networks import DiscretePolicy
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
+from cartpoleplusplus_tpu_torch.utils.optim import Adam
 
 METRIC_KEYS = ("loss", "ep_len", "ep_rew")
 _TINY = torch.finfo(torch.float32).tiny
@@ -47,7 +48,7 @@ class LRPGState:
     state: every update resets every env."""
 
     policy: DiscretePolicy
-    opt: torch.optim.Adam
+    opt: Adam
     generator: torch.Generator
     update: int = 0
 
@@ -177,7 +178,7 @@ def init_state(opts, config, venv: VectorCartpole, lr: float = 1e-3,
                             width=config.obs_width, hidden=tuple(hidden), pixel_pool=pixel_pool,
                             device=dev, generator=torch.Generator().manual_seed(opts.seed),
                             pixel_encoder=pixel_encoder)
-    return LRPGState(policy=policy, opt=torch.optim.Adam(policy.parameters(), lr=lr),
+    return LRPGState(policy=policy, opt=Adam(policy.parameters(), lr=lr),
                      generator=torch.Generator(device=dev).manual_seed(opts.seed))
 
 

@@ -44,6 +44,7 @@ from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.noise import ou_init, ou_step
+from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "naf.train_once"
 
@@ -55,8 +56,8 @@ class NAFState:
 
     net: NAFNetwork
     target_net: NAFNetwork
-    opt: torch.optim.Adam
-    sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    opt: Adam
+    sched: Optional[Schedule]
     replay: ReplayState
     env_states: EnvState
     obs: torch.Tensor        # (E, *obs_shape): the previous step's raw obs

@@ -38,6 +38,7 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import GaussianActor, ValueNetwork
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
+from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 METRIC_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "clip_frac", "approx_kl",
                "mean_reward", "done_frac")
@@ -52,8 +53,8 @@ class PPOState:
 
     actor: GaussianActor
     value: ValueNetwork
-    opt: torch.optim.Adam
-    sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    opt: Adam
+    sched: Optional[Schedule]
     env_states: EnvState
     obs: torch.Tensor        # (E, *obs_shape): the observation to act on next
     generator: torch.Generator

@@ -41,6 +41,7 @@ from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
+from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "sac.train_once"
 METRIC_KEYS = ("critic_loss", "actor_loss", "alpha", "entropy")
@@ -57,12 +58,12 @@ class SACState:
     actor: GaussianActor
     critic: TwinCritic
     target_critic: TwinCritic
-    actor_opt: torch.optim.Adam
-    critic_opt: torch.optim.Adam
-    actor_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
-    critic_sched: Optional[torch.optim.lr_scheduler.LambdaLR]
+    actor_opt: Adam
+    critic_opt: Adam
+    actor_sched: Optional[Schedule]
+    critic_sched: Optional[Schedule]
     log_alpha: torch.Tensor
-    alpha_opt: torch.optim.Adam
+    alpha_opt: Adam
     replay: ReplayState
     env_states: EnvState
     obs: torch.Tensor        # (E, *obs_shape): the previous step's raw obs
@@ -304,7 +305,7 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 3e-4
         target_critic=copy.deepcopy(critic).requires_grad_(False),
         actor_opt=actor_opt, critic_opt=critic_opt,
         actor_sched=actor_sched, critic_sched=critic_sched,
-        log_alpha=log_alpha, alpha_opt=torch.optim.Adam([log_alpha], lr=alpha_lr),
+        log_alpha=log_alpha, alpha_opt=Adam([log_alpha], lr=alpha_lr),
         replay=replay, env_states=env_states, obs=obs, generator=gen,
     )
 

@@ -1,7 +1,9 @@
-"""Batched functional cartpole++ environment: reset and step on tensors.
+"""Functional cartpole++ environment: reset and step on tensors.
 
-Port of the batched path of cartpoleplusplus_tpu.env.cartpole
-(``reset_batched``/``step_batched`` and their helpers).  Semantics:
+Port of cartpoleplusplus_tpu.env.cartpole: the per-env ``reset``/``step``
+over the AoS engine (physics/engine.py), which the gym env, the random
+agent and the event log roll, and the batched ``reset_batched``/
+``step_batched`` over the kernels' hooks.  Semantics:
 
   * reset: cart at origin, pole upright with a small random tilt, then a
     random planar push of ``initial_force`` N for ``initial_force_steps``
@@ -12,9 +14,9 @@ Port of the batched path of cartpoleplusplus_tpu.env.cartpole
     beyond ``angle_threshold``, or the episode length cap.
   * reward: +1 per surviving step, or a ``reward_calc`` shaped variant.
 
-Randomness comes from an explicit ``torch.Generator``; ``reset_batched``
-also takes pre-drawn ``theta``/``jitter`` so a test can feed the JAX and
-PyTorch versions the same numbers.
+Randomness comes from an explicit ``torch.Generator``; both resets also
+take pre-drawn ``theta``/``jitter`` so a test can feed the JAX and PyTorch
+versions the same numbers.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from cartpoleplusplus_tpu_torch.env.config import (
     REWARD_ANGLE_ACTION,
     CartpoleConfig,
 )
-from cartpoleplusplus_tpu_torch.physics import math3d
+from cartpoleplusplus_tpu_torch import resolve_device
+from cartpoleplusplus_tpu_torch.physics import engine, math3d
 from cartpoleplusplus_tpu_torch.physics.bodies import (
     POLE,
     RigidState,
@@ -40,6 +43,7 @@ from cartpoleplusplus_tpu_torch.physics.bodies import (
     make_scene,
     rest_state,
 )
+from cartpoleplusplus_tpu_torch.physics.contacts import scene_consts
 
 # Batched substepper (scene, rigid, force (E, 3), n) → rigid.
 PhysicsFn = Callable[[SceneParams, RigidState, torch.Tensor, int], RigidState]
@@ -51,11 +55,13 @@ SimFn = Callable[[SceneParams, RigidState, torch.Tensor], tuple]
 
 @dataclasses.dataclass
 class EnvState:
-    """Batched env state: rigid bodies, per-env step counter and done flag."""
+    """Env state: rigid bodies, step counter and done flag; batched (E, …)
+    or, for the per-env ``reset``/``step``, one env (``steps``/``done`` of
+    shape ())."""
 
     rigid: RigidState
-    steps: torch.Tensor  # (E,) int32
-    done: torch.Tensor  # (E,) bool
+    steps: torch.Tensor  # (E,) or () int32
+    done: torch.Tensor  # (E,) or () bool
 
 
 def scene_for(config: CartpoleConfig) -> SceneParams:
@@ -123,6 +129,36 @@ def _reward(
     return torch.where(violated, torch.zeros_like(base), base)
 
 
+def _draw(shape, generator, theta, jitter, device):
+    """The reset's draws, ``jitter`` of ``shape + (2,)`` standard normals
+    then ``theta`` of ``shape`` in [0, 2π), each from ``generator`` unless
+    given."""
+    if (theta is None or jitter is None) and generator is None:
+        raise ValueError("a reset needs a generator or pre-drawn theta and jitter")
+    if jitter is None:
+        jitter = torch.randn(shape + (2,), generator=generator, device=device)
+    if theta is None:
+        theta = 2.0 * math.pi * torch.rand(shape, generator=generator, device=device)
+    return (theta.to(device=device, dtype=torch.float32),
+            jitter.to(device=device, dtype=torch.float32))
+
+
+def _jittered_rest(config: CartpoleConfig, scene: SceneParams, theta: torch.Tensor,
+                   jitter: torch.Tensor) -> tuple[RigidState, torch.Tensor]:
+    """Rest states with the pole tilted by ``jitter`` (E, 2), and the reset
+    pushes (E, 3) in directions ``theta`` (E,)."""
+    rigid = rest_state(scene, theta.shape[0], theta.device)
+    jit_ang = config.random_theta_jitter * jitter
+    zero = torch.zeros_like(jit_ang[:, :1])
+    axis = torch.cat([jit_ang, zero], dim=-1)
+    angle = torch.linalg.norm(jit_ang, dim=-1) + 1e-12
+    rigid.quat[:, POLE] = math3d.quat_from_axis_angle(axis, angle)
+    push = config.initial_force * torch.stack(
+        [torch.cos(theta), torch.sin(theta), torch.zeros_like(theta)], dim=-1
+    )
+    return rigid, push
+
+
 def reset_batched(
     config: CartpoleConfig,
     scene: SceneParams,
@@ -140,25 +176,8 @@ def reset_batched(
     normal draws scaled by ``random_theta_jitter`` into the pole's tilt.
     Whichever is not given is drawn from ``generator``.
     """
-    if (theta is None or jitter is None) and generator is None:
-        raise ValueError("reset_batched needs a generator or pre-drawn theta and jitter")
-    if jitter is None:
-        jitter = torch.randn((num_envs, 2), generator=generator, device=device)
-    if theta is None:
-        theta = 2.0 * math.pi * torch.rand((num_envs,), generator=generator, device=device)
-    theta = theta.to(device=device, dtype=torch.float32)
-    jitter = jitter.to(device=device, dtype=torch.float32)
-
-    rigid = rest_state(scene, num_envs, device)
-    jit_ang = config.random_theta_jitter * jitter
-    zero = torch.zeros_like(jit_ang[:, :1])
-    axis = torch.cat([jit_ang, zero], dim=-1)
-    angle = torch.linalg.norm(jit_ang, dim=-1) + 1e-12
-    rigid.quat[:, POLE] = math3d.quat_from_axis_angle(axis, angle)
-
-    push = config.initial_force * torch.stack(
-        [torch.cos(theta), torch.sin(theta), torch.zeros_like(theta)], dim=-1
-    )
+    theta, jitter = _draw((num_envs,), generator, theta, jitter, device)
+    rigid, push = _jittered_rest(config, scene, theta, jitter)
     rigid = physics_fn(scene, rigid, push, config.initial_force_steps)
 
     frame = observe_fn(scene, rigid)
@@ -169,6 +188,77 @@ def reset_batched(
         done=torch.zeros((num_envs,), dtype=torch.bool, device=device),
     )
     return state, obs
+
+
+def reset(
+    config: CartpoleConfig,
+    scene: SceneParams,
+    generator: Optional[torch.Generator] = None,
+    observe_fn: Optional[ObserveFn] = None,
+    theta: Optional[torch.Tensor] = None,
+    jitter: Optional[torch.Tensor] = None,
+    device=None,
+) -> tuple[EnvState, torch.Tensor]:
+    """Reset one env → (EnvState, obs (repeats, *frame)), the JAX ``reset``.
+
+    The pole's jitter and the push direction are ``jitter`` (2,) and
+    ``theta`` (), or drawn from ``generator`` in that order; the
+    ``initial_force_steps`` push runs on the AoS engine.  ``observe_fn``
+    (scene, rigid (N, …)) → (N, *frame) renders the frame, repeated over
+    the repeats (default :func:`observe_lowdim`).  ``device``: CUDA unless
+    the caller asks for the CPU (default: the generator's device, else
+    CUDA).
+    """
+    if device is None and generator is not None:
+        device = generator.device
+    device = resolve_device(device)
+    theta, jitter = _draw((), generator, theta, jitter, device)
+    rigid, push = _jittered_rest(config, scene, theta[None], jitter[None])
+    rigid = engine.step_substeps(scene, rigid, push, config.initial_force_steps)
+
+    frame = (observe_fn or observe_lowdim)(scene, rigid)[0]
+    obs = frame[None].expand((config.action_repeats,) + frame.shape)
+    state = EnvState(
+        rigid=rigid.map(lambda x: x[0]),
+        steps=torch.zeros((), dtype=torch.int32, device=device),
+        done=torch.zeros((), dtype=torch.bool, device=device),
+    )
+    return state, obs
+
+
+def step(
+    config: CartpoleConfig,
+    scene: SceneParams,
+    state: EnvState,
+    action: torch.Tensor,
+    observe_fn: Optional[ObserveFn] = None,
+) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Advance one env → (EnvState, obs (repeats, *frame), reward (), done ()),
+    the JAX ``step``.
+
+    ``action_repeats`` repeats of ``steps_per_repeat`` AoS substeps under
+    the action's force; the R post-repeat states go through one
+    ``observe_fn`` call (scene, rigid (R, …)) → (R, *frame) (default
+    :func:`observe_lowdim`).  Termination and reward are the batched ones
+    applied to this env.
+    """
+    action = torch.as_tensor(action, device=state.steps.device)
+    force = action_to_force(config, action[None])[0]
+    rigid, rigids = state.rigid, []
+    consts = scene_consts(scene, force.device)
+    for _ in range(config.action_repeats):
+        rigid = engine.step_substeps(scene, rigid, force, config.steps_per_repeat, consts)
+        rigids.append(rigid)
+    obs = (observe_fn or observe_lowdim)(scene, rigids[0].map(
+        lambda *xs: torch.stack(xs), *rigids[1:]))
+
+    steps = state.steps + 1
+    one = rigid.map(lambda x: x[None])
+    violated = _violation(config, one)[0]
+    done = state.done | violated | (steps >= config.max_episode_len)
+    reward = _reward(config, one, action[None], violated[None])[0]
+    reward = torch.where(state.done, torch.zeros_like(reward), reward)
+    return EnvState(rigid=rigid, steps=steps, done=done), obs, reward, done
 
 
 def simulate_repeats(

@@ -81,15 +81,19 @@ class VectorCartpole:
         self,
         state: EnvState,
         action: torch.Tensor,
-        reset_pool: tuple[EnvState, torch.Tensor],
+        generator: Optional[torch.Generator] = None,
+        reset_pool: Optional[tuple[EnvState, torch.Tensor]] = None,
     ) -> tuple[EnvState, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
         """Auto-resetting step → (states, obs, reward, done, next_obs).
 
         ``obs`` is the transition's s2 (terminal frame for done envs);
-        ``next_obs`` the observation to act on next.  ``reset_pool`` is a
-        precomputed ``reset()`` batch that done envs restart from (the JAX
-        version can also draw a fresh one per step; not ported).
+        ``next_obs`` the observation to act on next.  Done envs restart
+        from ``reset_pool``, a precomputed ``reset()`` batch, or, when none
+        is given, from a fresh reset batch drawn from ``generator`` this
+        step (the reset push and frame: K2 and K4 on the card).
         """
+        if reset_pool is None:
+            reset_pool = self.reset(generator)
         carried, obs, reward, done = self.step_lazy(state, action, reset_pool)
         return carried, obs, reward, done, resolve_obs(done, reset_pool[1], obs)
 

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from cartpoleplusplus_tpu_torch.physics import soa
-from cartpoleplusplus_tpu_torch.physics.bodies import RigidState, SceneParams
+from cartpoleplusplus_tpu_torch.physics.bodies import CART, POLE, RigidState, SceneParams
 from cartpoleplusplus_tpu_torch.render.camera import DEFAULT_CAMERAS, ray_coords, ray_grid
 
 _BIG = 1e9
@@ -63,8 +63,11 @@ def pool_ray_layout(pool: int, height: int, width: int, samples: int = 0):
     return sel, (len(offsets), n, stride)
 
 
-def static_background(dirs, eye):
-    """Host-side static background planes: (ground_value, sky_mask), (P,) f32."""
+def static_background(dirs, eye, return_depth: bool = False):
+    """Host-side static background planes: (ground_value, sky_mask), (P,)
+    f32; with ``return_depth`` also the ground-hit parameter t_g (the
+    direction's scale), which :func:`render_rays` tests the boxes
+    against."""
     ndx, ndy, ndz = (np.asarray(d, np.float32) for d in dirs)
     e = (float(eye[0]), float(eye[1]), float(eye[2]))
     with np.errstate(divide="ignore", invalid="ignore"):
@@ -79,6 +82,8 @@ def static_background(dirs, eye):
         gvalid, np.where(checker, GROUND_B[0], GROUND_A[0]) * shade_g, 0.0
     ).astype(np.float32)
     sky_mask = (~gvalid).astype(np.float32)
+    if return_depth:
+        return ground_val, sky_mask, t_g
     return ground_val, sky_mask
 
 
@@ -161,15 +166,14 @@ def _slab_cast(px, py, setup, half_extents, recip: bool = True):
     box, ``_BIG`` on a miss), the entry face's n·L and the hit mask.
 
     ``recip``: slab times through an exact reciprocal, ``num`` the depth
-    itself and ``den`` 1.  Else the division-free ratio cascade: the slab
-    bounds stay ratios ``n / p`` with ``p > 0`` and are compared by
-    cross-multiplying; ``den`` is 1 on a miss.
+    itself and ``den`` 1.  Else the division-free ratio cascade
+    (:func:`_ratio_cascade`).
     """
     o_l, A, B, C, ldot = setup
     d_l = tuple(A[k] + B[k] * px + C[k] * py for k in range(3))
-    one = torch.ones_like(d_l[0])
 
     if recip:
+        one = torch.ones_like(d_l[0])
         t_lo, t_hi, cand = [], [], []
         for k in range(3):
             s = 2.0 * (d_l[k] >= 0.0).to(d_l[k].dtype) - 1.0
@@ -190,6 +194,15 @@ def _slab_cast(px, py, setup, half_extents, recip: bool = True):
         t = torch.where(hit, t, torch.full_like(t, _BIG))
         return t, one, lam, hit
 
+    return _ratio_cascade(o_l, d_l, half_extents, ldot)
+
+
+def _ratio_cascade(o_l, d_l, half_extents, ldot):
+    """The division-free slab cascade of a ray in the box frame (eye
+    ``o_l``, direction ``d_l``, the box axes' n·L ``ldot``) → (num, den,
+    lambert, hit): slab bounds stay ratios ``n / p`` with ``p > 0``,
+    compared by cross-multiplying; ``den`` is 1 on a miss."""
+    one = torch.ones_like(d_l[0])
     s = tuple(2.0 * (d_l[k] >= 0.0).to(d_l[k].dtype) - 1.0 for k in range(3))
     p = tuple(torch.clamp(s[k] * d_l[k], min=1e-9) for k in range(3))
     so = tuple(s[k] * o_l[k] for k in range(3))
@@ -910,3 +923,61 @@ def make_observe_pixels(config, dtype=torch.uint8, raster: bool = False):
                              quantize, raster)
 
     return observe
+
+
+def _ray_obb_ratio(origin, direction, center, quat, half_extents, light):
+    """Ray vs oriented box by the division-free cascade (the JAX
+    ``_ray_obb_ratio`` with ``light``) → (num, den, lambert, hit).
+    ``origin``: 3 floats; ``direction``: 3 per-ray tensors; ``center``/
+    ``quat``: per-env scalar tensors."""
+    r = soa.q_to_mat(quat)
+    rel = (origin[0] - center[0], origin[1] - center[1], origin[2] - center[2])
+    o_l = tuple(r[0][k] * rel[0] + r[1][k] * rel[1] + r[2][k] * rel[2] for k in range(3))
+    d_l = tuple(r[0][k] * direction[0] + r[1][k] * direction[1] + r[2][k] * direction[2]
+                for k in range(3))
+    ldot = tuple(light[0] * r[0][k] + light[1] * r[1][k] + light[2] * r[2][k] for k in range(3))
+    return _ratio_cascade(o_l, d_l, half_extents, ldot)
+
+
+def render_rays(scene: SceneParams, rigid: RigidState, origin, dirs) -> torch.Tensor:
+    """One env's state (2, …) seen along rays from ``origin`` (3,) in
+    directions ``dirs`` (N, 3) → float32 RGB (N, 3) in [0, 1], on the
+    state's device.  Port of the JAX ``render_rays`` (its ratio cascade,
+    the boxes depth-tested against the ground); a host tool (the event
+    log's pose renderer), not on any training path."""
+    o = np.asarray(origin, np.float32)
+    d = np.asarray(dirs, np.float32)
+    comps = (d[:, 0], d[:, 1], d[:, 2])
+    ground, sky, t_g = static_background(comps, o, return_depth=True)
+    dev = rigid.pos.device
+    as_t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+    ground, sky, t_g = as_t(ground), as_t(sky), as_t(t_g)
+    e = (float(o[0]), float(o[1]), float(o[2]))
+    direction = tuple(as_t(c) for c in comps)
+    pos, quat = rigid.pos.to(torch.float32), rigid.quat.to(torch.float32)
+    cart_c, pole_c = tuple(pos[CART, k] for k in range(3)), tuple(pos[POLE, k] for k in range(3))
+    cart_q, pole_q = tuple(quat[CART, k] for k in range(4)), tuple(quat[POLE, k] for k in range(4))
+    nc, dc, lam_c, hit_c = _ray_obb_ratio(e, direction, cart_c, cart_q,
+                                          scene.cart_half_extents, LIGHT_DIR)
+    np_, dp, lam_p, hit_p = _ray_obb_ratio(e, direction, pole_c, pole_q,
+                                           scene.pole_half_extents, LIGHT_DIR)
+    # Depth order by cross-multiplication (ties → ground, then cart).
+    sel_c = hit_c & (nc < t_g * dc) & (nc * dp <= np_ * dc)
+    sel_p = hit_p & (np_ < t_g * dp) & ~sel_c
+    lambert = torch.clamp(torch.where(sel_c, lam_c, lam_p), min=0.0)
+    shade = _AMBIENT + (1.0 - _AMBIENT) * lambert
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    bgm = ~(sel_c | sel_p)
+    a, b = torch.where(sel_c, shade, zero), torch.where(sel_p, shade, zero)
+    g, sk = torch.where(bgm, ground, zero), torch.where(bgm, sky, zero)
+    return torch.stack([CART_COLOR[k] * a + POLE_COLOR[k] * b + g + SKY_COLOR[k] * sk
+                        for k in range(3)], dim=-1)
+
+
+def frame_to_images(config, frame) -> np.ndarray:
+    """Host-side: flat plane-major frame(s) (…, C·3·H·W) → (…, C, H, W, 3),
+    H and W the pooled frame's (``obs_height``/``obs_width``)."""
+    h, w, c = config.obs_height, config.obs_width, config.num_cameras
+    arr = frame.cpu().numpy() if isinstance(frame, torch.Tensor) else np.asarray(frame)
+    planes = arr.reshape(arr.shape[:-1] + (c, 3, h, w))
+    return np.moveaxis(planes, -3, -1)

@@ -29,7 +29,6 @@ Usage:
 from __future__ import annotations
 
 import argparse
-import importlib
 import json
 import os
 import subprocess
@@ -181,9 +180,7 @@ def build(opts, lap=lambda name: None):
     (state, metrics)`` runs ``steps_per_segment`` env steps and returns
     device scalars.  Resolves ``opts.render_raster`` when it is None.
     ``lap(name)`` is called after each stage: the imports (``imports_s``),
-    the vector env (``venv_s``), ``torch._dynamo``'s import, which the
-    learner's first ``torch.optim`` ``add_param_group`` would make
-    (``dynamo_import_s``), and the learner or the sim-only reset
+    the vector env (``venv_s``), and the learner or the sim-only reset
     (``learner_s``)."""
     from cartpoleplusplus_tpu_torch.agents import ddpg
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
@@ -227,8 +224,6 @@ def build(opts, lap=lambda name: None):
 
         return (states, obs, torch.zeros((e,), dtype=torch.bool, device=dev)), sim_segment
 
-    importlib.import_module("torch._dynamo")
-    lap("dynamo_import_s")
     st = ddpg.init_state(SimpleNamespace(seed=0, replay_capacity=opts.replay_capacity),
                          config, venv, actor_lr=1e-4, critic_lr=1e-3,
                          pixel_pool=getattr(opts, "pixel_pool", 1))
@@ -380,6 +375,9 @@ def run(opts) -> dict:
         "_census_ops_per_step": census_ops_per_step(opts),
         "_render_raster": bool(getattr(opts, "render_raster", False)) and not opts.lowdim,
         "_split_s": split,
+        # Whether anything in this row's process imported torch._dynamo (no
+        # optimizer of the port's does).
+        "_dynamo_imported": "torch._dynamo" in sys.modules,
     }
     if prof is not None:
         os.makedirs(opts.trace_dir, exist_ok=True)

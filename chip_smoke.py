@@ -92,7 +92,20 @@ set to 0 just before it and read just after:
   one, the batch statistics moved, the first update's target step the
   Polyak step of parameters and statistics), then three updates of its
   saved network card against CPU: V, µ and ``l_entries`` within the bf16
-  bound, the running statistics within 1e-3 in norm.
+  bound, the running statistics within 1e-3 in norm; its first
+  ``--eval-only`` run also records ``--event-log-out``, whose 3 episodes
+  must match the ``event_log`` metrics line;
+- the per-env surface (``per_env``): the AoS engine card against CPU (one
+  substep within 1e-5, the reset's 30-substep push within 1e-4),
+  ``gym_env.Cartpole`` at config 5
+  (K4 and K3 at one env), 1cam_exact (K5a at one env) and low-dim on the
+  card and the CPU (seconds per reset and per step; every frame the card
+  renders held against its plain version on the same poses), one
+  fresh-reset ``VectorCartpole.step`` at 4096 envs (K1-K4 once each), and
+  ``random_agent.main`` low-dim with ``--event-log-out --record-renders``
+  (K4 at one env, the slab cast as in the JAX agent; its frames held
+  against the plain version too and the log's PNGs against its frames),
+  read back and held to its metrics.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -155,21 +168,21 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from cartpoleplusplus_tpu_torch import kernels
-from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, naf, ppo, sac
+from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, naf, ppo, random_agent, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
-from cartpoleplusplus_tpu_torch.env import cartpole
+from cartpoleplusplus_tpu_torch.env import cartpole, gym_env
 from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
 from cartpoleplusplus_tpu_torch.env.vector import resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import (
     Actor, DiscretePolicy, GaussianActor, NAFNetwork, QNetwork, TwinCritic)
-from cartpoleplusplus_tpu_torch.physics import cuda_step, soa
+from cartpoleplusplus_tpu_torch.physics import cuda_step, engine, soa
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import (
     RASTER_FRAME_BYTES, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
-from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, roofline
+from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, event_log, roofline
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
 from cartpoleplusplus_tpu_torch.utils.params import (
     ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, q_network_params_from_flax,
@@ -281,7 +294,8 @@ CLI_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --num
 TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "critic_loss", "actor_loss",
                 "mean_reward", "double_reset_frac", "eval_ep_len", "eval_ep_rew"]
 EVENT_FIELDS = {"train": TRAIN_FIELDS, "restore": ["ts", "elapsed_s", "event", "step"],
-                "eval_only": ["ts", "elapsed_s", "event", "segment", "eval_ep_len", "eval_ep_rew"]}
+                "eval_only": ["ts", "elapsed_s", "event", "segment", "eval_ep_len", "eval_ep_rew"],
+                "event_log": ["ts", "elapsed_s", "event", "episodes", "lengths"]}
 
 # The JAX package's config-5 SAC checkpoint (BASELINE.md "Round 5: SAC
 # solves at the PRODUCTION bench config": 2 cameras, obs_pool 2, obs_samples
@@ -403,6 +417,20 @@ TRAIN_HP = dict(gamma=0.99, tau=0.005, batch_size=128, warmup_steps=0, steps_per
                 ou_theta=0.15, ou_sigma=0.2)
 TD3_HP = dict(twin_critic=True, policy_delay=2, target_noise=0.2, aug_shift=2,
               reward_scale=0.1, grad_clip=10.0)
+# The per-env surface (per_env): AoS physics card against CPU on AOS_ENVS
+# states, one substep at PHYS_ATOL and the reset's 30-substep push within
+# AOS_PUSH_ATOL in every field (on an H100 80GB HBM3 at 700 W the push came
+# 3.3e-8 off in position, 2.9e-7 in the quaternion, 2.8e-6 in velocity and
+# 9.7e-6 in angular velocity, the substep 9.5e-7: no rsqrt here, IEEE sqrt
+# and division on both sides; the bound is ten times the largest); a per-env reset and PER_ENV_STEPS steps of config
+# 5 (K4, K3 at E = 1) and of 1cam_exact (K5a at E = 1), and of the low-dim
+# config, each on the card and on the CPU; one fresh-reset vector step at
+# NUM_ENVS envs; the random agent's PER_ENV_EPISODES low-dim episodes of at
+# most PER_ENV_STEPS + 1 steps (a cut in depth: each costs a step's ~0.2 s).
+AOS_ENVS = 256
+AOS_PUSH_ATOL = 1e-4
+PER_ENV_STEPS = 5
+PER_ENV_EPISODES = 2
 # The polyak step target ← target + τ·(online − target), checked in norm.
 TARGET_STEP_RTOL = 1e-3
 _PHYS = ("step_repeats", "step_substeps")
@@ -1524,10 +1552,11 @@ def read_jsonl(path: str) -> list:
         return [json.loads(line) for line in f]
 
 
-def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamespace:
+def drive_cli(agent, argv: list, work: str, whole: bool = False,
+              eval_extra: tuple = ()) -> SimpleNamespace:
     """``agent.main`` in-process on ``argv``: 2 segments; a resume to 4 (both
     with --ckpt-best); a --ckpt-skip-replay save and resume to 3;
-    --eval-only on the latest and on --ckpt-best.  Spies on
+    --eval-only on the latest (with ``eval_extra``) and on --ckpt-best.  Spies on
     checkpoint.save/restore_latest (the networks at each save and after
     each restore; with ``whole`` the whole state dict too, at step 2),
     ``agent.make_segment`` (each segment's seconds and launches) and
@@ -1596,7 +1625,7 @@ def drive_cli(agent, argv: list, work: str, whole: bool = False) -> SimpleNamesp
         lean_raw = checkpoint.load_raw(lean_dir, 2)
         run(lean_dir, lean_metrics, 3, "--ckpt-skip-replay")
         n_eval = len(eval_s)
-        eval_latest = run(ckpt_dir, metrics, 4, "--eval-only")
+        eval_latest = run(ckpt_dir, metrics, 4, "--eval-only", *eval_extra)
         eval_best = run(ckpt_dir, metrics, 4, "--eval-only", "--ckpt-best")
     events, lean_events = read_jsonl(metrics), read_jsonl(lean_metrics)
     return SimpleNamespace(
@@ -1626,7 +1655,7 @@ def cli_checks(r: SimpleNamespace, fresh: tuple, fields: dict, steps_per_segment
         "losses_finite": all(math.isfinite(e[k]) for e in r.trains + lean_trains
                              for k in loss_keys),
         "jax_field_sets": all(list(e) == fields[e["event"]] for e in r.events + r.lean_events),
-        "events": [e["event"] for e in r.events] == [
+        "events": [e["event"] for e in r.events if e["event"] != "event_log"] == [
             "train", "restore", "train", "restore", "eval_only", "restore", "eval_only"],
         "env_steps_monotonic": [e["env_steps"] for e in r.trains] == [
             s * steps_per_segment * num_envs for s in (2, 4)],
@@ -2135,8 +2164,15 @@ def naf_cli(work: str, dev) -> tuple[dict, dict]:
             return once
         return make
 
+    log_path = os.path.join(work, "eval.events")
     with patched(naf, "make_train_once", spy_make):
-        r = drive_cli(naf, NAF_ARGV, work, whole=True)
+        r = drive_cli(naf, NAF_ARGV, work, whole=True, eval_extra=("--event-log-out", log_path))
+    logged = [e for e in r.events if e["event"] == "event_log"]
+    episodes = list(event_log.read_event_log(log_path))
+    event_log_ok = [e["event"] for e in r.events][-4:] == [
+        "eval_only", "event_log", "restore", "eval_only"] and len(logged) == 1 \
+        and logged[0]["episodes"] == len(episodes) == 3 \
+        and logged[0]["lengths"] == [len(ep.event) for ep in episodes]
     net = NAFNetwork(CONFIG5.obs_shape, device=dev, use_batch_norm=True, **TD3_NET)
     net.load_state_dict(r.saved[(r.ckpt_dir, 4)]["net"])
     fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), naf.greedy_act(net),
@@ -2157,14 +2193,199 @@ def naf_cli(work: str, dev) -> tuple[dict, dict]:
         "target_stats_moved_by_tau": sum(is_stat) == 2 and stats_step_err < TARGET_STEP_RTOL,
         "reset_kernels_every_segment": len(r.seg_launches) == 7 and all(
             d["step_substeps"] == 1 and d["render_batched"] == 1 for d in r.seg_launches),
+        "eval_only_event_log": event_log_ok,
         **{f"card_vs_cpu_{k}": v for k, v in parity["checks"].items()},
     })
     line = cli_line(r, NAF_ARGV, fresh, checks)
-    line.update(segment_launches=r.seg_launches, target_step_rel_err=step_err,
+    line.update(segment_launches=r.seg_launches, event_log=logged, target_step_rel_err=step_err,
                 target_stats_step_rel_err=stats_step_err, card_vs_cpu=parity,
                 batch_norm={k.rsplit(".", 1)[1]: [float(sd[k].min()), float(sd[k].max())]
                             for k in ("encoder.batch_norm.mean", "encoder.batch_norm.var")})
     return line, r.launches
+
+
+def frame_spy(record: list):
+    """Patches for ``Renderer.render_repeats``/``render_batched`` that
+    record each launch's renderer, input and frames, so the frames can be
+    held against the plain version on the same poses."""
+    def spy(kind):
+        def make(real):
+            def call(self, scene, x):
+                out = real(self, scene, x)
+                poses = x if kind == "repeats" else raycast.poses_from_rigid(x)[None]
+                record.append((kind, self, scene, poses.clone(), out.clone()))
+                return out
+            return call
+        return make
+    return spy("repeats"), spy("batched")
+
+
+def per_env_episode(cfg, device, seed: int, warm_up: bool) -> dict:
+    """``gym_env.Cartpole`` on ``device``: with ``warm_up`` a reset and one
+    step of uniform random actions first, then a reset and PER_ENV_STEPS
+    steps, and one ``render()`` → seconds per reset and the median step of
+    the timed pass."""
+    env = gym_env.Cartpole(cfg, device=device, seed=seed)
+    rng = np.random.default_rng(seed)
+    assert not cfg.discrete_actions
+    sync = (lambda: torch.cuda.synchronize()) if torch.device(device).type == "cuda" else (
+        lambda: None)
+    for n_steps in (1, PER_ENV_STEPS)[0 if warm_up else 1:]:
+        t = time.monotonic()
+        obs = env.reset()
+        sync()
+        reset_s = time.monotonic() - t
+        step_s = []
+        for _ in range(n_steps):
+            t = time.monotonic()
+            obs, reward, done, _ = env.step(rng.uniform(-1.0, 1.0, 2).astype(np.float32))
+            sync()
+            step_s.append(time.monotonic() - t)
+            if done:
+                obs = env.reset()
+    img = env.render()
+    return {"reset_s": reset_s, "step_s": sorted(step_s)[len(step_s) // 2],
+            "obs_shape": list(obs.shape), "obs_dtype": str(obs.dtype),
+            "render_shape": list(img.shape), "render_dtype": str(img.dtype),
+            "finite": bool(np.isfinite(obs.astype(np.float64)).all())}
+
+
+def per_env(work: str, dev) -> tuple[dict, dict]:
+    """The per-env surface on the card (``per_env``):
+
+    - the AoS engine card against CPU on AOS_ENVS seeded states: one
+      substep within PHYS_ATOL, and the reset's 30-substep push from
+      jittered rest states (``reset_batched`` with ``engine.step_substeps``)
+      within AOS_PUSH_ATOL;
+    - ``gym_env.Cartpole`` at config 5 (K4 for the reset frame, K3 over a
+      step's repeats, at E = 1), at 1cam_exact (K5a both) and low-dim: a
+      reset and PER_ENV_STEPS steps and ``render()`` (K4) on the card and on
+      the CPU, the seconds per reset and per step; every frame the card
+      renders held against its plain version on the same poses within the
+      pixel rule;
+    - one fresh-reset ``VectorCartpole.step`` at NUM_ENVS envs of config 5
+      (K1, K3, and K2, K4 for the fresh batch, one launch each);
+    - ``random_agent.main`` low-dim, PER_ENV_EPISODES episodes with
+      ``--event-log-out --record-renders`` (K4 at E = 1 per step, unpooled
+      1-camera frames: the slab cast, as the JAX agent renders), read back
+      by the port's reader: episodes and lengths equal to the metrics
+      jsonl's, each step's frame within the pixel rule of its plain version
+      and its stored PNG equal to that frame."""
+    scene = cartpole.scene_for(CONFIG5)
+    to_cpu = lambda r: r.map(lambda x: x.cpu())
+    rigid, force = parity_inputs(scene, dev, AOS_ENVS)
+    substep_err = state_err(to_cpu(engine.substep(scene, rigid, force)),
+                            engine.substep(scene, to_cpu(rigid), force.cpu()))
+    g = torch.Generator().manual_seed(SEED)
+    theta, jitter = 2.0 * math.pi * torch.rand((AOS_ENVS,), generator=g), torch.randn(
+        (AOS_ENVS, 2), generator=g)
+    pushed = {d: cartpole.reset_batched(CONFIG5, scene, AOS_ENVS, engine.step_substeps,
+                                        cartpole.observe_lowdim, d, theta=theta,
+                                        jitter=jitter)[0].rigid for d in (dev, "cpu")}
+    push_err = {f: float((getattr(pushed[dev], f).cpu() - getattr(pushed["cpu"], f)).abs().max())
+                for f in ("pos", "quat", "vel", "ang")}
+    one = rigid.map(lambda x: x[:1].contiguous())
+    one_cpu, force_cpu = to_cpu(one), force[:1].cpu()
+    engine.substep(scene, one_cpu, force_cpu)
+    t = time.monotonic()
+    for _ in range(10):
+        engine.substep(scene, one_cpu, force_cpu)
+    aos_ms = {"card": time_ms(lambda: engine.substep(scene, one, force[:1]), reps=10),
+              "cpu": (time.monotonic() - t) / 10 * 1e3}
+
+    record = []
+    spy_repeats, spy_batched = frame_spy(record)
+    kernels.reset_launches()
+    timing = {}
+    lowdim = dataclasses.replace(CONFIG5, use_raw_pixels=False)
+    log_path, jsonl = os.path.join(work, "random.events"), os.path.join(work, "random.jsonl")
+    with patched(Renderer, "render_repeats", spy_repeats), \
+            patched(Renderer, "render_batched", spy_batched):
+        for name, cfg in (("config5", CONFIG5), ("1cam_exact", CONFIG1_EXACT),
+                          ("lowdim", lowdim)):
+            timing[name] = {"card": per_env_episode(cfg, dev, SEED, warm_up=not timing)}
+        env_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        n_env = len(record)
+        # The random agent's event log with stored renders (K4 at E = 1 per
+        # step), its frames recorded beside the gym env's.
+        kernels.reset_launches()
+        t = time.monotonic()
+        lengths = random_agent.main(["--num-episodes", str(PER_ENV_EPISODES),
+                                     "--max-episode-len", str(PER_ENV_STEPS + 1),
+                                     "--event-log-out", log_path, "--record-renders",
+                                     "--metrics-jsonl", jsonl, "--seed", str(SEED),
+                                     "--device", str(dev)])
+        agent_s = time.monotonic() - t
+        agent_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    frames = {"repeats": 0, "batched": 0, "random_agent": 0, "byte_equal": 0}
+    worst = {"max_abs_err": 0, "share_beyond_2": 0.0, "mean_abs_err": 0.0}
+    for i, (kind, rnd, scn, poses, out) in enumerate(record):
+        want = rnd.plain(scn, poses)
+        want = want if kind == "repeats" else want[:, 0]
+        res = pixel_check(f"per_env_{kind}{rnd.suffix}", out, want)
+        worst = {k: max(worst[k], res[k]) for k in worst}
+        frames["random_agent" if i >= n_env else kind] += poses.shape[0]
+        frames["byte_equal"] += int(torch.equal(out, want)) * poses.shape[0]
+    for i, (name, cfg) in enumerate((("config5", CONFIG5), ("1cam_exact", CONFIG1_EXACT),
+                                     ("lowdim", lowdim))):
+        timing[name]["cpu"] = per_env_episode(cfg, "cpu", SEED, warm_up=i == 0)
+
+    # One fresh-reset vector step at full width.
+    venv = make_venv(CONFIG5, NUM_ENVS, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    states, obs = venv.reset(gen)
+    action = torch.zeros((NUM_ENVS, 2), device=dev)
+    kernels.reset_launches()
+    carried, obs2, reward, done, next_obs = venv.step(states, action, generator=gen)
+    torch.cuda.synchronize()
+    fresh_launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    fresh_ok = fresh_launches == {"step_repeats": 1, "render_repeats": 1, "step_substeps": 1,
+                                  "render_batched": 1} \
+        and tuple(next_obs.shape) == tuple(obs2.shape) == (NUM_ENVS,) + CONFIG5.obs_shape \
+        and bool(torch.isfinite(carried.rigid.pos).all()) and bool(torch.isfinite(reward).all())
+
+    one_env = collections.Counter(env_launches)
+    one_env.update(agent_launches)
+    launches = one_env + collections.Counter(fresh_launches)
+    episodes = list(event_log.read_event_log(log_path))
+    logged = [e["steps"] for e in read_jsonl(jsonl) if e["event"] == "episode"]
+    # The PNGs the log stores are the kernel's frames (one camera).
+    stored = [img for ep in episodes for img in event_log.episode_frames(ep)]
+    rendered = [out[0].view(3, *img.shape[:2]).permute(1, 2, 0).cpu().numpy()
+                for (_, _, _, _, out), img in zip(record[n_env:], stored)]
+    checks = {
+        "aos_substep_within_atol": substep_err <= PHYS_ATOL,
+        "aos_push_within_atol": max(push_err.values()) <= AOS_PUSH_ATOL,
+        "k3_k4_at_one_env": env_launches.get("render_repeats", 0) >= PER_ENV_STEPS
+        and env_launches.get("render_batched", 0) >= 2,
+        "k5a_at_one_env": env_launches.get("render_repeats_raster", 0) >= PER_ENV_STEPS
+        and env_launches.get("render_batched_raster", 0) >= 1,
+        "no_physics_kernel_per_env": not any(k.startswith("step_") for k in env_launches),
+        "frames_checked": frames["repeats"] >= (1 + 2 * PER_ENV_STEPS) * CONFIG5.action_repeats,
+        "shapes": all(t["card"]["obs_shape"] == t["cpu"]["obs_shape"] and t["card"]["finite"]
+                      and t["card"]["render_shape"] == [50, 50, 3] for t in timing.values()),
+        "fresh_reset_step": fresh_ok,
+        "random_agent_log": len(episodes) == len(logged) == PER_ENV_EPISODES
+        and [len(ep.event) for ep in episodes] == logged == lengths
+        and all(len(ev.render) == 1 and ev.HasField("cart") for ep in episodes
+                for ev in ep.event),
+        "random_agent_renders_k4": agent_launches == {"render_batched": sum(lengths)}
+        and frames["random_agent"] == sum(lengths),
+        "random_agent_pngs_are_kernel_frames": len(stored) == len(record) - n_env == sum(lengths)
+        and all(np.array_equal(a, b) for a, b in zip(rendered, stored)),
+    }
+    line = dict(aos_envs=AOS_ENVS, physics_atol=PHYS_ATOL, push_atol=AOS_PUSH_ATOL,
+                aos_substep_max_abs_err=substep_err, aos_push_max_abs_err=push_err,
+                aos_substep_ms_one_env=aos_ms, per_env_s=timing, steps=PER_ENV_STEPS,
+                frames_vs_plain=dict(frames, **worst), gym_env_launches=env_launches,
+                one_env_launches=dict(one_env), launches=dict(launches),
+                fresh_reset_envs=NUM_ENVS, fresh_reset_launches=fresh_launches,
+                random_agent=dict(episodes=len(episodes), lengths=lengths, seconds=agent_s,
+                                  launches=agent_launches),
+                card=subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                                     "--format=csv,noheader"], capture_output=True, text=True,
+                                    timeout=60).stdout.strip(), checks=checks)
+    return line, dict(launches)
 
 
 def main() -> int:
@@ -2831,9 +3052,23 @@ def run() -> int:
     emit("naf_cli", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"naf_cli checks failed: {line['checks']}")
+
+    # 22. the per-env surface: AoS physics card against CPU, the gym env at
+    # config 5 (K3/K4 at E = 1), 1cam_exact (K5a) and low-dim, a fresh-reset
+    # vector step, the random agent's event log
+    work = tempfile.mkdtemp(prefix="chip_smoke_per_env_")
+    try:
+        line, launches_by_path["per_env"] = per_env(work, dev)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("per_env", **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"per_env checks failed: {line['checks']}")
+    one_env = line["one_env_launches"]
     for row in rows:
+        row["launches_one_env"] = one_env.get(row["name"], 0)
         for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
-                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "naf_cli"):
+                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "naf_cli", "per_env"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

@@ -95,7 +95,7 @@ def test_config_from_opts_matches_jax(name):
 
 # flag argv → the ROADMAP.md item its message must name
 UNPORTED = {
-    "--event-log-out x.events": "item 4", "--export-policy x.pt2": "item 6",
+    "--export-policy x.pt2": "item 6",
     "--tb-dir tb": "item 5",
     "--num-devices 2": "item 7",
     "--num-processes 2 --coordinator h:1": "item 7",

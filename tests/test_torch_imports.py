@@ -2,8 +2,9 @@
 JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
 scripts/torch_{sac,ppo,lrpg}_lowdim.py, scripts/torch_dqn_rainbow.py,
 scripts/torch_naf_anneal.py and scripts/export_{sac_actor,dqn_q}_npz.py), its
-CLIs (DDPG, SAC, PPO, LRPG, DQN and NAF) answer ``--help`` where JAX is not
-importable, and its entry points refuse to fall back to the CPU quietly."""
+CLIs (DDPG, SAC, PPO, LRPG, DQN and NAF, the random agent and the torch DQN
+demo) answer ``--help`` where JAX is not importable, and its entry points
+refuse to fall back to the CPU quietly."""
 
 import os
 import subprocess
@@ -48,7 +49,15 @@ runpy.run_path("scripts/torch_naf_anneal.py", run_name="not_main")
 for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer",
              "cartpoleplusplus_tpu_torch.agents.ppo", "cartpoleplusplus_tpu_torch.agents.lrpg",
              "cartpoleplusplus_tpu_torch.utils.learning_run",
-             "cartpoleplusplus_tpu_torch.agents.dqn", "cartpoleplusplus_tpu_torch.agents.naf"):
+             "cartpoleplusplus_tpu_torch.agents.dqn", "cartpoleplusplus_tpu_torch.agents.naf",
+             "cartpoleplusplus_tpu_torch.physics.engine",
+             "cartpoleplusplus_tpu_torch.physics.contacts",
+             "cartpoleplusplus_tpu_torch.physics.solver", "cartpoleplusplus_tpu_torch.physics.urdf",
+             "cartpoleplusplus_tpu_torch.env.gym_env", "cartpoleplusplus_tpu_torch.utils.event_log",
+             "cartpoleplusplus_tpu_torch.utils.event_pb2", "cartpoleplusplus_tpu_torch.utils.records",
+             "cartpoleplusplus_tpu_torch.utils.optim",
+             "cartpoleplusplus_tpu_torch.agents.random_agent",
+             "cartpoleplusplus_tpu_torch.agents.torch_dqn_demo"):
     assert name in sys.modules, name
 from cartpoleplusplus_tpu_torch.replay import buffer
 for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
@@ -75,8 +84,10 @@ def test_port_never_imports_jax():
     )
     assert out.returncode == 0, out.stderr
     # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too,
-    # and agents.{ppo,lrpg,dqn,naf}, utils.learning_run
-    assert int(out.stdout.split()[-1]) >= 36
+    # agents.{ppo,lrpg,dqn,naf}, utils.learning_run, and the per-env surface's
+    # physics.{contacts,solver,engine,urdf}, env.gym_env, utils.{event_log,
+    # event_pb2,records,optim}, agents.{random_agent,torch_dqn_demo}
+    assert int(out.stdout.split()[-1]) >= 47
 
 
 @pytest.mark.parametrize("agent,flags", [
@@ -91,6 +102,10 @@ def test_port_never_imports_jax():
              "--eps-start", "--per", "--n-step", "--num-devices", "--device")),
     ("naf", ("--use-batch-norm", "--ou-sigma-min", "--ou-decay-steps", "--reward-scale",
              "--grad-clip", "--lr-schedule", "--num-devices", "--device")),
+    ("random_agent", ("--num-episodes", "--continuous", "--event-log-out", "--record-renders",
+                      "--metrics-jsonl", "--device")),
+    ("torch_dqn_demo", ("--episodes", "--eps-decay-episodes", "--target-sync-steps",
+                        "--device")),
 ])
 def test_cli_help_without_jax(agent, flags):
     """``python -m cartpoleplusplus_tpu_torch.agents.<agent> --help`` where
@@ -116,7 +131,9 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
                                    "ppo_main", "lrpg_init_state", "lrpg_make_train_step",
                                    "lrpg_main", "QNetwork", "dqn_init_state", "dqn_make_segment",
                                    "dqn_main", "NAFNetwork", "naf_init_state",
-                                   "naf_make_segment", "naf_main"])
+                                   "naf_make_segment", "naf_main", "Cartpole", "reset",
+                                   "random_agent_main", "torch_dqn_demo_main",
+                                   "record_eval_episodes"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
     ``init_state`` and ``make_segment`` run on their vector env's device;
@@ -124,8 +141,11 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     from types import SimpleNamespace
 
     from cartpoleplusplus_tpu_torch import resolve_device
-    from cartpoleplusplus_tpu_torch.agents import ddpg, dqn, lrpg, naf, ppo, sac
+    from cartpoleplusplus_tpu_torch.agents import (
+        common, ddpg, dqn, lrpg, naf, ppo, random_agent, sac, torch_dqn_demo)
     from cartpoleplusplus_tpu_torch.agents.common import make_venv
+    from cartpoleplusplus_tpu_torch.env import cartpole
+    from cartpoleplusplus_tpu_torch.env.gym_env import Cartpole
     from cartpoleplusplus_tpu_torch.env.config import CartpoleConfig
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
     from cartpoleplusplus_tpu_torch.models.networks import (
@@ -200,6 +220,19 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
         "naf_init_state": lambda **kw: naf.init_state(opts, exact, venv_on(**kw), hidden=(8, 4)),
         "naf_make_segment": lambda **kw: naf.make_segment(venv_on(**kw), **seg_kw),
         "naf_main": lambda **kw: cli(naf.main, **kw),
+        "Cartpole": lambda **kw: Cartpole(exact, **kw),
+        "reset": lambda **kw: cartpole.reset(exact, cartpole.scene_for(exact),
+                                             theta=torch.tensor(0.0), jitter=torch.zeros(2),
+                                             **kw),
+        "random_agent_main": lambda **kw: random_agent.main(
+            ["--num-episodes", "1", "--max-episode-len", "2"]
+            + ([] if kw.get("device") is None else ["--device", kw["device"]])),
+        "torch_dqn_demo_main": lambda **kw: torch_dqn_demo.main(
+            ["--episodes", "1", "--max-episode-len", "2", "--batch-size", "2"]
+            + ([] if kw.get("device") is None else ["--device", kw["device"]])),
+        "record_eval_episodes": lambda **kw: common.record_eval_episodes(
+            exact, lambda obs: torch.zeros((obs.shape[0], 2)), str(tmp_path / "e.events"),
+            num_episodes=1, **kw),
     }[entry]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

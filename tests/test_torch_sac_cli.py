@@ -97,7 +97,7 @@ def test_config_from_opts_matches_jax(name):
         assert getattr(got, field.name) == getattr(want, field.name), field.name
 
 
-UNPORTED = {"--event-log-out x.events": "item 4", "--export-policy x.pt2": "item 6",
+UNPORTED = {"--export-policy x.pt2": "item 6",
             "--tb-dir tb": "item 5", "--num-devices 2": "item 7",
             "--num-processes 2 --coordinator h:1": "item 7"}
 
