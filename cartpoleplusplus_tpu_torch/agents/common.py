@@ -2,8 +2,10 @@
 cartpoleplusplus_tpu.agents.common — the CLI flag groups, the vector-env
 construction, greedy evaluation, the schedule and replay-sizing helpers,
 the checkpoint startup (restore-if-present, ``--ckpt-best``,
-``--eval-only``) and the greedy episodes ``--event-log-out`` records
-(:func:`record_eval_episodes`).
+``--eval-only``), the greedy policy as a module (:class:`GreedyPolicy`),
+the greedy episodes ``--event-log-out`` records
+(:func:`record_eval_episodes`) and the artifact ``--export-policy`` writes
+(:func:`maybe_export_policy`).
 
 Every JAX flag is parsed with its name, default and choices.  A flag that
 asks for what the port does not have yet stops the run at startup
@@ -19,6 +21,7 @@ import sys
 from typing import Callable
 
 import torch
+from torch import nn
 
 from cartpoleplusplus_tpu_torch import resolve_device
 from cartpoleplusplus_tpu_torch.env import cartpole
@@ -62,11 +65,15 @@ def add_agent_opts(parser: argparse.ArgumentParser) -> None:
                         help="restore the latest --ckpt-dir checkpoint and run the "
                              "greedy eval without training")
     parser.add_argument("--export-policy", type=str, default=None,
-                        help="not ported yet: refused at startup")
+                        help="after training (or under --eval-only), export the greedy "
+                             "policy as a self-contained torch.export artifact (.pt2; "
+                             "uint8 frames in for pixel configs, float32 for low-dim)")
     parser.add_argument("--metrics-jsonl", type=str, default=None,
                         help="structured metrics sink")
     parser.add_argument("--tb-dir", type=str, default=None,
-                        help="not ported yet: refused at startup")
+                        help="also write numeric metrics as TensorBoard scalars to this "
+                             "logdir (needs the tensorboard package; without it a "
+                             "warning, and the jsonl and stderr sinks go on)")
     parser.add_argument("--hidden", type=int, nargs="+", default=[100, 50])
     parser.add_argument("--pixel-encoder", type=str, default="dense",
                         choices=["dense", "conv"],
@@ -137,9 +144,6 @@ def add_lr_schedule_opt(parser) -> None:
 
 # (attribute, flag, predicate on its value, the ROADMAP item that brings it)
 UNPORTED = (
-    ("export_policy", "--export-policy", lambda v: v is not None, "Queue 1 item 6 (export)"),
-    ("tb_dir", "--tb-dir", lambda v: v is not None,
-     "Queue 1 item 5 (the remaining utils: the TensorBoard half of metrics)"),
     ("num_devices", "--num-devices", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
     ("num_processes", "--num-processes", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
 )
@@ -369,22 +373,55 @@ def restore_for_startup(opts, st):
 
 
 def run_eval_only(opts, logger, restored_step, eval_venv: VectorCartpole,
-                  act_fn: Callable[[torch.Tensor], torch.Tensor]) -> float:
+                  act_fn: GreedyPolicy) -> float:
     """``--eval-only``: one greedy eval of the restored policy (generator
     seeded from ``--seed`` + 1, as the training loop's evals are), logged as
-    an ``eval_only`` event, then :func:`event_log_tail`; nothing is
-    trained.  Nothing restored is a hard
-    error: evaluating fresh random weights would read as a regressed
-    policy."""
+    an ``eval_only`` event, then :func:`run_tail`; nothing is trained.
+    Nothing restored is a hard error: evaluating fresh random weights would
+    read as a regressed policy."""
     if restored_step is None:
         raise SystemExit("--eval-only needs --ckpt-dir pointing at a restorable checkpoint")
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
     elen, erew = eval_rollout(eval_venv, act_fn, gen)
     logger.log("eval_only", segment=restored_step, eval_ep_len=float(elen),
                eval_ep_rew=float(erew))
-    event_log_tail(opts, eval_venv, act_fn, logger)
-    logger.close()
+    run_tail(opts, eval_venv, act_fn, logger)
     return float(elen)
+
+
+class GreedyPolicy(nn.Module):
+    """A network's greedy action as a module: ``forward(obs)`` is
+    ``head(net, obs, **buffers)``, computed without autograd.  ``net`` is
+    held, not copied, so the policy acts with the weights training has
+    reached; ``buffers`` are tensors the head reads (C51's support), which
+    move with the module.  Each agent's ``greedy_act`` builds one; the
+    evals call it, and ``--export-policy`` exports it
+    (:func:`maybe_export_policy`)."""
+
+    def __init__(self, net: nn.Module, head: Callable, **buffers: torch.Tensor):
+        super().__init__()
+        self.net, self._head = net, head
+        for name, value in buffers.items():
+            self.register_buffer(name, value, persistent=False)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return self._head(self.net, obs, **dict(self.named_buffers(recurse=False)))
+
+
+def maybe_export_policy(opts, config, act_module: GreedyPolicy, logger) -> None:
+    """``--export-policy``: write the greedy policy's serving artifact
+    (:func:`utils.export.save_policy`) with the training pipeline's
+    observation ABI, uint8 frames for pixel configs and float32 for
+    low-dim, and log an ``export_policy`` event of its path and bytes."""
+    path = getattr(opts, "export_policy", None)
+    if not path:
+        return
+    from cartpoleplusplus_tpu_torch.utils import export
+
+    obs_dtype = torch.uint8 if config.use_raw_pixels else torch.float32
+    nbytes = export.save_policy(path, act_module, config.obs_shape, obs_dtype)
+    logger.log("export_policy", path=path, bytes=nbytes)
 
 
 def record_eval_episodes(config, act_fn: Callable[[torch.Tensor], torch.Tensor], path: str,
@@ -425,20 +462,20 @@ def record_eval_episodes(config, act_fn: Callable[[torch.Tensor], torch.Tensor],
     return lengths
 
 
-def event_log_tail(opts, eval_venv: VectorCartpole,
-                   act_fn: Callable[[torch.Tensor], torch.Tensor], logger) -> None:
-    """``--event-log-out``: the end of a run (after training or
-    ``--eval-only``) records greedy episodes of ``act_fn`` on the eval
+def run_tail(opts, eval_venv: VectorCartpole, act_fn: GreedyPolicy, logger) -> None:
+    """The end of a run (after training or ``--eval-only``): with
+    ``--event-log-out`` greedy episodes of ``act_fn`` recorded on the eval
     env's config and device (:func:`record_eval_episodes`, seeded from
-    ``--seed``) and logs an ``event_log`` event of their count and
-    lengths."""
-    if not getattr(opts, "event_log_out", None):
-        return
-    lengths = record_eval_episodes(eval_venv.config, act_fn, opts.event_log_out,
-                                   seed=opts.seed,
-                                   raster=bool(getattr(opts, "render_raster", False)),
-                                   device=eval_venv.device)
-    logger.log("event_log", episodes=len(lengths), lengths=lengths)
+    ``--seed``) and an ``event_log`` event of their count and lengths, then
+    :func:`maybe_export_policy`; closes ``logger``."""
+    if getattr(opts, "event_log_out", None):
+        lengths = record_eval_episodes(eval_venv.config, act_fn, opts.event_log_out,
+                                       seed=opts.seed,
+                                       raster=bool(getattr(opts, "render_raster", False)),
+                                       device=eval_venv.device)
+        logger.log("event_log", episodes=len(lengths), lengths=lengths)
+    maybe_export_policy(opts, eval_venv.config, act_fn, logger)
+    logger.close()
 
 
 _RIGID = ("pos", "quat", "vel", "ang")
@@ -515,7 +552,7 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
     ``fields(metrics)`` (:func:`replay_fields` for DDPG and SAC),
     ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
     ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
-    ``--ckpt-best``; then :func:`event_log_tail`.  Closes ``logger``."""
+    ``--ckpt-best``; then :func:`run_tail`, which closes ``logger``."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
     best = BestCkptKeeper(opts)
     final_eval = 0.0
@@ -531,8 +568,7 @@ def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCar
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:
         checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
-    event_log_tail(opts, eval_venv, act_fn, logger)
-    logger.close()
+    run_tail(opts, eval_venv, act_fn, logger)
     return final_eval
 
 
@@ -548,7 +584,7 @@ def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
     ``fields(update, metrics)``, ``eval_ep_len`` and ``eval_ep_rew``;
     ``ckpt_<update>`` every ``--ckpt-freq`` and at the end;
     ``ckpt_best`` on improvement with ``--ckpt-best``; then
-    :func:`event_log_tail`.  Closes ``logger``."""
+    :func:`run_tail`, which closes ``logger``."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
     best = BestCkptKeeper(opts)
     final_eval = 0.0
@@ -564,6 +600,5 @@ def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
             checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
     if opts.ckpt_dir:
         checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
-    event_log_tail(opts, eval_venv, act_fn, logger)
-    logger.close()
+    run_tail(opts, eval_venv, act_fn, logger)
     return final_eval

@@ -101,15 +101,11 @@ class DDPGState:
         self.ou_noise = sd["ou_noise"].to(self.obs.device)
 
 
-def greedy_act(actor: Actor):
-    """obs (E, …) → greedy actions µ(obs) (E, 2).  The JAX version takes
-    ``(params, obs)``; here the parameters live in the module."""
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return actor(obs)
-
-    return act
+def greedy_act(actor: Actor) -> common.GreedyPolicy:
+    """obs (E, …) → greedy actions µ(obs) (E, 2), batch norm in eval mode.
+    The JAX version takes ``(params, obs)``; here the parameters live in
+    the module."""
+    return common.GreedyPolicy(actor, lambda net, obs: net(obs))
 
 
 def aug_random_shift(obs: torch.Tensor, pad: int, height: int, width: int,
@@ -456,7 +452,7 @@ def train(opts) -> float:
     raster = common.resolve_render_raster(config, opts)
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv,
                     actor_lr=common.make_lr(opts, opts.actor_learning_rate),
                     critic_lr=common.make_lr(opts, opts.critic_learning_rate),

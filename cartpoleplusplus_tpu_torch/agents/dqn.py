@@ -113,19 +113,16 @@ def q_scalar(out: torch.Tensor, z: Optional[torch.Tensor]) -> torch.Tensor:
     return torch.sum(torch.softmax(out, dim=-1) * z, dim=-1)
 
 
-def greedy_act(qnet: QNetwork):
+def greedy_act(qnet: QNetwork) -> common.GreedyPolicy:
     """obs (E, …) → greedy action indices (E,), the noisy heads at their mu
     weights.  Under C51 the argmax of the mean over a unit support
     ``linspace(0, 1, K)``: the argmax of a mean is invariant to an affine
     map of the support, so acting needs no vmin/vmax (as in JAX)."""
-    z = (support(0.0, 1.0, qnet.num_atoms, next(qnet.parameters()).device)
-         if qnet.num_atoms else None)
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(q_scalar(qnet(obs), z), dim=-1)
-
-    return act
+    if not qnet.num_atoms:
+        return common.GreedyPolicy(qnet, lambda net, obs: torch.argmax(net(obs), dim=-1))
+    z = support(0.0, 1.0, qnet.num_atoms, next(qnet.parameters()).device)
+    return common.GreedyPolicy(
+        qnet, lambda net, obs, z: torch.argmax(q_scalar(net(obs), z), dim=-1), z=z)
 
 
 def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
@@ -442,7 +439,7 @@ def train(opts, stop_at: int | None = None) -> float:
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     fill_eps_defaults(opts)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)

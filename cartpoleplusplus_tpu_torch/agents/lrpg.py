@@ -156,14 +156,9 @@ def make_train_step(venv: VectorCartpole, gamma: float):
     return train_step
 
 
-def greedy_act(policy: DiscretePolicy):
+def greedy_act(policy: DiscretePolicy) -> common.GreedyPolicy:
     """obs (E, …) → greedy action indices argmax(logits) (E,)."""
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return torch.argmax(policy(obs), dim=-1)
-
-    return act
+    return common.GreedyPolicy(policy, lambda net, obs: torch.argmax(net(obs), dim=-1))
 
 
 def init_state(opts, config, venv: VectorCartpole, lr: float = 1e-3,
@@ -204,7 +199,7 @@ def train(opts, stop_at: int | None = None) -> float:
     raster = common.resolve_render_raster(config, opts)
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv, lr=opts.learning_rate, hidden=opts.hidden,
                     pixel_pool=opts.pixel_pool, pixel_encoder=opts.pixel_encoder)
     restored = None

@@ -91,16 +91,11 @@ class NAFState:
         self.ou_noise = sd["ou_noise"].to(self.obs.device)
 
 
-def greedy_act(net: NAFNetwork):
+def greedy_act(net: NAFNetwork) -> common.GreedyPolicy:
     """obs (E, …) → greedy actions µ(obs) (E, 2), batch norm in eval mode.
     The JAX version takes ``(variables, obs)``; here they live in the
     module."""
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return net(obs)[1]
-
-    return act
+    return common.GreedyPolicy(net, lambda net, obs: net(obs)[1])
 
 
 def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
@@ -306,7 +301,7 @@ def train(opts, stop_at: int | None = None) -> float:
     raster = common.resolve_render_raster(config, opts)
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)

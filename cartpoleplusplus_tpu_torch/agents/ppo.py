@@ -126,14 +126,9 @@ def tanh_gaussian_logp(mu: torch.Tensor, log_std: torch.Tensor, u: torch.Tensor)
     return logp - (2.0 * (_LOG_2 - u - softplus)).sum(-1)
 
 
-def greedy_act(actor: GaussianActor):
+def greedy_act(actor: GaussianActor) -> common.GreedyPolicy:
     """obs (E, …) → greedy actions tanh(mu(obs)) (E, 2)."""
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(actor(obs)[0])
-
-    return act
+    return common.GreedyPolicy(actor, lambda net, obs: torch.tanh(net(obs)[0]))
 
 
 @torch.no_grad()
@@ -290,7 +285,7 @@ def train(opts, stop_at: int | None = None) -> float:
     raster = common.resolve_render_raster(config, opts)
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     total = opts.num_train_batches * opts.ppo_epochs * opts.ppo_minibatches
     st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate, total),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,

@@ -107,7 +107,7 @@ def main(argv=None) -> list[int]:
             return list(frame_to_images(config, frame))
 
     log = event_log_mod.EventLog(opts.event_log_out) if opts.event_log_out else None
-    metrics = MetricsLogger(opts.metrics_jsonl)
+    metrics = MetricsLogger(opts.metrics_jsonl, tb_dir=getattr(opts, "tb_dir", None))
     generator = torch.Generator(device=dev).manual_seed(opts.seed)
     lengths = []
     for ep in range(opts.num_episodes):

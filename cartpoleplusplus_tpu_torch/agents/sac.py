@@ -120,14 +120,9 @@ def sample_action(actor: GaussianActor, obs: torch.Tensor, eps: Optional[torch.T
     return a, logp
 
 
-def greedy_act(actor: GaussianActor):
+def greedy_act(actor: GaussianActor) -> common.GreedyPolicy:
     """obs (E, …) → greedy actions tanh(mu(obs)) (E, 2)."""
-
-    @torch.no_grad()
-    def act(obs: torch.Tensor) -> torch.Tensor:
-        return torch.tanh(actor(obs)[0])
-
-    return act
+    return common.GreedyPolicy(actor, lambda net, obs: torch.tanh(net(obs)[0]))
 
 
 def make_train_once(config, *, gamma: float, tau: float, target_entropy: float,
@@ -366,7 +361,7 @@ def train(opts, stop_at: int | None = None) -> float:
     raster = common.resolve_render_raster(config, opts)
     venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
-    logger = MetricsLogger(opts.metrics_jsonl)
+    logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv,
                     actor_lr=common.make_lr(opts, opts.actor_learning_rate),
                     critic_lr=common.make_lr(opts, opts.critic_learning_rate),

@@ -4,8 +4,9 @@ Port of cartpoleplusplus_tpu.utils.event_log.  ``EventLog(path)
 .add_episode(events)`` appends one serialized ``Episode`` proto (schema
 ``event.proto``; ``event_pb2`` is a byte-for-byte copy of the JAX
 package's generated module, so both register the same messages) to the
-record stream of :mod:`utils.records`; :func:`read_event_log` streams
-them back.  Logs written by either package read in both.
+record stream of :mod:`utils.records`, through the C++ codec of
+:mod:`utils.native` where it builds; :func:`read_event_log` streams them
+back.  Logs written by either package read in both.
 
     python -m cartpoleplusplus_tpu_torch.utils.event_log --log-file X \\
         [--echo] [--img-output-dir D] [--gif-out D] [--episode N] [--verify]
@@ -26,7 +27,7 @@ from typing import Iterable, Iterator, Optional, Sequence
 import numpy as np
 
 from cartpoleplusplus_tpu_torch.utils import event_pb2
-from cartpoleplusplus_tpu_torch.utils.records import (
+from cartpoleplusplus_tpu_torch.utils.native import (
     RecordWriter, read_record_at, read_records, scan_records)
 
 

@@ -51,7 +51,10 @@ set to 0 just before it and read just after:
   fields, monotonic env steps and checkpoint numbers, restored networks
   and the whole restored state (replay, optimizers, env states,
   generator) byte-equal to the saved ones, the eval-only eval equal to a
-  fresh eval of the in-memory actor;
+  fresh eval of the in-memory actor; its first run with ``--tb-dir`` (the
+  logdir's scalars those of the run's ``train`` events where tensorboard
+  imports) and ``--export-policy``, its first ``--eval-only`` run with
+  ``--export-policy``;
 - the SAC cross-load (``sac_crossload``): the JAX config-5 SAC checkpoint's
   GaussianActor (its leaves in ``chip_inputs/sac_cfg5_15000_actor.npz``,
   sha256 checked) on the card against the CPU on the eval's first
@@ -78,13 +81,22 @@ set to 0 just before it and read just after:
   the latest and the best checkpoint; finite losses, the JAX jsonl fields,
   the update and env-step numbering, the restored state (networks,
   optimizer, env states, obs, generator, ``update``) byte-equal to the
-  saved one, the eval-only eval equal to a fresh eval of the in-memory
+  saved one (at updates 2 and 4, which the resume and the eval-only run
+  restore), the eval-only eval equal to a fresh eval of the in-memory
   policy, K2 and K4 launched on every update (its reset), PPO's
   ``clip_frac`` in [0, 1], LRPG's sampled actions indices in [0, 5) and its
   episodes at most 40 steps;
 - the JAX full Rainbow checkpoint's QNetwork card against CPU and its
   greedy eval on 64 low-dim envs (``dqn_crossload``), and the DQN program
-  with the Rainbow flags at config 5 (``dqn_cli``);
+  with the Rainbow flags at config 5 (``dqn_cli``), ``--export-policy`` on
+  its first run and its first ``--eval-only`` run;
+- the serving artifacts (``export``): ``ddpg_cli``'s and ``dqn_cli``'s
+  ``torch.export`` programs, and one exported on the CPU here from the same
+  weights, loaded on the card and run on 1, 64 and 4096 config-5 frames
+  against the direct greedy act (actions within the bf16 bound 2e-2;
+  discrete ones equal where the top two atom means are further apart), the
+  card run's loaded on the CPU and equal to the CPU's greedy act bit for
+  bit, with bytes, the export's seconds and ms per call at 4096 frames;
 - the NAF program (``naf_cli``): ``naf.main`` in-process at config 5 with
   batch norm and the NAF recipe's optimiser flags (512 envs, conv encoder,
   replay 8192, batch 256) through the runs of ``ddpg_cli``, with its
@@ -105,7 +117,15 @@ set to 0 just before it and read just after:
   ``random_agent.main`` low-dim with ``--event-log-out --record-renders``
   (K4 at one env, the slab cast as in the JAX agent; its frames held
   against the plain version too and the log's PNGs against its frames),
-  read back and held to its metrics.
+  read back and held to its metrics;
+- the fidelity harness (``fidelity``): that log re-simulated by the
+  fidelity CLI on the card (``--tolerance``, exit 0) and by
+  ``resim_episode`` on the CPU, ``max_pos_err`` of each, and the CLI's exit
+  1 on a copy with one pose moved by 1 cm;
+- the trajlog codec (``native``): ``native/trajlog.cpp`` built by g++ under
+  the port's ``_build/``, ``native_available()``, and the same records
+  written by the native and the Python codec byte-equal and read back by
+  each other.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -150,6 +170,7 @@ import copy
 import dataclasses
 import faulthandler
 import hashlib
+import importlib.util
 import io
 import json
 import lzma
@@ -182,7 +203,8 @@ from cartpoleplusplus_tpu_torch.render import raycast
 from cartpoleplusplus_tpu_torch.render.cuda_render import (
     RASTER_FRAME_BYTES, Renderer, slab_blocking)
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
-from cartpoleplusplus_tpu_torch.utils import benchmark, checkpoint, event_log, roofline
+from cartpoleplusplus_tpu_torch.utils import (
+    benchmark, checkpoint, event_log, export, fidelity, native, roofline)
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
 from cartpoleplusplus_tpu_torch.utils.params import (
     ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, q_network_params_from_flax,
@@ -285,17 +307,27 @@ CROSSLOAD_SEEDS = 5
 JAX_RECORDED_TD3 = {"eval_ep_len": 162.578125, "eval_ep_rew": 162.25}
 JAX_CPU_TD3_LENS = (171.59375, 180.328125, 185.453125, 162.671875, 182.671875)
 CROSSLOAD_WIDEN = 10.0
+# The CLI phases' episodes end at CLI_MAX_LEN steps, and SAC's, DQN's and
+# NAF's segments take CLI_STEPS steps: cuts in depth from the recipes' 200 and
+# 25 that keep the script inside its watchdog on a slow host.  A greedy eval
+# runs max_episode_len steps whatever its envs do, and the policies of these
+# few segments fall within about 10.
+CLI_MAX_LEN = 50
+CLI_STEPS = 10
+CONFIG5_CLI = dataclasses.replace(CONFIG5, max_episode_len=CLI_MAX_LEN)
 # The DDPG CLI at config 5, full width (ddpg_cli phase); the TD3 recipe's
 # stabilizers and its conv encoder.
 CLI_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --num-envs 4096 "
             "--replay-capacity 8192 --batch-size 128 --steps-per-segment 20 --warmup-steps 1 "
-            "--num-eval 64 --eval-freq 2 --twin-critic --policy-delay 2 --target-noise 0.2 "
-            "--aug-shift 2 --pixel-encoder conv --ckpt-freq 1").split()
+            f"--num-eval 64 --eval-freq 2 --max-episode-len {CLI_MAX_LEN} --twin-critic "
+            "--policy-delay 2 --target-noise 0.2 --aug-shift 2 --pixel-encoder conv "
+            "--ckpt-freq 1").split()
 TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "critic_loss", "actor_loss",
                 "mean_reward", "double_reset_frac", "eval_ep_len", "eval_ep_rew"]
 EVENT_FIELDS = {"train": TRAIN_FIELDS, "restore": ["ts", "elapsed_s", "event", "step"],
                 "eval_only": ["ts", "elapsed_s", "event", "segment", "eval_ep_len", "eval_ep_rew"],
-                "event_log": ["ts", "elapsed_s", "event", "episodes", "lengths"]}
+                "event_log": ["ts", "elapsed_s", "event", "episodes", "lengths"],
+                "export_policy": ["ts", "elapsed_s", "event", "path", "bytes"]}
 
 # The JAX package's config-5 SAC checkpoint (BASELINE.md "Round 5: SAC
 # solves at the PRODUCTION bench config": 2 cameras, obs_pool 2, obs_samples
@@ -321,7 +353,8 @@ SAC_REPLAY = 16384
 SAC_ALPHA_MIN = 0.02
 SAC_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
             f"--num-envs {SAC_ENVS} --replay-capacity {SAC_REPLAY} --batch-size 256 "
-            "--steps-per-segment 25 --actor-learning-rate 1e-4 --critic-learning-rate 3e-4 "
+            f"--steps-per-segment {CLI_STEPS} --max-episode-len {CLI_MAX_LEN} "
+            "--actor-learning-rate 1e-4 --critic-learning-rate 3e-4 "
             "--lr-schedule cosine --reward-scale 0.1 --grad-clip 10 --aug-shift 2 "
             f"--alpha-min {SAC_ALPHA_MIN} --warmup-steps 1 --num-eval 64 --eval-freq 2 "
             "--ckpt-freq 5000").split()
@@ -345,7 +378,8 @@ PPO_ROLLOUT = 32
 PPO_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
             f"--num-envs {ONPOLICY_ENVS} --rollout-steps {PPO_ROLLOUT} --ppo-epochs 4 "
             "--ppo-minibatches 4 --learning-rate 3e-4 --lr-schedule cosine --reward-scale 0.1 "
-            "--grad-clip 0.5 --num-eval 64 --eval-freq 1 --ckpt-freq 1").split()
+            "--grad-clip 0.5 --num-eval 64 --eval-freq 1 --ckpt-freq 1 "
+            f"--max-episode-len {CLI_MAX_LEN}").split()
 PPO_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "update", "env_steps", *ppo.METRIC_KEYS,
                     "eval_ep_len", "eval_ep_rew"]
 LRPG_MAX_LEN = 40
@@ -380,7 +414,8 @@ JAX_CPU_DQN_LENS = (198.171875, 195.921875, 198.578125, 198.34375, 195.359375)
 DQN_ENVS = 512
 DQN_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
             f"--num-envs {DQN_ENVS} --replay-capacity 8192 --batch-size 256 "
-            "--steps-per-segment 25 --warmup-steps 1 --lr-schedule cosine --reward-scale 0.1 "
+            f"--steps-per-segment {CLI_STEPS} --max-episode-len {CLI_MAX_LEN} "
+            "--warmup-steps 1 --lr-schedule cosine --reward-scale 0.1 "
             "--grad-clip 10 --per --n-step 3 --dueling --c51 51 --c51-vmax 10 --noisy "
             "--num-eval 64 --eval-freq 2 --ckpt-freq 1").split()
 DQN_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", "eps",
@@ -401,7 +436,8 @@ DQN_EVENT_FIELDS = {**EVENT_FIELDS, "train": DQN_TRAIN_FIELDS}
 NAF_ENVS = 512
 NAF_ARGV = ("--use-raw-pixels --num-cameras 2 --obs-pool 2 --obs-samples 2 --pixel-encoder conv "
             f"--num-envs {NAF_ENVS} --replay-capacity 8192 --batch-size 256 "
-            "--steps-per-segment 25 --warmup-steps 1 --learning-rate 3e-4 --lr-schedule cosine "
+            f"--steps-per-segment {CLI_STEPS} --max-episode-len {CLI_MAX_LEN} "
+            "--warmup-steps 1 --learning-rate 3e-4 --lr-schedule cosine "
             "--reward-scale 0.1 --grad-clip 10 --ou-sigma-min 0.05 --ou-decay-steps 100000 "
             "--use-batch-norm --num-eval 64 --eval-freq 2 --ckpt-freq 1").split()
 NAF_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", "mean_reward",
@@ -431,6 +467,10 @@ AOS_ENVS = 256
 AOS_PUSH_ATOL = 1e-4
 PER_ENV_STEPS = 5
 PER_ENV_EPISODES = 2
+# The fidelity phase's --tolerance: per_env's log re-simulated on the card (the
+# engine that recorded it) and on the CPU (the AoS engine's bound against the
+# card, tests/test_torch_aos.py's long-horizon position bound).
+FIDELITY_TOL = 2e-3
 # The polyak step target ← target + τ·(online − target), checked in norm.
 TARGET_STEP_RTOL = 1e-3
 _PHYS = ("step_repeats", "step_substeps")
@@ -1153,7 +1193,8 @@ def bench_check(out: str) -> tuple[list, dict, dict]:
     row lines in ROW_SPECS' order, then the summary last; every row on
     ``cuda`` with a value > 0, its card and power limit; the low-dim row's
     metric without ``_pixel_render``, the others with it; every ceiling the
-    row's measured mix rate over the census of its config."""
+    row's measured mix rate over the census of its config; no row's child
+    imported ``torch._dynamo``."""
     lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
     rows, summary = lines[:-1], lines[-1] if lines else {}
     defaults = benchmark.make_parser().parse_args([])
@@ -1181,6 +1222,7 @@ def bench_check(out: str) -> tuple[list, dict, dict]:
         "ceilings_from_measured_mix": all(ceiling_ok(r, over) for r, (_, _, over) in paired),
         "summary_without_error": bool(rows) and "error" not in summary
         and summary.get("metric") == rows[0]["metric"] + specs[0][1],
+        "no_dynamo_in_rows": all(r.get("_dynamo_imported") is False for r in rows),
     }
     return rows, summary, checks
 
@@ -1553,10 +1595,11 @@ def read_jsonl(path: str) -> list:
 
 
 def drive_cli(agent, argv: list, work: str, whole: bool = False,
-              eval_extra: tuple = ()) -> SimpleNamespace:
-    """``agent.main`` in-process on ``argv``: 2 segments; a resume to 4 (both
-    with --ckpt-best); a --ckpt-skip-replay save and resume to 3;
-    --eval-only on the latest (with ``eval_extra``) and on --ckpt-best.  Spies on
+              eval_extra: tuple = (), first_extra: tuple = ()) -> SimpleNamespace:
+    """``agent.main`` in-process on ``argv``: 2 segments (with
+    ``first_extra``); a resume to 4 (both with --ckpt-best); a
+    --ckpt-skip-replay save and resume to 3; --eval-only on the latest (with
+    ``eval_extra``) and on --ckpt-best.  Spies on
     checkpoint.save/restore_latest (the networks at each save and after
     each restore; with ``whole`` the whole state dict too, at step 2),
     ``agent.make_segment`` (each segment's seconds and launches) and
@@ -1616,7 +1659,7 @@ def drive_cli(agent, argv: list, work: str, whole: bool = False,
     with patched(checkpoint, "save", spy_save), \
             patched(checkpoint, "restore_latest", spy_restore), \
             patched(agent, "make_segment", spy_segment), patched(common, "eval_rollout", spy_eval):
-        run(ckpt_dir, metrics, 2, "--ckpt-best")
+        run(ckpt_dir, metrics, 2, "--ckpt-best", *first_extra)
         first = {n: os.path.getmtime(os.path.join(ckpt_dir, f"ckpt_{n}.pt"))
                  for n in (1, 2) if os.path.exists(os.path.join(ckpt_dir, f"ckpt_{n}.pt"))}
         run(ckpt_dir, metrics, 4, "--ckpt-best")
@@ -1655,7 +1698,8 @@ def cli_checks(r: SimpleNamespace, fresh: tuple, fields: dict, steps_per_segment
         "losses_finite": all(math.isfinite(e[k]) for e in r.trains + lean_trains
                              for k in loss_keys),
         "jax_field_sets": all(list(e) == fields[e["event"]] for e in r.events + r.lean_events),
-        "events": [e["event"] for e in r.events if e["event"] != "event_log"] == [
+        "events": [e["event"] for e in r.events
+                   if e["event"] not in ("event_log", "export_policy")] == [
             "train", "restore", "train", "restore", "eval_only", "restore", "eval_only"],
         "env_steps_monotonic": [e["env_steps"] for e in r.trains] == [
             s * steps_per_segment * num_envs for s in (2, 4)],
@@ -1691,20 +1735,66 @@ def cli_line(r: SimpleNamespace, argv: list, fresh: tuple, checks: dict) -> dict
                 best_meta=r.best, launches=r.launches, checks=checks)
 
 
-def ddpg_cli(work: str, dev) -> tuple[dict, dict]:
+def artifact_paths(art: dict, name: str) -> dict:
+    return {k: os.path.join(art["dir"], f"{name}_{k}.pt2") for k in ("trained", "eval_only")}
+
+
+def exported_checks(r: SimpleNamespace, paths: dict) -> bool:
+    """The two ``export_policy`` events of a :func:`drive_cli` run with
+    ``--export-policy`` on its first run and its first --eval-only run: each
+    right after that run's last event, naming its artifact and its bytes."""
+    names = [e["event"] for e in r.events]
+    logged = [(i, e) for i, e in enumerate(r.events) if e["event"] == "export_policy"]
+    return [e["path"] for _, e in logged] == [paths["trained"], paths["eval_only"]] \
+        and all(e["bytes"] == os.path.getsize(e["path"]) for _, e in logged) \
+        and [names[i - 1] for i, _ in logged] == ["train", "eval_only"]
+
+
+def tb_check(tb: str, trains: list) -> tuple[bool, dict]:
+    """``--tb-dir`` on a run whose ``train`` events are ``trains``: where
+    tensorboard imports, the logdir's ``train/eval_ep_len`` scalars are
+    those events' (step = segment); where it does not, the logger only
+    warned and wrote no logdir → (ok, what was read)."""
+    if importlib.util.find_spec("tensorboard") is None:
+        return not os.path.exists(tb), {"tb_available": False}
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(tb)
+    acc.Reload()
+    got = [(e.step, e.value) for e in acc.Scalars("train/eval_ep_len")]
+    want = [(e["segment"], e["eval_ep_len"]) for e in trains]
+    return got == want and len(got) > 0, {"tb_available": True, "tags": acc.Tags()["scalars"],
+                                          "eval_ep_len": got}
+
+
+def ddpg_cli(work: str, dev, art: dict) -> tuple[dict, dict]:
     """``ddpg.main`` in-process at config 5 full width through
-    :func:`drive_cli`'s runs, and its checks."""
-    r = drive_cli(ddpg, CLI_ARGV, work, whole=True)
+    :func:`drive_cli`'s runs, and its checks; ``--tb-dir`` and
+    ``--export-policy`` on the first run and ``--export-policy`` on the
+    first --eval-only run (the conv Actor, uint8 frames in).  The artifacts
+    (in ``art["dir"]``), the actor's saved weights and 4096 of the replay's
+    config-5 frames go into ``art`` for :func:`export_check`."""
+    tb, paths = os.path.join(work, "tb"), artifact_paths(art, "ddpg")
+    r = drive_cli(ddpg, CLI_ARGV, work, whole=True,
+                  first_extra=("--tb-dir", tb, "--export-policy", paths["trained"]),
+                  eval_extra=("--export-policy", paths["eval_only"]))
     # A fresh eval of the in-memory actor at its last save, same generator seed.
     actor = Actor(CONFIG5.obs_shape, device=dev, **TD3_NET)
     actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
-    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), greedy_act(actor),
+    fresh = eval_rollout(make_venv(CONFIG5_CLI, 64, device=dev), greedy_act(actor),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
     checks = cli_checks(r, fresh, EVENT_FIELDS, 20, NUM_ENVS, 8192)
     checks["resume_numbering"] = checks["resume_numbering"] and r.files_after_resume == [
         "ckpt_1.pt", "ckpt_2.pt", "ckpt_3.pt", "ckpt_4.pt", "ckpt_best.pt", "ckpt_best.pt.json"]
     checks["restored_whole_equals_saved"] = restored_whole_equals_saved(r)
-    return cli_line(r, CLI_ARGV, fresh, checks), r.launches
+    first_run = r.events[:[e["event"] for e in r.events].index("restore")]
+    checks["tb_scalars"], tb = tb_check(tb, [e for e in first_run if e["event"] == "train"])
+    checks["export_policy_events"] = exported_checks(r, paths)
+    art["ddpg"] = {"paths": paths, "states": {n: r.saved[(r.ckpt_dir, n)]["actor"] for n in (2, 4)}}
+    art["frames"] = r.last_raw["replay"]["s1"][:NUM_ENVS].clone()
+    line = cli_line(r, CLI_ARGV, fresh, checks)
+    line["tensorboard"] = tb
+    return line, r.launches
 
 
 def sac_cli(work: str, dev) -> tuple[dict, dict]:
@@ -1716,10 +1806,10 @@ def sac_cli(work: str, dev) -> tuple[dict, dict]:
     r = drive_cli(sac, SAC_ARGV, work, whole=True)
     actor = GaussianActor(CONFIG5.obs_shape, device=dev, **TD3_NET)
     actor.load_state_dict(r.saved[(r.ckpt_dir, 4)]["actor"])
-    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), sac.greedy_act(actor),
+    fresh = eval_rollout(make_venv(CONFIG5_CLI, 64, device=dev), sac.greedy_act(actor),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
-    checks = cli_checks(r, fresh, SAC_EVENT_FIELDS, 25, SAC_ENVS,
-                        min(2 * 25 * SAC_ENVS, SAC_REPLAY),
+    checks = cli_checks(r, fresh, SAC_EVENT_FIELDS, CLI_STEPS, SAC_ENVS,
+                        min(2 * CLI_STEPS * SAC_ENVS, SAC_REPLAY),
                         loss_keys=("critic_loss", "actor_loss", "alpha", "entropy"))
     lean_trains = [e for e in r.lean_events if e["event"] == "train"]
     log_alpha = r.last_raw.get("log_alpha")
@@ -1805,10 +1895,13 @@ def dqn_crossload(sd: dict, dev) -> tuple[dict, dict]:
     return line, launches
 
 
-def dqn_cli(work: str, dev) -> tuple[dict, dict]:
+def dqn_cli(work: str, dev, art: dict) -> tuple[dict, dict]:
     """``dqn.main`` in-process at config 5 with the full Rainbow flags (512
     envs, conv encoder, replay 8192, batch 256) through :func:`drive_cli`'s
-    runs; the checks of ``ddpg_cli`` and DQN's own: ``eps`` 0 (NoisyNet
+    runs, ``--export-policy`` on the first run and the first --eval-only run
+    (the C51 QNetwork with NoisyNet heads, action indices out; artifacts and
+    saved weights into ``art`` for :func:`export_check`); the checks of
+    ``ddpg_cli`` and DQN's own: ``eps`` 0 (NoisyNet
     exploration) on every trained segment, the restored state (networks,
     Adam, schedule, replay, env states, obs, generator, ``env_steps``)
     byte-equal to the saved one (a skip-replay file's without the replay),
@@ -1830,13 +1923,16 @@ def dqn_cli(work: str, dev) -> tuple[dict, dict]:
 
     with patched(replay_mod, "update_priorities", spy_update), \
             patched(replay_mod, "sample_prioritized", spy_sample):
-        r = drive_cli(dqn, DQN_ARGV, work, whole=True)
+        paths = artifact_paths(art, "dqn")
+        r = drive_cli(dqn, DQN_ARGV, work, whole=True,
+                      first_extra=("--export-policy", paths["trained"]),
+                      eval_extra=("--export-policy", paths["eval_only"]))
     q = QNetwork(CONFIG5.obs_shape, device=dev, **TD3_NET, **DQN_NET)
     q.load_state_dict(r.saved[(r.ckpt_dir, 4)]["q"])
-    cfg = dataclasses.replace(CONFIG5, discrete_actions=True)
+    cfg = dataclasses.replace(CONFIG5_CLI, discrete_actions=True)
     fresh = eval_rollout(make_venv(cfg, 64, device=dev), dqn.greedy_act(q),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
-    checks = cli_checks(r, fresh, DQN_EVENT_FIELDS, 25, DQN_ENVS, 8192, loss_keys=("loss",))
+    checks = cli_checks(r, fresh, DQN_EVENT_FIELDS, CLI_STEPS, DQN_ENVS, 8192, loss_keys=("loss",))
     lean_trains = [e for e in r.lean_events if e["event"] == "train"]
     actions = r.last_raw["replay"]["action"]
     priority = r.last_raw["replay"]["priority"]
@@ -1851,7 +1947,9 @@ def dqn_cli(work: str, dev) -> tuple[dict, dict]:
         and float(priority.min()) > 0.0,
         "reset_kernels_every_segment": len(r.seg_launches) == 7 and all(
             d["step_substeps"] == 1 and d["render_batched"] == 1 for d in r.seg_launches),
+        "export_policy_events": exported_checks(r, paths),
     })
+    art["dqn"] = {"paths": paths, "states": {n: r.saved[(r.ckpt_dir, n)]["q"] for n in (2, 4)}}
     line = cli_line(r, DQN_ARGV, fresh, checks)
     line.update(priority_writes=len(writes), segment_launches=r.seg_launches,
                 action_range=(int(actions.min()), int(actions.max())))
@@ -1862,15 +1960,20 @@ def drive_onpolicy(agent, argv: list, work: str) -> SimpleNamespace:
     """``agent.main`` in-process on ``argv``: 2 updates and a resume to 4
     (both with --ckpt-best), then --eval-only on the latest checkpoint and
     on --ckpt-best.  Spies on checkpoint.save/restore_latest (the whole
-    state dict at each save and after each restore), ``agent.make_train_step``
+    state dict at the saves of updates 2 and 4, which the resume and the
+    eval-only run restore, and after each restore; every save's
+    ``update``), ``agent.make_train_step``
     (each update's seconds and launches) and eval_rollout (its seconds) →
     what the runs left behind."""
     ckpt_dir, metrics = os.path.join(work, "ckpt"), os.path.join(work, "m.jsonl")
-    saved, restored, step_s, step_launches, eval_s = {}, {}, [], [], []
+    saved, restored, step_s, step_launches, eval_s, updates = {}, {}, [], [], [], {}
 
     def spy_save(real):
         def save(d, step, tree, skip_replay=False):
-            saved[step] = host_tree(tree.state_dict())
+            sd = tree.state_dict()
+            updates[step] = sd["update"]
+            if step in (2, 4):  # the saves restored_equals_saved compares
+                saved[step] = host_tree(sd)
             return real(d, step, tree, skip_replay)
         return save
 
@@ -1924,7 +2027,7 @@ def drive_onpolicy(agent, argv: list, work: str) -> SimpleNamespace:
         eval_best = run(4, "--eval-only", "--ckpt-best")
     events = read_jsonl(metrics)
     return SimpleNamespace(
-        ckpt_dir=ckpt_dir, saved=saved, restored=restored, step_s=step_s,
+        ckpt_dir=ckpt_dir, saved=saved, restored=restored, updates=updates, step_s=step_s,
         step_launches=step_launches, eval_s=eval_s, n_eval=n_eval, first=first, files=files,
         eval_latest=eval_latest, eval_best=eval_best, launches=dict(kernels.LAUNCHES),
         events=events, best=checkpoint.best_meta(ckpt_dir),
@@ -1956,7 +2059,7 @@ def onpolicy_checks(r: SimpleNamespace, fresh: tuple, train_fields: list,
                         "ckpt_best.pt.json"]
         and all(os.path.getmtime(os.path.join(r.ckpt_dir, f"ckpt_{n}.pt")) == t
                 for n, t in r.first.items()),
-        "saved_updates": all(r.saved[n]["update"] == n for n in (1, 2, 3, 4)),
+        "saved_updates": all(r.updates[n] == n for n in (1, 2, 3, 4)),
         "restored_equals_saved": sorted(r.restored) == [2, 4]
         and all(trees_equal(r.restored[n], r.saved[n]) for n in (2, 4)),
         "eval_only_latest": r.evals[0]["segment"] == 4
@@ -1991,7 +2094,7 @@ def ppo_cli(work: str, dev) -> tuple[dict, dict]:
     r = drive_onpolicy(ppo, PPO_ARGV, work)
     actor = GaussianActor(CONFIG5.obs_shape, device=dev, **TD3_NET)
     actor.load_state_dict(r.saved[4]["params"]["actor"])
-    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), ppo.greedy_act(actor),
+    fresh = eval_rollout(make_venv(CONFIG5_CLI, 64, device=dev), ppo.greedy_act(actor),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
     checks = onpolicy_checks(r, fresh, PPO_TRAIN_FIELDS,
                              ("loss", "pg_loss", "v_loss", "entropy", "approx_kl"))
@@ -2175,9 +2278,9 @@ def naf_cli(work: str, dev) -> tuple[dict, dict]:
         and logged[0]["lengths"] == [len(ep.event) for ep in episodes]
     net = NAFNetwork(CONFIG5.obs_shape, device=dev, use_batch_norm=True, **TD3_NET)
     net.load_state_dict(r.saved[(r.ckpt_dir, 4)]["net"])
-    fresh = eval_rollout(make_venv(CONFIG5, 64, device=dev), naf.greedy_act(net),
+    fresh = eval_rollout(make_venv(CONFIG5_CLI, 64, device=dev), naf.greedy_act(net),
                          torch.Generator(device=dev).manual_seed(SEED + 1))
-    checks = cli_checks(r, fresh, NAF_EVENT_FIELDS, 25, NAF_ENVS, 8192, loss_keys=("loss",))
+    checks = cli_checks(r, fresh, NAF_EVENT_FIELDS, CLI_STEPS, NAF_ENVS, 8192, loss_keys=("loss",))
     keys, t0, online, t1, tau = first[0]
     is_stat = [k.endswith(("batch_norm.mean", "batch_norm.var")) for k in keys]
     pick = lambda vs: [v for v, s in zip(vs, is_stat) if s]
@@ -2386,6 +2489,189 @@ def per_env(work: str, dev) -> tuple[dict, dict]:
                                      "--format=csv,noheader"], capture_output=True, text=True,
                                     timeout=60).stdout.strip(), checks=checks)
     return line, dict(launches)
+
+
+def action_agreement(got: torch.Tensor, want: torch.Tensor, gap: torch.Tensor | None) -> dict:
+    """An artifact's actions against the direct greedy act's: continuous
+    within CONV_ATOL; discrete equal on every row whose top two atom means
+    (``gap``) are more than CONV_ATOL apart."""
+    if gap is None:
+        err = float((got - want).abs().max())
+        return {"max_abs_err": err, "bit_equal": bool(torch.equal(got, want)),
+                "ok": got.shape == want.shape and err <= CONV_ATOL}
+    differ = got != want
+    return {"rows_differing": int(differ.sum()), "rows_clear": int((gap > CONV_ATOL).sum()),
+            "bit_equal": bool(torch.equal(got, want)),
+            "ok": got.shape == want.shape and not bool((differ & (gap > CONV_ATOL)).any())}
+
+
+# The agents whose artifacts export_check holds: (network at config 5, greedy
+# policy, the atoms of the C51 support or None).
+EXPORTED = {
+    "ddpg": (lambda d: Actor(CONFIG5.obs_shape, device=d, **TD3_NET), ddpg.greedy_act, None),
+    "dqn": (lambda d: QNetwork(CONFIG5.obs_shape, device=d, **TD3_NET, **DQN_NET),
+            dqn.greedy_act, DQN_NET["num_atoms"]),
+}
+EXPORT_BATCHES = (1, 64, NUM_ENVS)
+EXPORT_CPU_BATCHES = (1, 64)
+
+
+def export_check(art: dict, dev) -> tuple[dict, dict]:
+    """The serving artifacts of ``ddpg_cli`` and ``dqn_cli`` (``export``):
+
+    - the one exported under --eval-only (on the card's run, from its
+      weights copied to the CPU) and one this phase exports on the CPU from
+      the same saved weights, each loaded on the card and run on 1, 64 and
+      4096 config-5 frames (``ddpg_cli``'s replay) against the direct greedy
+      act on the card (:func:`action_agreement`);
+    - the card run's artifact loaded on the CPU at 1 and 64 frames, equal to
+      the greedy act on the CPU bit for bit (as on the CPU tests);
+    - the artifact written after the first training run against the greedy
+      act with that run's saved weights, on the card at 64 frames;
+    - the describe'd signature (symbolic batch from 1, uint8 in), bytes, the
+      CPU export's seconds, and ms per call at 4096 frames on the card,
+      beside the direct greedy act's."""
+    frames = art["frames"]
+    kernels.reset_launches()
+    line, checks = {}, {}
+    for name, (make, greedy, atoms) in EXPORTED.items():
+        paths, states = art[name]["paths"], art[name]["states"]
+        policies, nets = {}, {}
+        for n in (2, 4):
+            for where in ("cuda", "cpu"):
+                net = make(dev if where == "cuda" else "cpu")
+                net.load_state_dict(states[n])
+                nets[(n, where)], policies[(n, where)] = net, greedy(net)
+        z = None if atoms is None else dqn.support(0.0, 1.0, atoms, dev)
+
+        def gap(obs, n=4):
+            if z is None:
+                return None
+            with torch.no_grad():
+                top2 = torch.topk(dqn.q_scalar(nets[(n, "cuda")](obs), z), 2, dim=-1).values
+            return top2[:, 0] - top2[:, 1]
+
+        cpu_path = os.path.join(art["dir"], f"{name}_cpu_exported.pt2")
+        t = time.monotonic()
+        cpu_bytes = export.save_policy(cpu_path, policies[(4, "cpu")], CONFIG5.obs_shape,
+                                       torch.uint8)
+        export_s = time.monotonic() - t
+        meta = export.describe(paths["eval_only"])
+        res = {"bytes": meta["bytes"], "bytes_trained": os.path.getsize(paths["trained"]),
+               "bytes_cpu_exported": cpu_bytes, "export_s_cpu": export_s,
+               "inputs": meta["inputs"], "outputs": meta["outputs"], "batch": meta["batch"]}
+        ok = [meta["batch"]["symbolic"] and meta["batch"]["min"] == 1 and meta["dtype"] == "uint8"]
+        on_card = {}
+        for label, path in (("card_exported", paths["eval_only"]), ("cpu_exported", cpu_path)):
+            t = time.monotonic()
+            on_card[label] = export.load_policy(path, dev)
+            res[f"{label}_load_s"] = time.monotonic() - t
+            for b in EXPORT_BATCHES:
+                obs = frames[:b].to(dev)
+                agree = action_agreement(on_card[label](obs), policies[(4, "cuda")](obs), gap(obs))
+                res[f"{label}_on_card_b{b}"] = agree
+                ok.append(agree["ok"])
+        on_cpu = export.load_policy(paths["eval_only"], "cpu")
+        for b in EXPORT_CPU_BATCHES:
+            equal = bool(torch.equal(on_cpu(frames[:b]), policies[(4, "cpu")](frames[:b])))
+            res[f"card_exported_on_cpu_b{b}_bit_equal"] = equal
+            ok.append(equal)
+        obs = frames[:64].to(dev)
+        agree = action_agreement(export.load_policy(paths["trained"], dev)(obs),
+                                 policies[(2, "cuda")](obs), gap(obs, 2))
+        res["trained_on_card_b64"] = agree
+        ok.append(agree["ok"])
+        obs = frames.to(dev)
+        res["ms_4096"] = time_ms(lambda: on_card["card_exported"](obs), reps=20)
+        res["direct_ms_4096"] = time_ms(lambda: policies[(4, "cuda")](obs), reps=20)
+        line[name] = res
+        checks[f"{name}_artifacts"] = all(ok)
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    checks["no_kernel_launches"] = not launches
+    line.update(batches=list(EXPORT_BATCHES), cpu_batches=list(EXPORT_CPU_BATCHES),
+                atol=CONV_ATOL, launches=launches, checks=checks)
+    return line, dict(kernels.LAUNCHES)
+
+
+def fidelity_check(log_path: str, work: str, dev) -> tuple[dict, dict]:
+    """The fidelity harness on ``per_env``'s random-agent log (recorded on the
+    card): its CLI re-simulating every episode on the card with
+    ``--tolerance FIDELITY_TOL`` (exit 0), ``resim_episode`` on the CPU, and
+    the CLI on a copy with one pose moved by 1 cm, which must exit 1 (on the
+    CPU) → ``max_pos_err`` card and CPU, and seconds."""
+    kernels.reset_launches()
+    out = io.StringIO()
+    t = time.monotonic()
+    with contextlib.redirect_stdout(out):
+        worst_card = fidelity.main(["--log-file", log_path, "--json", "--tolerance",
+                                    str(FIDELITY_TOL), "--device", str(dev)])
+    card_s = time.monotonic() - t
+    card = [json.loads(ln) for ln in out.getvalue().splitlines()]
+    episodes = list(event_log.read_event_log(log_path))
+    config = CartpoleConfig(max_episode_len=10**9)
+    t = time.monotonic()
+    cpu = [fidelity.divergence_report(*fidelity.resim_episode(ep, config, "cpu"))
+           for ep in episodes if len(ep.event) >= 2]
+    cpu_s = time.monotonic() - t
+    moved = next(ep for ep in episodes if len(ep.event) >= 2)
+    moved.event[-1].cart.position[0] += 0.01
+    moved_path = os.path.join(work, "moved.events")
+    log = event_log.EventLog(moved_path)
+    log.add_episode(moved.event)
+    log.close()
+    with contextlib.redirect_stdout(io.StringIO()), contextlib.redirect_stderr(io.StringIO()):
+        try:
+            fidelity.main(["--log-file", moved_path, "--tolerance", "1e-3", "--device", "cpu"])
+            moved_exit = 0
+        except SystemExit as e:
+            moved_exit = e.code
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    checks = {
+        "every_episode_resimulated": len(card) == len(cpu) == sum(
+            len(ep.event) >= 2 for ep in episodes) > 0,
+        "card_within_tolerance": worst_card <= FIDELITY_TOL,
+        "cpu_within_tolerance": max(r["max_pos_err"] for r in cpu) <= FIDELITY_TOL,
+        "moved_log_exits_1": moved_exit == 1,
+        "no_kernel_launches": not launches,
+    }
+    line = dict(episodes=len(episodes), steps=[len(ep.event) for ep in episodes],
+                tolerance=FIDELITY_TOL, card_reports=card, cpu_reports=cpu,
+                max_pos_err={"card": worst_card, "cpu": max(r["max_pos_err"] for r in cpu)},
+                seconds={"card_cli": card_s, "cpu": cpu_s}, moved_exit=moved_exit,
+                launches=launches, checks=checks)
+    return line, dict(kernels.LAUNCHES)
+
+
+def native_check(work: str) -> dict:
+    """The trajlog codec (``native``): the library built from
+    ``native/trajlog.cpp`` under the port's ``_build/`` (by the first event
+    log of this run, or here), and the same records written by the native
+    and the Python codec → byte-equal files, each read back by the other."""
+    available = native.native_available()
+    payloads = [b"", b"x", os.urandom(1 << 16), os.urandom(3 << 20)]
+    files = {}
+    t = time.monotonic()
+    for force_python in (False, True):
+        path = os.path.join(work, f"trajlog_{force_python}.log")
+        w = native.RecordWriter(path, force_python=force_python)
+        for p in payloads:
+            w.write(p)
+        w.close()
+        with open(path, "rb") as f:
+            files[force_python] = (path, f.read())
+    round_trip_s = time.monotonic() - t
+    checks = {
+        "native_available": available,
+        "built_under_build": native.BUILD_INFO.get("path", "").startswith(
+            native.BUILD_ROOT + os.sep),
+        "byte_equal": files[False][1] == files[True][1],
+        "cross_read": list(native.read_records(files[False][0], force_python=True)) == payloads
+        and list(native.read_records(files[True][0])) == payloads
+        and native.scan_records(files[True][0]) == native.scan_records(
+            files[False][0], force_python=True),
+    }
+    return dict(build=native.BUILD_INFO, bytes=len(files[False][1]), round_trip_s=round_trip_s,
+                checks=checks)
 
 
 def main() -> int:
@@ -2982,10 +3268,25 @@ def run() -> int:
         raise AssertionError(f"crossload checks failed: {line['checks']}")
     del td3, td3_actor
 
-    # 13. the DDPG program: ddpg.main at config 5, full width (K1-K4)
+    # 13. the DDPG program: ddpg.main at config 5, full width (K1-K4), with
+    # --tb-dir and --export-policy.  Each artifact's export is timed (the
+    # first one imports torch._dynamo); the artifacts stay for phase 20b.
+    art = {"dir": tempfile.mkdtemp(prefix="chip_smoke_export_")}
+    dynamo_before = "torch._dynamo" in sys.modules
+    export_s = []
+
+    def timed_save(real):
+        def save(*a, **kw):
+            t = time.monotonic()
+            out = real(*a, **kw)
+            export_s.append(time.monotonic() - t)
+            return out
+        return save
+
     work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     try:
-        line, launches_by_path["ddpg_cli"] = ddpg_cli(work, dev)
+        with patched(export, "save_policy", timed_save):
+            line, launches_by_path["ddpg_cli"] = ddpg_cli(work, dev, art)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("ddpg_cli", **line)
@@ -3035,12 +3336,23 @@ def run() -> int:
     # 20. the DQN program: dqn.main with the full Rainbow flags at config 5 (K1-K4)
     work = tempfile.mkdtemp(prefix="chip_smoke_dqn_")
     try:
-        line, launches_by_path["dqn_cli"] = dqn_cli(work, dev)
+        with patched(export, "save_policy", timed_save):
+            line, launches_by_path["dqn_cli"] = dqn_cli(work, dev, art)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit("dqn_cli", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"dqn_cli checks failed: {line['checks']}")
+
+    # 20b. the serving artifacts of ddpg_cli and dqn_cli on the card and the CPU
+    try:
+        line, launches_by_path["export"] = export_check(art, dev)
+    finally:
+        shutil.rmtree(art["dir"], ignore_errors=True)
+    emit("export", cli_export_s=export_s, dynamo_imported_before=dynamo_before, card=smi, **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"export checks failed: {line['checks']}")
+    del art
 
     # 21. the NAF program: naf.main with batch norm at config 5 (K1-K4), and
     # three updates of its saved network card against CPU
@@ -3056,19 +3368,34 @@ def run() -> int:
     # 22. the per-env surface: AoS physics card against CPU, the gym env at
     # config 5 (K3/K4 at E = 1), 1cam_exact (K5a) and low-dim, a fresh-reset
     # vector step, the random agent's event log
+    # 23-24. per_env's random-agent log re-simulated by the fidelity harness on
+    # the card and the CPU; the trajlog codec
     work = tempfile.mkdtemp(prefix="chip_smoke_per_env_")
     try:
         line, launches_by_path["per_env"] = per_env(work, dev)
+        emit("per_env", **line)
+        if not all(line["checks"].values()):
+            raise AssertionError(f"per_env checks failed: {line['checks']}")
+        one_env = line["one_env_launches"]
+        line, launches_by_path["fidelity"] = fidelity_check(
+            os.path.join(work, "random.events"), work, dev)
+        emit("fidelity", card=smi, **line)
+        if not all(line["checks"].values()):
+            raise AssertionError(f"fidelity checks failed: {line['checks']}")
+        kernels.reset_launches()
+        line = native_check(work)
+        launches_by_path["native"] = dict(kernels.LAUNCHES)
+        line["checks"]["no_kernel_launches"] = not any(launches_by_path["native"].values())
+        emit("native", **line)
+        if not all(line["checks"].values()):
+            raise AssertionError(f"native checks failed: {line['checks']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-    emit("per_env", **line)
-    if not all(line["checks"].values()):
-        raise AssertionError(f"per_env checks failed: {line['checks']}")
-    one_env = line["one_env_launches"]
     for row in rows:
         row["launches_one_env"] = one_env.get(row["name"], 0)
         for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
-                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "naf_cli", "per_env"):
+                     "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "export", "naf_cli",
+                     "per_env", "fidelity", "native"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

@@ -1,11 +1,13 @@
 """The port's DDPG CLI against the JAX package's: the same flags, defaults
 and choices (``vars(opts)`` equal for the recipes' argv, the port adding
-only ``--device``), the same ``CartpoleConfig`` from them, and every flag
+only ``--device``), the same ``CartpoleConfig`` from them, every flag
 whose feature the port lacks refused at startup with the ROADMAP item that
-brings it.
+brings it, and ``--export-policy`` and ``--tb-dir`` writing what they
+write.
 """
 
 import dataclasses
+import json
 import re
 import shlex
 
@@ -93,10 +95,11 @@ def test_config_from_opts_matches_jax(name):
         assert getattr(got, field.name) == getattr(want, field.name), field.name
 
 
+TOY = """--num-train-batches 2 --num-envs 4 --num-eval 4 --action-repeats 2
+  --steps-per-repeat 2 --max-episode-len 10 --steps-per-segment 3 --batch-size 8
+  --replay-capacity 64 --warmup-steps 1 --eval-freq 1"""
 # flag argv → the ROADMAP.md item its message must name
 UNPORTED = {
-    "--export-policy x.pt2": "item 6",
-    "--tb-dir tb": "item 5",
     "--num-devices 2": "item 7",
     "--num-processes 2 --coordinator h:1": "item 7",
 }
@@ -113,6 +116,33 @@ def test_unported_flag_stops_at_startup(flags, tmp_path):
                        UNPORTED[flags]):
         ddpg.train(opts)
     assert not (tmp_path / "m.jsonl").exists()
+
+
+PORTED = ("--export-policy", "--tb-dir")
+
+
+@pytest.mark.parametrize("flag", PORTED)
+def test_ported_flag_runs(flag, tmp_path):
+    """``--export-policy`` and ``--tb-dir``, refused at startup until their
+    ROADMAP items were ported, run on the CPU: the artifact loads and acts
+    on float32 low-dim observations, and the logdir holds each
+    ``train`` event's ``eval_ep_len`` at its segment."""
+    out, jsonl = str(tmp_path / "out"), tmp_path / "m.jsonl"
+    ddpg.main(shlex.split(TOY) + ["--device", "cpu", "--metrics-jsonl", str(jsonl), flag, out])
+    events = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    if flag == "--export-policy":
+        from cartpoleplusplus_tpu_torch.utils import export
+
+        act = export.load_policy(out, "cpu")(torch.zeros((3, 2, 2, 7)))
+        assert act.shape == (3, 2) and bool((act.abs() <= 1.0).all())
+        assert events[-1]["event"] == "export_policy" and events[-1]["bytes"] > 0
+    else:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(out)
+        acc.Reload()
+        assert [(e.step, e.value) for e in acc.Scalars("train/eval_ep_len")] == [
+            (e["segment"], e["eval_ep_len"]) for e in events if e["event"] == "train"]
 
 
 def test_defaults_of_refused_flags_pass():

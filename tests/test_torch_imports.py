@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,7 +58,10 @@ for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torc
              "cartpoleplusplus_tpu_torch.utils.event_pb2", "cartpoleplusplus_tpu_torch.utils.records",
              "cartpoleplusplus_tpu_torch.utils.optim",
              "cartpoleplusplus_tpu_torch.agents.random_agent",
-             "cartpoleplusplus_tpu_torch.agents.torch_dqn_demo"):
+             "cartpoleplusplus_tpu_torch.agents.torch_dqn_demo",
+             "cartpoleplusplus_tpu_torch.utils.native", "cartpoleplusplus_tpu_torch.utils.plots",
+             "cartpoleplusplus_tpu_torch.utils.fidelity",
+             "cartpoleplusplus_tpu_torch.utils.export"):
     assert name in sys.modules, name
 from cartpoleplusplus_tpu_torch.replay import buffer
 for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
@@ -86,8 +90,69 @@ def test_port_never_imports_jax():
     # every module was walked: utils.{benchmark,checkpoint,flax_msgpack,metrics} too,
     # agents.{ppo,lrpg,dqn,naf}, utils.learning_run, and the per-env surface's
     # physics.{contacts,solver,engine,urdf}, env.gym_env, utils.{event_log,
-    # event_pb2,records,optim}, agents.{random_agent,torch_dqn_demo}
-    assert int(out.stdout.split()[-1]) >= 47
+    # event_pb2,records,optim}, agents.{random_agent,torch_dqn_demo}, and the
+    # tools utils.{native,plots,fidelity,export}
+    assert int(out.stdout.split()[-1]) >= 51
+
+
+_NO_DYNAMO = _IMPORT_ALL.replace("print(len(names))", "") + r"""
+from cartpoleplusplus_tpu_torch.agents import ddpg
+assert "torch._dynamo" not in sys.modules, "imported by an import"
+ddpg.main("--device cpu --num-train-batches 1 --num-envs 4 --num-eval 4 --action-repeats 2 "
+          "--steps-per-repeat 2 --max-episode-len 5 --steps-per-segment 2 --batch-size 8 "
+          "--replay-capacity 64 --warmup-steps 1".split())
+assert "torch._dynamo" not in sys.modules, "imported by a low-dim CLI run"
+print("no dynamo")
+"""
+
+
+def test_no_dynamo_without_export():
+    """``torch.export`` imports ``torch._dynamo``, seconds on a card's host:
+    importing every module of the port (and chip_smoke.py, bench_torch.py
+    and the scripts), then a low-dim DDPG run without ``--export-policy``,
+    leaves it unimported."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _NO_DYNAMO], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.split()[-2:] == ["no", "dynamo"]
+
+
+_NATIVE_BUILD = _REFUSE + r"""
+import os, sys
+from cartpoleplusplus_tpu_torch.utils import native
+native_dir = os.path.dirname(native.SOURCE)
+before = {n: os.stat(os.path.join(native_dir, n)).st_mtime_ns for n in os.listdir(native_dir)}
+assert native.lib_dir().startswith(os.path.join(native.BUILD_ROOT, "trajlog-"))
+pkg = os.path.dirname(os.path.dirname(os.path.abspath(native.__file__)))
+assert native.BUILD_ROOT == os.path.join(pkg, "_build")
+native.BUILD_ROOT = sys.argv[1]
+info = native.build()
+assert info["built"] and info["path"].startswith(sys.argv[1] + os.sep), info
+assert native.build() == {"path": info["path"], "built": False, "cxx_s": 0.0}
+made = sorted(os.path.relpath(os.path.join(d, f), sys.argv[1])
+              for d, _, fs in os.walk(sys.argv[1]) for f in fs)
+assert made == [os.path.relpath(info["path"], sys.argv[1])], made
+after = {n: os.stat(os.path.join(native_dir, n)).st_mtime_ns for n in os.listdir(native_dir)}
+assert after == before
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print("built", info["cxx_s"])
+"""
+
+
+def test_native_builds_only_under_build(tmp_path):
+    """``utils/native.py`` imports nothing of JAX or the JAX package, its
+    build directory is the port's ``_build/``, and a build writes the one
+    library there (here into a fresh root) and nothing into ``native/``."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    root = str(tmp_path / "_build")
+    out = subprocess.run([sys.executable, "-c", _NATIVE_BUILD, root], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.split()[0] == "built"
 
 
 @pytest.mark.parametrize("agent,flags", [
@@ -133,7 +198,8 @@ _EXACT = dict(discrete_actions=False, use_raw_pixels=True, num_cameras=1, obs_po
                                    "dqn_main", "NAFNetwork", "naf_init_state",
                                    "naf_make_segment", "naf_main", "Cartpole", "reset",
                                    "random_agent_main", "torch_dqn_demo_main",
-                                   "record_eval_episodes"])
+                                   "record_eval_episodes", "resim_episode", "fidelity_main",
+                                   "load_policy", "export_main"])
 def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     """Without CUDA, entry points raise unless the caller passes device='cpu'.
     ``init_state`` and ``make_segment`` run on their vector env's device;
@@ -150,6 +216,7 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
     from cartpoleplusplus_tpu_torch.models.networks import (
         Actor, Critic, DiscretePolicy, GaussianActor, NAFNetwork, QNetwork, ValueNetwork)
+    from cartpoleplusplus_tpu_torch.utils import event_log, export, fidelity
 
     cfg = CartpoleConfig(discrete_actions=False, use_raw_pixels=True, num_cameras=2,
                          obs_pool=2, obs_samples=2)
@@ -176,6 +243,25 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
     onpolicy_toy = [*toy[:toy.index("--steps-per-segment")], "--metrics-jsonl",
                     str(tmp_path / "m.jsonl")]
     ppo_opts = ppo.make_parser().parse_args(["--rollout-steps", "2", "--ppo-minibatches", "2"])
+
+    def event_log_file():
+        from cartpoleplusplus_tpu_torch.utils import event_log
+
+        path = str(tmp_path / "r.events")
+        pose = np.array([0.0, 0.0, 0.1, 1.0, 0.0, 0.0, 0.0], np.float32)
+        ev = event_log.make_event(pose, pose, [0.0, 0.0], 1.0, False, velocities=np.zeros((2, 6)))
+        log = event_log.EventLog(path)
+        log.add_episode([ev, ev])
+        log.close()
+        return path
+
+    def artifact():
+        from cartpoleplusplus_tpu_torch.utils import export
+
+        path = str(tmp_path / "a.pt2")
+        export.save_policy(path, ddpg.greedy_act(Actor((1, 2, 7), hidden=(4,), device="cpu")),
+                           (1, 2, 7))
+        return path
 
     def cli(run, device=None):
         argv = (onpolicy_toy if run in (ppo.main, lrpg.main) else toy) + (
@@ -229,6 +315,15 @@ def test_entry_points_need_cuda_or_explicit_cpu(entry, monkeypatch, tmp_path):
             + ([] if kw.get("device") is None else ["--device", kw["device"]])),
         "torch_dqn_demo_main": lambda **kw: torch_dqn_demo.main(
             ["--episodes", "1", "--max-episode-len", "2", "--batch-size", "2"]
+            + ([] if kw.get("device") is None else ["--device", kw["device"]])),
+        "resim_episode": lambda **kw: fidelity.resim_episode(
+            next(event_log.read_event_log(event_log_file())), exact, **kw),
+        "fidelity_main": lambda **kw: fidelity.main(
+            ["--log-file", event_log_file()]
+            + ([] if kw.get("device") is None else ["--device", kw["device"]])),
+        "load_policy": lambda **kw: export.load_policy(artifact(), **kw),
+        "export_main": lambda **kw: export.main(
+            ["--load", artifact()]
             + ([] if kw.get("device") is None else ["--device", kw["device"]])),
         "record_eval_episodes": lambda **kw: common.record_eval_episodes(
             exact, lambda obs: torch.zeros((obs.shape[0], 2)), str(tmp_path / "e.events"),

@@ -112,8 +112,7 @@ def test_config_from_opts_matches_jax(name):
         assert getattr(got, field.name) == getattr(want, field.name), field.name
 
 
-UNPORTED = {"--export-policy x.pt2": "item 6",
-            "--tb-dir tb": "item 5", "--num-devices 2": "item 7",
+UNPORTED = {"--num-devices 2": "item 7",
             "--num-processes 2 --coordinator h:1": "item 7"}
 
 
@@ -126,6 +125,33 @@ def test_unported_flag_stops_at_startup(flags, tmp_path):
                        UNPORTED[flags]):
         naf.train(opts)
     assert not (tmp_path / "m.jsonl").exists()
+
+
+PORTED = ("--export-policy", "--tb-dir")
+
+
+@pytest.mark.parametrize("flag", PORTED)
+def test_ported_flag_runs(flag, tmp_path):
+    """``--export-policy`` and ``--tb-dir``, refused at startup until their
+    ROADMAP items were ported, run on the CPU: the artifact loads and acts
+    on float32 low-dim observations, and the logdir holds each
+    ``train`` event's ``eval_ep_len`` at its segment."""
+    out, jsonl = str(tmp_path / "out"), tmp_path / "m.jsonl"
+    naf.main(shlex.split(TOY) + ["--device", "cpu", "--metrics-jsonl", str(jsonl), flag, out])
+    events = [json.loads(line) for line in jsonl.read_text().splitlines()]
+    if flag == "--export-policy":
+        from cartpoleplusplus_tpu_torch.utils import export
+
+        act = export.load_policy(out, "cpu")(torch.zeros((3, 2, 2, 7)))
+        assert act.shape == (3, 2) and bool((act.abs() <= 1.0).all())
+        assert events[-1]["event"] == "export_policy" and events[-1]["bytes"] > 0
+    else:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+        acc = EventAccumulator(out)
+        acc.Reload()
+        assert [(e.step, e.value) for e in acc.Scalars("train/eval_ep_len")] == [
+            (e["segment"], e["eval_ep_len"]) for e in events if e["event"] == "train"]
 
 
 def test_train_refuses_cpu_fallback(monkeypatch, tmp_path):
