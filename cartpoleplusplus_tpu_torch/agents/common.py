@@ -4,12 +4,12 @@ construction, greedy evaluation, the schedule and replay-sizing helpers,
 the checkpoint startup (restore-if-present, ``--ckpt-best``,
 ``--eval-only``), the greedy policy as a module (:class:`GreedyPolicy`),
 the greedy episodes ``--event-log-out`` records
-(:func:`record_eval_episodes`) and the artifact ``--export-policy`` writes
-(:func:`maybe_export_policy`).
+(:func:`record_eval_episodes`), the artifact ``--export-policy`` writes
+(:func:`maybe_export_policy`), and the data-parallel wiring of every agent's
+``train`` (``--num-devices``, ``--coordinator/--num-processes/--process-id``:
+:func:`maybe_init_multihost` and the rank helpers over ``parallel/``).
 
-Every JAX flag is parsed with its name, default and choices.  A flag that
-asks for what the port does not have yet stops the run at startup
-(:func:`reject_unported`, naming the ROADMAP item that brings it); none is
+Every JAX flag is parsed with its name, default and choices; none is
 ignored.
 """
 
@@ -28,6 +28,8 @@ from cartpoleplusplus_tpu_torch.env import cartpole
 from cartpoleplusplus_tpu_torch.env import config as env_config
 from cartpoleplusplus_tpu_torch.env.cartpole import EnvState
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
+from cartpoleplusplus_tpu_torch.parallel import distributed
+from cartpoleplusplus_tpu_torch.parallel.mesh import Mesh, current_mesh
 from cartpoleplusplus_tpu_torch.physics import cuda_step
 from cartpoleplusplus_tpu_torch.physics.bodies import RigidState
 from cartpoleplusplus_tpu_torch.render import prefer_raster
@@ -97,7 +99,8 @@ def add_agent_opts(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--coordinator", type=str, default=None,
                         help="multi-process coordinator address host:port")
     parser.add_argument("--num-processes", type=int, default=1,
-                        help="processes in the job; above 1 is refused (not ported yet)")
+                        help="launcher processes in the job (one per host); each starts "
+                             "--num-devices / --num-processes ranks")
     parser.add_argument("--process-id", type=int, default=0,
                         help="this process's rank in [0, num-processes)")
     parser.add_argument("--device", type=str, default=None,
@@ -142,21 +145,103 @@ def add_lr_schedule_opt(parser) -> None:
                         help="cosine: decay the learning rate to 2%% over the run")
 
 
-# (attribute, flag, predicate on its value, the ROADMAP item that brings it)
-UNPORTED = (
-    ("num_devices", "--num-devices", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
-    ("num_processes", "--num-processes", lambda v: v > 1, "Queue 1 item 7 (parallel)"),
-)
+# The output flags of a run: one writer, rank 0 (maybe_init_multihost).
+OUTPUT_FLAGS = ("metrics_jsonl", "tb_dir", "event_log_out", "export_policy")
 
 
-def reject_unported(opts) -> None:
-    """Stop at startup, naming the flag and the ROADMAP.md item that ports
-    it, when ``opts`` asks for a feature the port does not have yet.  A
-    flag the agent's parser lacks is not asked for."""
-    for attr, flag, asked, item in UNPORTED:
-        if hasattr(opts, attr) and asked(getattr(opts, attr)):
-            raise SystemExit(f"{flag} is not ported to cartpoleplusplus_tpu_torch yet: "
-                             f"ROADMAP.md {item}")
+def maybe_init_multihost(opts) -> Mesh | None:
+    """The JAX ``maybe_init_multihost`` contract, checked at the start of
+    every agent's ``train`` → this process's mesh inside a rank, else None.
+
+    Outside a rank, with ``--num-processes`` > 1: ``--coordinator`` is
+    needed; ``--num-devices`` is the job-global rank count and must be > 1
+    (and, in the port, a multiple of ``--num-processes``: each launcher
+    starts as many ranks); ``--eval-only`` is refused (it needs no group:
+    one process restores either kind of checkpoint).  Inside a rank > 0
+    the output flags (:data:`OUTPUT_FLAGS`) are cleared, so the metrics,
+    the TensorBoard logdir, the event log and the export have one writer,
+    rank 0.  ``--ckpt-dir`` stays on every rank (rank files or a gathered
+    global file, ``utils/checkpoint.py``)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        if mesh.rank > 0:
+            for flag in OUTPUT_FLAGS:
+                setattr(opts, flag, None)
+        return mesh
+    n = getattr(opts, "num_processes", 1) or 1
+    if n <= 1:
+        return None
+    if not getattr(opts, "coordinator", None):
+        raise SystemExit("--num-processes > 1 needs --coordinator host:port")
+    devices = getattr(opts, "num_devices", 1)
+    if devices <= 1:
+        raise SystemExit("--num-processes > 1 needs --num-devices set to the job-global "
+                         "device count (the mesh spans every process's chips)")
+    if getattr(opts, "eval_only", False):
+        raise SystemExit("--eval-only needs no mesh: run it single-process (params restore "
+                         "from either checkpoint flavor's rank-0/global file)")
+    if devices % n:
+        raise SystemExit("--num-devices must be a multiple of --num-processes (each process "
+                         "starts --num-devices / --num-processes ranks)")
+    if not 0 <= getattr(opts, "process_id", 0) < n:
+        raise SystemExit("--process-id must lie in [0, --num-processes)")
+    return None
+
+
+def launches_ranks(opts, mesh: Mesh | None, replay: bool = True) -> bool:
+    """Whether this ``train`` call starts ranks (``parallel.launch``)
+    instead of training: ``--num-devices`` > 1 outside a rank, unless
+    ``--eval-only``, which one process serves.  Refuses, as the JAX CLIs
+    do, an env count (and with ``replay`` a replay capacity) that
+    ``--num-devices`` does not divide."""
+    n = getattr(opts, "num_devices", 1)
+    if mesh is not None or n <= 1 or getattr(opts, "eval_only", False):
+        return False
+    if replay and (opts.num_envs % n or opts.replay_capacity % n):
+        raise SystemExit("--num-envs and --replay-capacity must be divisible by --num-devices")
+    if opts.num_envs % n:
+        raise SystemExit("--num-envs must be divisible by --num-devices")
+    return True
+
+
+def rank_device(opts, mesh: Mesh | None) -> torch.device:
+    """The device this process trains on: its rank's, else the run's."""
+    return mesh.device if mesh is not None else resolve_device(opts.device)
+
+
+def rank_batch(opts, mesh: Mesh | None) -> int:
+    """The per-rank replay batch, ``--batch-size // world or 1`` (JAX's
+    per-chip batch)."""
+    return opts.batch_size if mesh is None else opts.batch_size // mesh.world or 1
+
+
+def rank_venvs(config, opts, device, raster: bool, mesh: Mesh | None):
+    """(venv, init_venv): the training venv of this rank's env shard
+    (``--num-envs // world``) and the venv whose reset starts the run.  On
+    one device they are one venv; on a rank ``init_venv`` holds the whole
+    job's envs, which every rank resets from ``--seed`` before it keeps its
+    own rows (``parallel.shard_state``), so N ranks start from exactly the
+    states one rank starts from."""
+    world = 1 if mesh is None else mesh.world
+    venv = make_venv(config, opts.num_envs // world, device=device, render_raster=raster)
+    if world == 1:
+        return venv, venv
+    return venv, make_venv(config, opts.num_envs, device=device, render_raster=raster)
+
+
+def shard_start(st, mesh: Mesh | None, sharded: tuple) -> None:
+    """On a rank, make the freshly built global state this rank's
+    (``parallel.shard_state``)."""
+    if mesh is not None:
+        distributed.shard_state(st, mesh, sharded)
+
+
+def distribute(segment, mesh: Mesh | None, sharded: tuple, metric_keys: tuple):
+    """On a rank, the distributed form of a per-rank segment or update
+    (``parallel.make_distributed``); the segment itself on one device."""
+    if mesh is None:
+        return segment
+    return distributed.make_distributed(mesh, segment, sharded, metric_keys)[0]
 
 
 def resolve_render_raster(config, opts) -> bool:
@@ -281,9 +366,21 @@ def replay_capacity(capacity: int, block: int) -> int:
 
 def replay_block(opts, num_envs: int) -> int:
     """Insertion-block size for the s2-free replay: one vectorized step's
-    transitions, or 0 (explicit s2) when the capacity cannot hold two
-    blocks.  The port runs on one card, so there are no device shards."""
-    return num_envs if 0 < num_envs < opts.replay_capacity else 0
+    transitions per device shard (``num_envs`` and the capacity divided by
+    ``--num-devices``), or 0 (explicit s2) when a shard's capacity cannot
+    hold two blocks."""
+    devices = max(getattr(opts, "num_devices", 1), 1)
+    local_envs, local_cap = num_envs // devices, opts.replay_capacity // devices
+    return local_envs if 0 < local_envs < local_cap else 0
+
+
+def shard_capacity(opts, block: int) -> int:
+    """The replay capacity of a state built for the whole job: each of the
+    ``--num-devices`` shards holds ``--replay-capacity / --num-devices``
+    trimmed to a multiple of its insertion block (:func:`replay_capacity`),
+    so every shard's ring is whole."""
+    devices = max(getattr(opts, "num_devices", 1), 1)
+    return replay_capacity(opts.replay_capacity // devices, block) * devices
 
 
 def replay_min_fill(warmup_steps: int, num_envs: int, capacity: int, n_step: int = 1) -> int:
@@ -346,12 +443,17 @@ class BestCkptKeeper:
     ``update`` is called after every eval and writes ``ckpt_best.pt`` only
     on improvement.  On resume the meta embedded in that file seeds the
     gate, so a restart cannot clobber a better historical best with an
-    early worse one.  Off unless ``--ckpt-dir`` and ``--ckpt-best``."""
+    early worse one.  Off unless ``--ckpt-dir`` and ``--ckpt-best``, and
+    always off under ``--num-processes`` > 1 (rank files of a best state
+    would need their own completeness rule).  Under one launcher of
+    several ranks every rank calls ``update`` with rank 0's eval, the state
+    is gathered and rank 0 writes it (``mesh``, ``sharded``)."""
 
-    def __init__(self, opts):
-        self.on = bool(getattr(opts, "ckpt_dir", None) and getattr(opts, "ckpt_best", False))
+    def __init__(self, opts, mesh: Mesh | None = None, sharded: tuple = ()):
+        self.on = bool(getattr(opts, "ckpt_dir", None) and getattr(opts, "ckpt_best", False)
+                       and getattr(opts, "num_processes", 1) <= 1)
         self.best = float("-inf")
-        self._opts = opts
+        self._opts, self._mesh, self._sharded = opts, mesh, sharded
         if self.on:
             meta = checkpoint.best_meta(opts.ckpt_dir)
             if meta is not None:
@@ -360,13 +462,19 @@ class BestCkptKeeper:
     def update(self, step: int, eval_len: float, st) -> None:
         if self.on and eval_len > self.best:
             self.best = eval_len
-            checkpoint.save_best(self._opts.ckpt_dir, step, eval_len, st,
-                                 skip_replay=getattr(self._opts, "ckpt_skip_replay", False))
+            skip = getattr(self._opts, "ckpt_skip_replay", False)
+            tree = job_state(st, self._mesh, self._sharded, skip)
+            if tree is not None:
+                checkpoint.save_best(self._opts.ckpt_dir, step, eval_len, tree, skip_replay=skip)
 
 
-def restore_for_startup(opts, st):
+def restore_for_startup(opts, st, mesh: Mesh | None = None):
     """Restore-if-present: ``ckpt_best.pt`` for ``--eval-only --ckpt-best``,
-    the newest numbered checkpoint otherwise → (st, step or None)."""
+    the newest numbered checkpoint otherwise, and on a rank this rank's
+    part of the newest rank files or global file
+    (``checkpoint.restore_latest_sharded``) → (st, step or None)."""
+    if mesh is not None:
+        return checkpoint.restore_latest_sharded(opts.ckpt_dir, st, mesh)
     if getattr(opts, "eval_only", False) and getattr(opts, "ckpt_best", False):
         return checkpoint.restore_best(opts.ckpt_dir, st)
     return checkpoint.restore_latest(opts.ckpt_dir, st)
@@ -541,40 +649,80 @@ def replay_fields(metric_keys: tuple) -> Callable[[dict], dict]:
     return fields
 
 
+def _eval(eval_venv: VectorCartpole, act_fn, gen: torch.Generator, mesh: Mesh | None):
+    """The training loop's greedy eval (:func:`eval_rollout`); on a rank,
+    rank 0 evaluates and broadcasts its result, so every rank logs and
+    gates ``--ckpt-best`` on one number."""
+    if mesh is None:
+        return eval_rollout(eval_venv, act_fn, gen)
+    out = eval_rollout(eval_venv, act_fn, gen) if mesh.rank == 0 else (0.0, 0.0)
+    return tuple(distributed.broadcast_floats(mesh, out))
+
+
+def job_state(st, mesh: Mesh | None, sharded: tuple, skip_replay: bool):
+    """What a one-launcher checkpoint holds: ``st`` on one device; on a rank
+    the job's gathered state dict on rank 0 and None on the others (every
+    rank must call this), the replay stripped before the gather with
+    ``skip_replay``."""
+    if mesh is None:
+        return st
+    return distributed.global_state_dict(
+        checkpoint.strip_replay(st.state_dict()) if skip_replay else st, mesh, sharded)
+
+
+def save_checkpoint(opts, step: int, st, mesh: Mesh | None, sharded: tuple) -> None:
+    """``ckpt_<step>``: the one file of :func:`job_state` (on a rank,
+    written by rank 0), or under ``--num-processes`` > 1 every rank's own
+    rank file."""
+    skip = opts.ckpt_skip_replay
+    if mesh is not None and getattr(opts, "num_processes", 1) > 1:
+        checkpoint.save_rank(opts.ckpt_dir, step, st, mesh.rank, mesh.world, skip_replay=skip)
+        return
+    tree = job_state(st, mesh, sharded, skip)
+    if tree is not None:
+        checkpoint.save(opts.ckpt_dir, step, tree, skip_replay=skip)
+
+
 def train_segments(opts, st, segment, venv: VectorCartpole, eval_venv: VectorCartpole,
                    act_fn: Callable[[torch.Tensor], torch.Tensor], logger,
-                   fields: Callable[[dict], dict], start: int, end: int) -> float:
+                   fields: Callable[[dict], dict], start: int, end: int,
+                   mesh: Mesh | None = None, sharded: tuple = ()) -> float:
     """The JAX ``train``'s loop over segments ``start .. end`` → the last
     eval's mean episode length.  A greedy eval every ``--eval-freq``
     segments and at the last (generator seeded from ``--seed`` + 1; the
     segment's metrics are read from the card there only), logged as a
-    ``train`` event of ``segment``, ``env_steps``, the agent's
-    ``fields(metrics)`` (:func:`replay_fields` for DDPG and SAC),
-    ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
-    ``--ckpt-freq`` and at the end; ``ckpt_best`` on improvement with
-    ``--ckpt-best``; then :func:`run_tail`, which closes ``logger``."""
+    ``train`` event of ``segment``, ``env_steps`` (the whole job's),
+    the agent's ``fields(metrics)`` (:func:`replay_fields` for DDPG and
+    SAC), ``eval_ep_len`` and ``eval_ep_rew``; ``ckpt_<segment>`` every
+    ``--ckpt-freq`` and at the end (:func:`save_checkpoint`); ``ckpt_best``
+    on improvement with ``--ckpt-best``; then :func:`run_tail`, which
+    closes ``logger``.  On a rank (``mesh``) the eval is rank 0's
+    (:func:`_eval`) and ``sharded`` names the state's sharded fields."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
-    best = BestCkptKeeper(opts)
+    best = BestCkptKeeper(opts, mesh, sharded)
+    world = 1 if mesh is None else mesh.world
     final_eval = 0.0
     for i in range(start, end):
         metrics = segment(st)
         if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == end:
-            elen, erew = eval_rollout(eval_venv, act_fn, gen)
+            elen, erew = _eval(eval_venv, act_fn, gen, mesh)
             final_eval = float(elen)
             best.update(i + 1, final_eval, st)
-            logger.log("train", segment=i + 1, env_steps=st.env_steps * venv.num_envs,
+            logger.log("train", segment=i + 1,
+                       env_steps=st.env_steps * venv.num_envs * world,
                        **fields(metrics), eval_ep_len=float(elen), eval_ep_rew=float(erew))
         if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
-            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
+            save_checkpoint(opts, i + 1, st, mesh, sharded)
     if opts.ckpt_dir:
-        checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+        save_checkpoint(opts, max(end, start), st, mesh, sharded)
     run_tail(opts, eval_venv, act_fn, logger)
     return final_eval
 
 
 def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
                   act_fn: Callable[[torch.Tensor], torch.Tensor], logger,
-                  fields: Callable[[int, dict], dict], start: int, end: int) -> float:
+                  fields: Callable[[int, dict], dict], start: int, end: int,
+                  mesh: Mesh | None = None, sharded: tuple = ()) -> float:
     """The on-policy agents' loop (the JAX PPO and LRPG ``train``): updates
     ``start .. end`` of ``train_step(st) -> metrics``, each advancing
     ``st.update`` → the last eval's mean episode length.  A greedy eval
@@ -584,21 +732,22 @@ def train_updates(opts, st, train_step, eval_venv: VectorCartpole,
     ``fields(update, metrics)``, ``eval_ep_len`` and ``eval_ep_rew``;
     ``ckpt_<update>`` every ``--ckpt-freq`` and at the end;
     ``ckpt_best`` on improvement with ``--ckpt-best``; then
-    :func:`run_tail`, which closes ``logger``."""
+    :func:`run_tail`, which closes ``logger``.  ``mesh`` and ``sharded`` as
+    in :func:`train_segments`."""
     gen = torch.Generator(device=eval_venv.device).manual_seed(opts.seed + 1)
-    best = BestCkptKeeper(opts)
+    best = BestCkptKeeper(opts, mesh, sharded)
     final_eval = 0.0
     for i in range(start, end):
         metrics = train_step(st)
         if (i + 1) % max(opts.eval_freq, 1) == 0 or i + 1 == end:
-            elen, erew = eval_rollout(eval_venv, act_fn, gen)
+            elen, erew = _eval(eval_venv, act_fn, gen, mesh)
             final_eval = float(elen)
             best.update(i + 1, final_eval, st)
             logger.log("train", update=i + 1, **fields(i + 1, metrics),
                        eval_ep_len=float(elen), eval_ep_rew=float(erew))
         if opts.ckpt_dir and (i + 1) % max(opts.ckpt_freq, 1) == 0:
-            checkpoint.save(opts.ckpt_dir, i + 1, st, skip_replay=opts.ckpt_skip_replay)
+            save_checkpoint(opts, i + 1, st, mesh, sharded)
     if opts.ckpt_dir:
-        checkpoint.save(opts.ckpt_dir, max(end, start), st, skip_replay=opts.ckpt_skip_replay)
+        save_checkpoint(opts, max(end, start), st, mesh, sharded)
     run_tail(opts, eval_venv, act_fn, logger)
     return final_eval

@@ -43,6 +43,7 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import Actor, Critic, TwinCritic
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
@@ -51,6 +52,10 @@ from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LearningRate = float | Callable[[int], float]
 LEARNER_SPAN = "ddpg.train_once"
+# The fields a data-parallel run splits over its ranks, and the metrics it
+# averages (the JAX package's DDPG_SHARDED_FIELDS / DDPG_METRIC_KEYS).
+SHARDED_FIELDS = distributed.DDPG_SHARDED_FIELDS
+METRIC_KEYS = distributed.DDPG_METRIC_KEYS
 
 
 @dataclasses.dataclass
@@ -134,8 +139,13 @@ def aug_random_shift(obs: torch.Tensor, pad: int, height: int, width: int,
     return x.reshape(b, r, f)
 
 
-def _step(opt, sched, params, grad_clip: float) -> None:
-    """optax.chain(clip_by_global_norm(grad_clip), adam(lr)) on one network."""
+def _step(opt, sched, params, grad_clip: float, group=None) -> None:
+    """optax.chain(clip_by_global_norm(grad_clip), adam(lr)) on one network;
+    with a process ``group`` the gradients are first averaged over its ranks
+    (the JAX update's ``pmean`` before its optax chain)."""
+    params = list(params)
+    if group is not None:
+        distributed.allreduce_mean_([p.grad for p in params], group)
     if grad_clip > 0:
         torch.nn.utils.clip_grad_norm_(params, grad_clip)
     opt.step()
@@ -147,7 +157,7 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
                     reward_scale: float = 1.0, aug_shift: int = 0,
                     twin_critic: bool = False, policy_delay: int = 1,
                     target_noise: float = 0.0, target_noise_clip: float = 0.5,
-                    grad_clip: float = 0.0, n_step: int = 1):
+                    grad_clip: float = 0.0, n_step: int = 1, group=None):
     """One learner update → ``train_once(st, batch, step, aug_offsets=None,
     target_eps=None, iw=None) -> (critic_loss, actor_loss)``, device
     scalars, or with ``iw`` ``(critic_loss, actor_loss, td_abs)``.
@@ -162,7 +172,9 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
     importance weights; the critic loss is then ``mean(iw·td²)`` and
     ``td_abs`` the (B,) |TD error| (twin: its mean over the two critics)
     for the priority write-back.  Gradients stay in each parameter's
-    ``.grad`` until the next update.
+    ``.grad`` until the next update.  ``group``: the data-parallel process
+    group whose ranks average each gradient before its step (None on one
+    device).
     """
 
     def train_once(st: DDPGState, batch, step: int, aug_offsets=None, target_eps=None,
@@ -196,7 +208,7 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
         closs = torch.mean(td ** 2 if iw is None else iw * td ** 2)
         st.critic_opt.zero_grad(set_to_none=True)
         closs.backward()
-        _step(st.critic_opt, st.critic_sched, st.critic.parameters(), grad_clip)
+        _step(st.critic_opt, st.critic_sched, st.critic.parameters(), grad_clip, group)
 
         if policy_delay > 1 and (step - warmup_steps - 1) % policy_delay != 0:
             aloss = torch.zeros((), device=closs.device)
@@ -209,7 +221,7 @@ def make_train_once(config, *, gamma: float, tau: float, warmup_steps: int,
             st.actor_opt.zero_grad(set_to_none=True)
             actor_params = list(st.actor.parameters())
             aloss.backward(inputs=actor_params)
-            _step(st.actor_opt, st.actor_sched, actor_params, grad_clip)
+            _step(st.actor_opt, st.actor_sched, actor_params, grad_clip, group)
             soft_target_update(st.target_actor, st.actor, tau)
             soft_target_update(st.target_critic, st.critic, tau)
         losses = (closs.detach(), aloss.detach())
@@ -245,9 +257,12 @@ def make_segment(
     per_total_steps: int = 1,
     per_eps: float = 1e-2,
     n_step: int = 1,
+    group=None,
 ):
     """The K-step training segment: ``segment(st) -> metrics``, updating
-    ``st`` in place.
+    ``st`` in place; with ``group`` one rank's segment of a data-parallel
+    run (its gradients averaged over the group's ranks, its metrics its
+    own: ``parallel.make_distributed`` averages them).
 
     Per segment one reset pool is drawn; per step the auto-reset obs
     substitution is applied lazily where the obs is consumed (actor input,
@@ -272,7 +287,7 @@ def make_segment(
         config, gamma=gamma, tau=tau, warmup_steps=warmup_steps, reward_scale=reward_scale,
         aug_shift=aug_shift, twin_critic=twin_critic, policy_delay=policy_delay,
         target_noise=target_noise, target_noise_clip=target_noise_clip, grad_clip=grad_clip,
-        n_step=n_step)
+        n_step=n_step, group=group)
     e = venv.num_envs
 
     def segment(st: DDPGState) -> dict:
@@ -356,9 +371,11 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     copies, Adam optimizers, an
     empty replay of ``opts.replay_capacity`` (uint8 frames for pixel
     configs; s2-free when it holds two blocks, and then trimmed to a
-    multiple of the env count, :func:`common.replay_capacity`) and the env
-    reset from a device generator seeded with ``opts.seed``; the replay
-    keeps priorities with ``opts.per``."""
+    multiple of the env count, :func:`common.replay_capacity`; with
+    ``opts.num_devices`` > 1 a job-global replay of per-shard blocks,
+    :func:`common.shard_capacity`) and the env reset from a device
+    generator seeded with ``opts.seed``; the replay keeps priorities with
+    ``opts.per``."""
     dev = venv.device
     init_gen = torch.Generator().manual_seed(opts.seed)
     kw = dict(use_raw_pixels=config.use_raw_pixels, height=config.obs_height,
@@ -375,7 +392,7 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 1e-4
     obs_dtype = torch.uint8 if config.use_raw_pixels else torch.float32
     block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
-        common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (2,),
+        common.shard_capacity(opts, block), config.obs_shape, (2,),
         obs_dtype=obs_dtype, block=block, device=dev, prioritized=getattr(opts, "per", False))
     return DDPGState(
         actor=actor, critic=critic,
@@ -416,8 +433,8 @@ def add_ddpg_opts(parser) -> None:
                         help="pixel-only: DrQ random shift, edge-pad frames by N px "
                              "and crop at a random offset per replay sample")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to shard envs and replay over; above 1 is "
-                             "refused (not ported yet)")
+                        help="ranks (one device each) to shard envs and replay over; "
+                             "gradients are averaged across them")
     parser.add_argument("--twin-critic", action="store_true",
                         help="TD3 clipped double-Q: two critics, the TD target "
                              "bootstraps min(Q1', Q2')")
@@ -439,29 +456,45 @@ def train(opts) -> float:
     segment count, so numbering stays monotonic), then runs segments
     ``start .. --num-train-batches`` with their evals, metrics and
     checkpoints (:func:`common.train_segments`).  ``--eval-only``
-    evaluates the restored policy instead of training.  ``--per`` and ``--n-step`` select prioritized
-    replay and n-step returns; an n-step run needs the s2-free replay with
-    room for n + 1 blocks (:func:`common.check_nstep_capacity`).  Flags the
-    port lacks stop it at startup.  The
-    eval venv renders with the training venv's cast mode (the JAX CLI's
-    eval venv takes the per-config pick whatever ``--render-raster`` says;
-    the two agree unless that flag overrides the pick)."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    evaluates the restored policy instead of training.  ``--per`` and
+    ``--n-step`` select prioritized replay and n-step returns; an n-step
+    run needs the s2-free replay with room for n + 1 blocks
+    (:func:`common.check_nstep_capacity`).  The eval venv renders with the
+    training venv's cast mode (the JAX CLI's eval venv takes the per-config
+    pick whatever ``--render-raster`` says; the two agree unless that flag
+    overrides the pick).
+
+    ``--num-devices`` N > 1 (the JAX CLI's multi-device branch): this call
+    starts the ranks (``parallel.launch``, which calls ``train`` on each)
+    and returns rank 0's final eval.  Each rank holds ``--num-envs / N``
+    envs and ``--replay-capacity / N`` rows, samples ``--batch-size // N``
+    (at least 1), starts from its rows of the one-card run's reset, and
+    averages its gradients and metrics over the ranks; rank 0 evaluates.
+    ``--coordinator/--num-processes/--process-id`` spread the ranks over
+    launchers (:func:`common.maybe_init_multihost`).  With
+    ``--use-batch-norm`` each rank's running statistics move with its own
+    batches and are never averaged, as chip 0's copy of the replicated
+    statistics is the one the JAX package saves and evaluates: the
+    checkpoints and the eval hold rank 0's."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh):
+        return distributed.launch(opts, train)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=False)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    venv, init_venv = common.rank_venvs(config, opts, dev, raster, mesh)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
-    st = init_state(opts, config, venv,
+    st = init_state(opts, config, init_venv,
                     actor_lr=common.make_lr(opts, opts.actor_learning_rate),
                     critic_lr=common.make_lr(opts, opts.critic_learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, SHARDED_FIELDS)
     common.check_nstep_capacity(opts, st.replay)
     start_segment, restored = 0, None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             start_segment = restored
             logger.log("restore", step=restored)
@@ -470,7 +503,7 @@ def train(opts) -> float:
         return common.run_eval_only(opts, logger, restored, eval_venv, act)
 
     segment = make_segment(
-        venv, gamma=opts.gamma, tau=opts.tau, batch_size=opts.batch_size,
+        venv, gamma=opts.gamma, tau=opts.tau, batch_size=common.rank_batch(opts, mesh),
         warmup_steps=opts.warmup_steps, steps_per_segment=opts.steps_per_segment,
         ou_theta=opts.ou_theta, ou_sigma=opts.ou_sigma, ou_sigma_min=opts.ou_sigma_min,
         ou_decay_steps=opts.ou_decay_steps, reward_scale=opts.reward_scale,
@@ -479,10 +512,12 @@ def train(opts) -> float:
         target_noise_clip=opts.target_noise_clip, grad_clip=opts.grad_clip,
         per_alpha=opts.per_alpha if opts.per else None, per_beta0=opts.per_beta0,
         per_eps=opts.per_eps, per_total_steps=opts.num_train_batches * opts.steps_per_segment,
-        n_step=opts.n_step)
-    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger,
+        n_step=opts.n_step, group=mesh and mesh.group)
+    return common.train_segments(opts, st, common.distribute(segment, mesh, SHARDED_FIELDS,
+                                                             METRIC_KEYS),
+                                 venv, eval_venv, act, logger,
                                  common.replay_fields(("critic_loss", "actor_loss")),
-                                 start_segment, opts.num_train_batches)
+                                 start_segment, opts.num_train_batches, mesh, SHARDED_FIELDS)
 
 
 def make_parser():

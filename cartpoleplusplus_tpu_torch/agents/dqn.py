@@ -38,12 +38,18 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import QNetwork
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "dqn.train_once"
+# A data-parallel run's sharded fields and averaged metrics (the JAX
+# DQN_SHARDED_FIELDS / DQN_METRIC_KEYS; ``eps`` is a host float, equal on
+# every rank).
+SHARDED_FIELDS = ("replay", "env_states", "obs")
+METRIC_KEYS = ("loss", "reward", "done_frac", "double_reset_frac")
 
 
 @dataclasses.dataclass
@@ -128,7 +134,7 @@ def greedy_act(qnet: QNetwork) -> common.GreedyPolicy:
 def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
                     double_q: bool = False, n_step: int = 1, c51_atoms: int = 0,
                     c51_vmin: float = 0.0, c51_vmax: float = 12.0, noisy: bool = False,
-                    grad_clip: float = 0.0):
+                    grad_clip: float = 0.0, group=None):
     """One learner update → ``train_once(st, batch, iw=None, noise=None) ->
     (loss, priority)``: a device scalar and the (B,) priorities for the
     write-back, ``|td|``, or under C51 the cross-entropy (Rainbow's).
@@ -148,6 +154,8 @@ def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
     ``{head: (eps_in, eps_out)}`` — the three independent NoisyNet draws of
     the target on s2, the online selection on s2 and the online loss on s1,
     in JAX's order; each one not given is drawn from ``st.generator``.
+    ``group``: the data-parallel process group whose ranks average the
+    gradient before the step.
     """
     bootstrap = gamma ** n_step
     supports = {}  # the C51 support, built once per device
@@ -197,7 +205,7 @@ def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
         loss = torch.mean(per_sample if iw is None else iw * per_sample)
         st.opt.zero_grad(set_to_none=True)
         loss.backward()
-        _step(st.opt, st.sched, st.q.parameters(), grad_clip)
+        _step(st.opt, st.sched, st.q.parameters(), grad_clip, group)
         soft_target_update(st.target_q, st.q, tau)
         return loss.detach(), priority.detach()
 
@@ -227,6 +235,7 @@ def make_segment(
     c51_vmax: float = 12.0,
     noisy: bool = False,
     grad_clip: float = 0.0,
+    group=None,
 ):
     """The K-step training segment: ``segment(st, draws=None) -> metrics``,
     updating ``st`` in place, on ``ddpg.make_segment``'s skeleton: one
@@ -253,13 +262,13 @@ def make_segment(
     steps, 0 on steps without an update, as the JAX mean counts them),
     ``reward``, ``done_frac``, ``double_reset_frac`` (device scalars),
     ``eps`` (a host float, its mean over the steps) and the host int
-    ``updates``.
+    ``updates``.  ``group``: as ``ddpg.make_segment`` takes it.
     """
     resolve_device(venv.device)
     train_once = make_train_once(
         gamma=gamma, tau=tau, reward_scale=reward_scale, double_q=double_q, n_step=n_step,
         c51_atoms=c51_atoms, c51_vmin=c51_vmin, c51_vmax=c51_vmax, noisy=noisy,
-        grad_clip=grad_clip)
+        grad_clip=grad_clip, group=group)
     e = venv.num_envs
     z = support(c51_vmin, c51_vmax, c51_atoms, venv.device) if c51_atoms else None
 
@@ -353,7 +362,7 @@ def init_state(opts, config, venv: VectorCartpole, lr: LearningRate = 1e-3,
     env_states, obs = venv.reset(gen)
     block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
-        common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (),
+        common.shard_capacity(opts, block), config.obs_shape, (),
         obs_dtype=torch.uint8 if config.use_raw_pixels else torch.float32,
         action_dtype=torch.int32, block=block, device=dev,
         prioritized=getattr(opts, "per", False))
@@ -396,8 +405,8 @@ def add_dqn_opts(parser) -> None:
     parser.add_argument("--noisy", action="store_true",
                         help="NoisyNet heads; the eps flags left unset become 0")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to shard envs and replay over; above 1 is refused "
-                             "(not ported yet)")
+                        help="ranks (one device each) to shard envs and replay over; "
+                             "gradients are averaged across them")
 
 
 def fill_eps_defaults(opts) -> None:
@@ -429,24 +438,32 @@ def train(opts, stop_at: int | None = None) -> float:
     --num-train-batches`` with their evals, metrics (the ``train`` event's
     ``loss``, ``eps``, ``mean_reward`` as in JAX) and checkpoints
     (:func:`common.train_segments`).  ``--eval-only`` evaluates the restored
-    policy instead.  Flags the port lacks stop it at startup.  ``stop_at``
-    (not a flag): end after that segment, the learning-rate schedule and
-    PER's β keeping ``--num-train-batches``'s length."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    policy instead.  ``stop_at`` (not a flag): end after that segment, the
+    learning-rate schedule and PER's β keeping ``--num-train-batches``'s
+    length.
+
+    ``--num-devices`` N > 1 and ``--coordinator/--num-processes/
+    --process-id``: the data-parallel run of ``ddpg.train`` (the ranks'
+    env and replay shards, the per-rank batch ``--batch-size // N``, the
+    gradients and metrics averaged over the ranks, rank 0's eval)."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh):
+        return distributed.launch(opts, train, stop_at)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=True)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    venv, init_venv = common.rank_venvs(config, opts, dev, raster, mesh)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     fill_eps_defaults(opts)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
-    st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate),
+    st = init_state(opts, config, init_venv, lr=common.make_lr(opts, opts.learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, SHARDED_FIELDS)
     common.check_nstep_capacity(opts, st.replay)
     start_segment, restored = 0, None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             start_segment = restored
             logger.log("restore", step=restored)
@@ -455,22 +472,24 @@ def train(opts, stop_at: int | None = None) -> float:
         return common.run_eval_only(opts, logger, restored, eval_venv, act)
 
     segment = make_segment(
-        venv, gamma=opts.gamma, tau=opts.tau, batch_size=opts.batch_size,
+        venv, gamma=opts.gamma, tau=opts.tau, batch_size=common.rank_batch(opts, mesh),
         warmup_steps=opts.warmup_steps, steps_per_segment=opts.steps_per_segment,
         eps_start=opts.eps_start, eps_end=opts.eps_end, eps_decay_steps=opts.eps_decay_steps,
         reward_scale=opts.reward_scale, double_q=opts.double_q,
         per_alpha=opts.per_alpha if opts.per else None, per_beta0=opts.per_beta0,
         per_total_steps=opts.num_train_batches * opts.steps_per_segment, per_eps=opts.per_eps,
         n_step=opts.n_step, c51_atoms=opts.c51, c51_vmin=opts.c51_vmin,
-        c51_vmax=opts.c51_vmax, noisy=opts.noisy, grad_clip=opts.grad_clip)
+        c51_vmax=opts.c51_vmax, noisy=opts.noisy, grad_clip=opts.grad_clip,
+        group=mesh and mesh.group)
 
     def fields(metrics: dict) -> dict:
         return {"loss": float(metrics["loss"]), "eps": float(metrics["eps"]),
                 "mean_reward": float(metrics["reward"])}
 
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
-    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger, fields,
-                                 start_segment, end)
+    return common.train_segments(
+        opts, st, common.distribute(segment, mesh, SHARDED_FIELDS, METRIC_KEYS), venv,
+        eval_venv, act, logger, fields, start_segment, end, mesh, SHARDED_FIELDS)
 
 
 def make_parser():

@@ -34,6 +34,7 @@ from cartpoleplusplus_tpu_torch.env.config import NUM_DISCRETE_ACTIONS, config_f
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole
 from cartpoleplusplus_tpu_torch.models.networks import DiscretePolicy
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.optim import Adam
 
@@ -132,12 +133,13 @@ def loss_fn(policy: DiscretePolicy, obs: torch.Tensor, action: torch.Tensor,
     return -torch.sum(logp * adv * w) / total
 
 
-def make_train_step(venv: VectorCartpole, gamma: float):
+def make_train_step(venv: VectorCartpole, gamma: float, group=None):
     """One LRPG update → ``train_step(st, noise=None, reset=None) ->
     metrics``, updating ``st`` in place and advancing ``st.update``
     (``noise`` and ``reset`` as :func:`rollout_batch` takes them).
     ``metrics``: device scalars ``loss``, ``ep_len`` (valid steps per env)
-    and ``ep_rew`` (valid reward per env)."""
+    and ``ep_rew`` (valid reward per env).  With a data-parallel ``group``
+    the gradients are averaged over its ranks before the step."""
     resolve_device(venv.device)
 
     def train_step(st: LRPGState, noise=None, reset=None) -> dict:
@@ -147,6 +149,8 @@ def make_train_step(venv: VectorCartpole, gamma: float):
         loss = loss_fn(st.policy, obs, action, ret, valid)
         st.opt.zero_grad(set_to_none=True)
         loss.backward()
+        if group is not None:
+            distributed.allreduce_mean_([p.grad for p in st.policy.parameters()], group)
         st.opt.step()
         st.update += 1
         e = valid.shape[1]
@@ -180,8 +184,8 @@ def init_state(opts, config, venv: VectorCartpole, lr: float = 1e-3,
 def add_lrpg_opts(parser) -> None:
     """LRPG's flags (the JAX ``add_lrpg_opts``)."""
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to roll out env shards on; above 1 is refused (not "
-                             "ported yet)")
+                        help="ranks (one device each) to roll out env shards on; gradients "
+                             "are averaged across them")
 
 
 def train(opts, stop_at: int | None = None) -> float:
@@ -191,20 +195,30 @@ def train(opts, stop_at: int | None = None) -> float:
     then updates from the restored ``update`` to ``--num-train-batches``
     (:func:`common.train_updates`; the ``train`` event's fields ``loss``,
     ``train_ep_len``, ``train_ep_rew`` as in JAX).  ``--eval-only``
-    evaluates the restored policy instead.  Flags the port lacks stop it at
-    startup.  ``stop_at`` (not a flag): end after that update."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    evaluates the restored policy instead.  ``stop_at`` (not a flag): end
+    after that update.
+
+    ``--num-devices`` N > 1 and ``--coordinator/--num-processes/
+    --process-id``: each rank rolls out ``--num-envs / N`` episodes from
+    its own generator (nothing else is sharded: every update resets every
+    env); the gradients and metrics are averaged over the ranks; rank 0
+    evaluates."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh, replay=False):
+        return distributed.launch(opts, train, stop_at)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=True)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    world = 1 if mesh is None else mesh.world
+    venv = common.make_venv(config, opts.num_envs // world, device=dev, render_raster=raster)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     st = init_state(opts, config, venv, lr=opts.learning_rate, hidden=opts.hidden,
                     pixel_pool=opts.pixel_pool, pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, ())
     restored = None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             logger.log("restore", step=restored)
     act = greedy_act(st.policy)
@@ -216,8 +230,10 @@ def train(opts, stop_at: int | None = None) -> float:
                 "train_ep_rew": float(metrics["ep_rew"])}
 
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
-    return common.train_updates(opts, st, make_train_step(venv, opts.gamma), eval_venv, act,
-                                logger, fields, st.update, end)
+    train_step = common.distribute(make_train_step(venv, opts.gamma, group=mesh and mesh.group),
+                                   mesh, (), METRIC_KEYS)
+    return common.train_updates(opts, st, train_step, eval_venv, act, logger, fields,
+                                st.update, end, mesh)
 
 
 def make_parser():

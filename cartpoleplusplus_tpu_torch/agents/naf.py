@@ -40,6 +40,7 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import NAFNetwork
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
@@ -47,6 +48,10 @@ from cartpoleplusplus_tpu_torch.utils.noise import ou_init, ou_step
 from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "naf.train_once"
+# A data-parallel run's sharded fields and averaged metrics (the JAX
+# NAF_SHARDED_FIELDS / NAF_METRIC_KEYS).
+SHARDED_FIELDS = distributed.DDPG_SHARDED_FIELDS
+METRIC_KEYS = ("loss", "reward", "done_frac", "double_reset_frac")
 
 
 @dataclasses.dataclass
@@ -99,7 +104,7 @@ def greedy_act(net: NAFNetwork) -> common.GreedyPolicy:
 
 
 def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
-                    grad_clip: float = 0.0):
+                    grad_clip: float = 0.0, group=None):
     """One learner update → ``train_once(st, batch) -> loss``, a device
     scalar.  ``batch``: ``(s1, action, reward, s2, terminal)`` as stored.
 
@@ -108,7 +113,9 @@ def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
     train-mode forward of the online network (moving its batch statistics);
     one Adam step (after a global-norm clip when ``grad_clip`` > 0); the
     soft update by τ of every target parameter and buffer.  Gradients stay
-    in each parameter's ``.grad`` until the next update.
+    in each parameter's ``.grad`` until the next update.  ``group``: the
+    data-parallel process group whose ranks average the gradient before the
+    step (the batch statistics stay each rank's own).
     """
 
     def train_once(st: NAFState, batch) -> torch.Tensor:
@@ -121,7 +128,7 @@ def make_train_once(*, gamma: float, tau: float, reward_scale: float = 1.0,
         loss = torch.mean((NAFNetwork.q_value(v, l_flat, mu, a) - y) ** 2)
         st.opt.zero_grad(set_to_none=True)
         loss.backward()
-        _step(st.opt, st.sched, st.net.parameters(), grad_clip)
+        _step(st.opt, st.sched, st.net.parameters(), grad_clip, group)
         soft_target_update(st.target_net, st.net, tau)
         return loss.detach()
 
@@ -142,6 +149,7 @@ def make_segment(
     ou_decay_steps: int = 0,
     reward_scale: float = 1.0,
     grad_clip: float = 0.0,
+    group=None,
 ):
     """The K-step training segment: ``segment(st, draws=None) -> metrics``,
     updating ``st`` in place, on ``ddpg.make_segment``'s skeleton: one
@@ -166,11 +174,11 @@ def make_segment(
     ``metrics``: device scalars averaged over the segment's steps (``loss``,
     zero on steps without an update, as the JAX mean counts them;
     ``reward``, ``done_frac``; ``double_reset_frac``) and the host int
-    ``updates``.
+    ``updates``.  ``group``: as ``ddpg.make_segment`` takes it.
     """
     resolve_device(venv.device)
     train_once = make_train_once(gamma=gamma, tau=tau, reward_scale=reward_scale,
-                                 grad_clip=grad_clip)
+                                 grad_clip=grad_clip, group=group)
     e = venv.num_envs
 
     def segment(st: NAFState, draws: Optional[dict] = None) -> dict:
@@ -247,7 +255,7 @@ def init_state(opts, config, venv: VectorCartpole, lr: LearningRate = 1e-3,
     env_states, obs = venv.reset(gen)
     block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
-        common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (2,),
+        common.shard_capacity(opts, block), config.obs_shape, (2,),
         obs_dtype=torch.uint8 if config.use_raw_pixels else torch.float32, block=block,
         device=dev)
     return NAFState(net=net, target_net=copy.deepcopy(net).requires_grad_(False), opt=opt,
@@ -277,8 +285,8 @@ def add_naf_opts(parser) -> None:
                         help="global-norm gradient clip (0 = off)")
     common.add_lr_schedule_opt(parser)
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to shard envs and replay over; above 1 is refused "
-                             "(not ported yet)")
+                        help="ranks (one device each) to shard envs and replay over; "
+                             "gradients are averaged across them")
 
 
 def train(opts, stop_at: int | None = None) -> float:
@@ -292,22 +300,33 @@ def train(opts, stop_at: int | None = None) -> float:
     --num-train-batches`` with their evals, metrics (the ``train`` event's
     ``loss`` and ``mean_reward`` as in JAX) and checkpoints
     (:func:`common.train_segments`).  ``--eval-only`` evaluates the restored
-    policy instead.  Flags the port lacks stop it at startup.  ``stop_at``
-    (not a flag): end after that segment, the learning-rate schedule
-    keeping ``--num-train-batches``'s length."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    policy instead.  ``stop_at`` (not a flag): end after that segment, the
+    learning-rate schedule keeping ``--num-train-batches``'s length.
+
+    ``--num-devices`` N > 1 and ``--coordinator/--num-processes/
+    --process-id``: the data-parallel run of ``ddpg.train`` (the ranks'
+    env and replay shards, the per-rank batch ``--batch-size // N``, the
+    gradients and metrics averaged over the ranks, rank 0's eval).  With
+    ``--use-batch-norm`` each rank's running statistics move with its own
+    batches and are never averaged, as in the JAX package, where chip 0's
+    copy of the replicated statistics is the one saved and evaluated: the
+    checkpoints and the eval hold rank 0's."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh):
+        return distributed.launch(opts, train, stop_at)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=False)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    venv, init_venv = common.rank_venvs(config, opts, dev, raster, mesh)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
-    st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate),
+    st = init_state(opts, config, init_venv, lr=common.make_lr(opts, opts.learning_rate),
                     hidden=opts.hidden, pixel_pool=opts.pixel_pool,
                     pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, SHARDED_FIELDS)
     start_segment, restored = 0, None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             start_segment = restored
             logger.log("restore", step=restored)
@@ -316,18 +335,19 @@ def train(opts, stop_at: int | None = None) -> float:
         return common.run_eval_only(opts, logger, restored, eval_venv, act)
 
     segment = make_segment(
-        venv, gamma=opts.gamma, tau=opts.tau, batch_size=opts.batch_size,
+        venv, gamma=opts.gamma, tau=opts.tau, batch_size=common.rank_batch(opts, mesh),
         warmup_steps=opts.warmup_steps, steps_per_segment=opts.steps_per_segment,
         ou_theta=opts.ou_theta, ou_sigma=opts.ou_sigma, ou_sigma_min=opts.ou_sigma_min,
         ou_decay_steps=opts.ou_decay_steps, reward_scale=opts.reward_scale,
-        grad_clip=opts.grad_clip)
+        grad_clip=opts.grad_clip, group=mesh and mesh.group)
 
     def fields(metrics: dict) -> dict:
         return {"loss": float(metrics["loss"]), "mean_reward": float(metrics["reward"])}
 
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
-    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger, fields,
-                                 start_segment, end)
+    return common.train_segments(
+        opts, st, common.distribute(segment, mesh, SHARDED_FIELDS, METRIC_KEYS), venv,
+        eval_venv, act, logger, fields, start_segment, end, mesh, SHARDED_FIELDS)
 
 
 def make_parser():

@@ -37,11 +37,15 @@ from cartpoleplusplus_tpu_torch.env.config import config_from_opts
 from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import GaussianActor, ValueNetwork
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
 from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 METRIC_KEYS = ("loss", "pg_loss", "v_loss", "entropy", "clip_frac", "approx_kl",
                "mean_reward", "done_frac")
+# The fields a data-parallel run splits over its ranks (the JAX
+# PPO_SHARDED_FIELDS); every metric is averaged.
+SHARDED_FIELDS = ("env_states", "obs")
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_2 = math.log(2.0)
 
@@ -111,7 +115,8 @@ def add_ppo_opts(parser) -> None:
     parser.add_argument("--grad-clip", type=float, default=0.5,
                         help="global-norm gradient clip (0 = off)")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to shard envs over; above 1 is refused (not ported yet)")
+                        help="ranks (one device each) to shard envs over; gradients are "
+                             "averaged across them")
     common.add_lr_schedule_opt(parser)
 
 
@@ -173,9 +178,17 @@ def gae(reward: torch.Tensor, v: torch.Tensor, done: torch.Tensor, v_last: torch
     return adv, adv + v
 
 
-def whiten(adv: torch.Tensor) -> torch.Tensor:
+def whiten(adv: torch.Tensor, group=None) -> torch.Tensor:
     """Whiten over the whole batch by the population variance (ddof 0, as
-    ``jnp.var``)."""
+    ``jnp.var``).  With a data-parallel ``group``, JAX's sharded form: the
+    mean of the ranks' means, then the mean of each rank's squared deviation
+    about that mean."""
+    if group is not None:
+        mean = adv.mean()
+        distributed.allreduce_mean_([mean], group)
+        var = ((adv - mean) ** 2).mean()
+        distributed.allreduce_mean_([var], group)
+        return (adv - mean) * torch.rsqrt(var + 1e-8)
     mean, var = adv.mean(), adv.var(correction=0)
     return (adv - mean) * torch.rsqrt(var + 1e-8)
 
@@ -199,7 +212,7 @@ def ppo_loss(actor: GaussianActor, value: ValueNetwork, obs, u, logp_old, adv, r
     return loss, (pg_loss, v_loss, entropy, clip_frac, approx_kl)
 
 
-def make_train_step(venv: VectorCartpole, opts):
+def make_train_step(venv: VectorCartpole, opts, group=None):
     """One PPO update → ``train_step(ps, eps=None, perms=None, reset=None)
     -> metrics``, updating ``ps`` in place and advancing ``ps.update``.
 
@@ -208,7 +221,10 @@ def make_train_step(venv: VectorCartpole, opts):
     Each one not given is drawn from ``ps.generator``.  ``metrics``: device
     scalars, :data:`METRIC_KEYS`, the loss terms of the last minibatch of
     the last epoch, ``mean_reward`` of the unscaled rewards and
-    ``done_frac``.  ``--ppo-minibatches`` must divide ``T·E``."""
+    ``done_frac``.  ``--ppo-minibatches`` must divide ``T·E``.  With a
+    data-parallel ``group`` the advantages are whitened over every rank's
+    rollout (:func:`whiten`) and each minibatch's gradients averaged over
+    the ranks before the clip and the step."""
     resolve_device(venv.device)
     T, E, M = opts.rollout_steps, venv.num_envs, opts.ppo_minibatches
     if (T * E) % M:
@@ -225,7 +241,8 @@ def make_train_step(venv: VectorCartpole, opts):
         reward = r["reward"] * rscale
         adv, ret = gae(reward, r["v"], r["done"], r["v_last"], opts.gamma, opts.gae_lambda)
         flat = lambda x: x.reshape((T * E,) + x.shape[2:])
-        batch = (flat(r["obs"]), flat(r["u"]), flat(r["logp"]), whiten(flat(adv)), flat(ret))
+        batch = (flat(r["obs"]), flat(r["u"]), flat(r["logp"]), whiten(flat(adv), group),
+                 flat(ret))
         params = ps.parameters()
         for k in range(opts.ppo_epochs):
             perm = perms[k].to(dev) if perms is not None else torch.randperm(
@@ -235,7 +252,7 @@ def make_train_step(venv: VectorCartpole, opts):
                 loss, aux = ppo_loss(ps.actor, ps.value, *(x[idx] for x in batch), **loss_kw)
                 ps.opt.zero_grad(set_to_none=True)
                 loss.backward()
-                _step(ps.opt, ps.sched, params, opts.grad_clip)
+                _step(ps.opt, ps.sched, params, opts.grad_clip, group)
         ps.update += 1
         stats = (loss, *aux, (reward / rscale).mean(), r["done"].to(torch.float32).mean())
         return {k: x.detach() for k, x in zip(METRIC_KEYS, stats)}
@@ -276,30 +293,39 @@ def train(opts, stop_at: int | None = None) -> float:
     checkpoints (:func:`common.train_updates`).  ``--lr-schedule cosine``
     decays over every optimizer step of the run, updates × epochs ×
     minibatches.  ``--eval-only`` evaluates the restored policy instead.
-    Flags the port lacks stop it at startup.  ``stop_at`` (not a flag): end
-    after that update, the schedule keeping ``--num-train-batches``'s
-    length."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    ``stop_at`` (not a flag): end after that update, the schedule keeping
+    ``--num-train-batches``'s length.
+
+    ``--num-devices`` N > 1 and ``--coordinator/--num-processes/
+    --process-id``: each rank rolls out ``--num-envs / N`` envs, starting
+    from its rows of the one-card run's reset; the advantages are whitened
+    over all ranks, each minibatch's gradients and the metrics averaged
+    over them; rank 0 evaluates."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh, replay=False):
+        return distributed.launch(opts, train, stop_at)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=False)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    venv, init_venv = common.rank_venvs(config, opts, dev, raster, mesh)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
     total = opts.num_train_batches * opts.ppo_epochs * opts.ppo_minibatches
-    st = init_state(opts, config, venv, lr=common.make_lr(opts, opts.learning_rate, total),
-                    hidden=opts.hidden, pixel_pool=opts.pixel_pool,
-                    pixel_encoder=opts.pixel_encoder)
+    st = init_state(opts, config, init_venv,
+                    lr=common.make_lr(opts, opts.learning_rate, total), hidden=opts.hidden,
+                    pixel_pool=opts.pixel_pool, pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, SHARDED_FIELDS)
     restored = None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             logger.log("restore", step=restored)
     act = greedy_act(st.actor)
     if opts.eval_only:
         return common.run_eval_only(opts, logger, restored, eval_venv, act)
 
-    train_step = make_train_step(venv, opts)
+    train_step = common.distribute(make_train_step(venv, opts, group=mesh and mesh.group),
+                                   mesh, SHARDED_FIELDS, METRIC_KEYS)
     steps_per_update = opts.rollout_steps * opts.num_envs
 
     def fields(update: int, metrics: dict) -> dict:
@@ -308,7 +334,7 @@ def train(opts, stop_at: int | None = None) -> float:
 
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
     return common.train_updates(opts, st, train_step, eval_venv, act, logger, fields, st.update,
-                                end)
+                                end, mesh, SHARDED_FIELDS)
 
 
 def make_parser():

@@ -38,6 +38,7 @@ from cartpoleplusplus_tpu_torch.env.vector import VectorCartpole, resolve_obs
 from cartpoleplusplus_tpu_torch.models.networks import GaussianActor, TwinCritic
 from cartpoleplusplus_tpu_torch.models.target import soft_target_update
 from cartpoleplusplus_tpu_torch.models.trunks import DEFAULT_HIDDEN
+from cartpoleplusplus_tpu_torch.parallel import distributed
 from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.replay.buffer import ReplayState
 from cartpoleplusplus_tpu_torch.utils.metrics import MetricsLogger
@@ -45,6 +46,10 @@ from cartpoleplusplus_tpu_torch.utils.optim import Adam, Schedule
 
 LEARNER_SPAN = "sac.train_once"
 METRIC_KEYS = ("critic_loss", "actor_loss", "alpha", "entropy")
+# A data-parallel run's sharded fields and averaged metrics (the JAX
+# SAC_SHARDED_FIELDS / SAC_METRIC_KEYS).
+SHARDED_FIELDS = ("replay", "env_states", "obs")
+RANK_METRIC_KEYS = (*METRIC_KEYS, "reward", "done_frac", "double_reset_frac")
 _LOG_2PI = math.log(2.0 * math.pi)
 _LOG_2 = math.log(2.0)
 
@@ -127,7 +132,7 @@ def greedy_act(actor: GaussianActor) -> common.GreedyPolicy:
 
 def make_train_once(config, *, gamma: float, tau: float, target_entropy: float,
                     log_alpha_min: float | None = None, reward_scale: float = 1.0,
-                    aug_shift: int = 0, grad_clip: float = 0.0):
+                    aug_shift: int = 0, grad_clip: float = 0.0, group=None):
     """One learner update → ``train_once(st, batch, eps_next=None,
     eps_new=None, aug_offsets=None) -> metrics``, device scalars
     ``critic_loss``, ``actor_loss``, ``alpha`` (after the update) and
@@ -141,7 +146,9 @@ def make_train_once(config, *, gamma: float, tau: float, target_entropy: float,
     ``log_alpha_min``; the target critic's soft update by τ.  ``eps_next``,
     ``eps_new`` (standard normals of the action batch's shape) and
     ``aug_offsets`` (a pair of (B, 2), for s1 and s2) are the update's
-    random draws, from ``st.generator`` when not given.
+    random draws, from ``st.generator`` when not given.  ``group``: the
+    data-parallel process group whose ranks average the critic's, the
+    actor's and the temperature's gradients before each step.
     """
 
     def train_once(st: SACState, batch, eps_next=None, eps_new=None, aug_offsets=None) -> dict:
@@ -162,7 +169,7 @@ def make_train_once(config, *, gamma: float, tau: float, target_entropy: float,
         closs = torch.mean((st.critic(s1, a) - y) ** 2)
         st.critic_opt.zero_grad(set_to_none=True)
         closs.backward()
-        _step(st.critic_opt, st.critic_sched, st.critic.parameters(), grad_clip)
+        _step(st.critic_opt, st.critic_sched, st.critic.parameters(), grad_clip, group)
 
         a_new, logp = sample_action(st.actor, s1, eps_new, g)
         q = torch.min(st.critic(s1, a_new), dim=0).values
@@ -170,13 +177,13 @@ def make_train_once(config, *, gamma: float, tau: float, target_entropy: float,
         st.actor_opt.zero_grad(set_to_none=True)
         actor_params = list(st.actor.parameters())
         aloss.backward(inputs=actor_params)
-        _step(st.actor_opt, st.actor_sched, actor_params, grad_clip)
+        _step(st.actor_opt, st.actor_sched, actor_params, grad_clip, group)
 
         logp = logp.detach()
         alpha_loss = -st.log_alpha * torch.mean(logp + target_entropy)
         st.alpha_opt.zero_grad(set_to_none=True)
         alpha_loss.backward()
-        st.alpha_opt.step()
+        _step(st.alpha_opt, None, [st.log_alpha], 0.0, group)
         if log_alpha_min is not None:
             with torch.no_grad():
                 st.log_alpha.clamp_(min=log_alpha_min)
@@ -200,6 +207,7 @@ def make_segment(
     reward_scale: float = 1.0,
     aug_shift: int = 0,
     grad_clip: float = 0.0,
+    group=None,
 ):
     """The K-step training segment: ``segment(st) -> metrics``, updating
     ``st`` in place, on ``ddpg.make_segment``'s skeleton: one reset pool
@@ -210,14 +218,15 @@ def make_segment(
     ``metrics``: device scalars averaged over the segment's steps
     (:data:`METRIC_KEYS`, zero on steps without an update, so ``alpha``
     reads 0 before the gate opens; ``reward``, ``done_frac``,
-    ``double_reset_frac``) and the host int ``updates``.
+    ``double_reset_frac``) and the host int ``updates``.  ``group``: as
+    ``ddpg.make_segment`` takes it.
     """
     resolve_device(venv.device)
     config = venv.config
     train_once = make_train_once(
         config, gamma=gamma, tau=tau, target_entropy=target_entropy,
         log_alpha_min=log_alpha_min, reward_scale=reward_scale, aug_shift=aug_shift,
-        grad_clip=grad_clip)
+        grad_clip=grad_clip, group=group)
     e = venv.num_envs
 
     def segment(st: SACState) -> dict:
@@ -293,7 +302,7 @@ def init_state(opts, config, venv: VectorCartpole, actor_lr: LearningRate = 3e-4
     obs_dtype = torch.uint8 if config.use_raw_pixels else torch.float32
     block = common.replay_block(opts, venv.num_envs)
     replay = replay_mod.create(
-        common.replay_capacity(opts.replay_capacity, block), config.obs_shape, (2,),
+        common.shard_capacity(opts, block), config.obs_shape, (2,),
         obs_dtype=obs_dtype, block=block, device=dev)
     return SACState(
         actor=actor, critic=critic,
@@ -337,8 +346,8 @@ def add_sac_opts(parser) -> None:
                         help="pixel-only: DrQ random shift, edge-pad frames by N px and "
                              "crop at a random offset per replay sample")
     parser.add_argument("--num-devices", type=int, default=1,
-                        help="devices to shard envs and replay over; above 1 is refused "
-                             "(not ported yet)")
+                        help="ranks (one device each) to shard envs and replay over; "
+                             "gradients are averaged across them")
     common.add_lr_schedule_opt(parser)
 
 
@@ -352,26 +361,34 @@ def train(opts, stop_at: int | None = None) -> float:
     ``start .. --num-train-batches`` with their evals, metrics (SAC's
     :data:`METRIC_KEYS` among the JAX fields) and checkpoints
     (:func:`common.train_segments`).  ``--eval-only`` evaluates the
-    restored policy instead.  Flags the port lacks stop it at
-    startup.  ``stop_at`` (not a flag): end after that segment, the
-    learning-rate schedules keeping ``--num-train-batches``'s length."""
-    common.reject_unported(opts)
-    dev = resolve_device(opts.device)
+    restored policy instead.  ``stop_at`` (not a flag): end after that
+    segment, the learning-rate schedules keeping ``--num-train-batches``'s
+    length.
+
+    ``--num-devices`` N > 1 and ``--coordinator/--num-processes/
+    --process-id``: the data-parallel run of ``ddpg.train`` (the ranks'
+    env and replay shards, the per-rank batch ``--batch-size // N``, the
+    gradients and metrics averaged over the ranks, rank 0's eval)."""
+    mesh = common.maybe_init_multihost(opts)
+    if common.launches_ranks(opts, mesh):
+        return distributed.launch(opts, train, stop_at)
+    dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=False)
     raster = common.resolve_render_raster(config, opts)
-    venv = common.make_venv(config, opts.num_envs, device=dev, render_raster=raster)
+    venv, init_venv = common.rank_venvs(config, opts, dev, raster, mesh)
     eval_venv = common.make_venv(config, opts.num_eval, device=dev, render_raster=raster)
     logger = MetricsLogger(opts.metrics_jsonl, tb_dir=opts.tb_dir)
-    st = init_state(opts, config, venv,
+    st = init_state(opts, config, init_venv,
                     actor_lr=common.make_lr(opts, opts.actor_learning_rate),
                     critic_lr=common.make_lr(opts, opts.critic_learning_rate),
                     alpha_lr=opts.alpha_learning_rate, hidden=opts.hidden,
                     pixel_pool=opts.pixel_pool, pixel_encoder=opts.pixel_encoder)
+    common.shard_start(st, mesh, SHARDED_FIELDS)
     target_entropy = opts.target_entropy if opts.target_entropy is not None else -2.0
     log_alpha_min = math.log(opts.alpha_min) if opts.alpha_min > 0.0 else None
     start_segment, restored = 0, None
     if opts.ckpt_dir:
-        st, restored = common.restore_for_startup(opts, st)
+        st, restored = common.restore_for_startup(opts, st, mesh)
         if restored is not None:
             start_segment = restored
             logger.log("restore", step=restored)
@@ -380,13 +397,16 @@ def train(opts, stop_at: int | None = None) -> float:
         return common.run_eval_only(opts, logger, restored, eval_venv, act)
 
     segment = make_segment(
-        venv, gamma=opts.gamma, tau=opts.tau, batch_size=opts.batch_size,
+        venv, gamma=opts.gamma, tau=opts.tau, batch_size=common.rank_batch(opts, mesh),
         warmup_steps=opts.warmup_steps, steps_per_segment=opts.steps_per_segment,
         target_entropy=target_entropy, log_alpha_min=log_alpha_min,
-        reward_scale=opts.reward_scale, aug_shift=opts.aug_shift, grad_clip=opts.grad_clip)
+        reward_scale=opts.reward_scale, aug_shift=opts.aug_shift, grad_clip=opts.grad_clip,
+        group=mesh and mesh.group)
     end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
-    return common.train_segments(opts, st, segment, venv, eval_venv, act, logger,
-                                 common.replay_fields(METRIC_KEYS), start_segment, end)
+    return common.train_segments(
+        opts, st, common.distribute(segment, mesh, SHARDED_FIELDS, RANK_METRIC_KEYS), venv,
+        eval_venv, act, logger, common.replay_fields(METRIC_KEYS), start_segment, end, mesh,
+        SHARDED_FIELDS)
 
 
 def make_parser():

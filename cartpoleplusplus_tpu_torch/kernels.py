@@ -6,7 +6,8 @@ through ctypes; it never includes PyTorch's headers.  The library lives in
 ``_build/<hash of the sources and flags>/`` beside this file, built at first
 use and rebuilt whenever a source changes.  Each source is compiled by its
 own ``nvcc`` process, all started together, then linked; each ``nvcc``
-is killed after ``NVCC_TIMEOUT_S``.
+is killed after ``NVCC_TIMEOUT_S``.  A file lock in ``_build/`` lets one
+process build while the others (data-parallel ranks) wait and load.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
@@ -16,6 +17,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -110,6 +112,13 @@ def build() -> dict:
     compile and link (0 when nothing was built), ``log`` the compilers'
     output (kept beside the library, so also when it was found built).
     """
+    os.makedirs(BUILD_ROOT, exist_ok=True)
+    with open(os.path.join(BUILD_ROOT, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        return _build_locked()
+
+
+def _build_locked() -> dict:
     out_dir = os.path.join(BUILD_ROOT, source_hash())
     lib_path = os.path.join(out_dir, LIB_NAME)
     log_path = os.path.join(out_dir, LOG_NAME)
@@ -117,7 +126,6 @@ def build() -> dict:
         log = open(log_path).read() if os.path.exists(log_path) else ""
         return {"path": lib_path, "built": False, "nvcc_s": 0.0, "log": log}
     nvcc = _nvcc()
-    os.makedirs(BUILD_ROOT, exist_ok=True)
     tmp = tempfile.mkdtemp(dir=BUILD_ROOT, prefix="tmp-")
     try:
         t0 = time.monotonic()

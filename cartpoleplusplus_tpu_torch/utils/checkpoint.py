@@ -13,7 +13,18 @@ keeps the target's fresh value, reported on stderr), so a
 ``ckpt_best.pt`` holds the state at the best eval with its step and eval
 embedded in the same file.  The JAX package's msgpack files are not read
 here (``utils.params.ddpg_params_from_jax_checkpoint`` carries their
-weights across); rank-sharded multi-process files are not ported.
+weights across).
+
+Data-parallel runs (``parallel/``): under one launcher rank 0 gathers the
+state (``parallel.global_state_dict``) and writes the one global
+``ckpt_<step>.pt``, as the JAX ``save`` gathers a mesh's shards; under
+``--num-processes`` > 1 every rank writes its own state to
+``ckpt_<step>.rank<k>of<n>.pt`` (:func:`save_rank`).  The port's k and n
+count ranks, each a process of one device, where the JAX package's count
+processes that each hold several chips.  :func:`restore_latest_sharded`
+resumes a job from a complete set of rank files or from a global file
+sliced per rank; :func:`restore_latest` (one process, ``--eval-only``)
+falls back to the newest rank-0 file, whose replicated entries are whole.
 """
 
 from __future__ import annotations
@@ -28,6 +39,7 @@ from typing import Any, Optional
 import torch
 
 _CKPT_RE = re.compile(r"^ckpt_(\d+)\.pt$")
+_CKPT_RANK_RE = re.compile(r"^ckpt_(\d+)\.rank(\d+)of(\d+)\.pt$")
 _BEST_NAME = "ckpt_best.pt"
 _REPLAY_SIG = {"s1", "action", "reward", "s2", "terminal", "cursor", "size"}
 _REPLAY_DATA = ("s1", "action", "reward", "s2", "terminal", "priority")
@@ -82,6 +94,21 @@ def save(ckpt_dir: str, step: int, tree: Any, skip_replay: bool = False) -> str:
     if skip_replay:
         sd = strip_replay(sd)
     path = os.path.join(ckpt_dir, f"ckpt_{step}.pt")
+    _write(path, sd)
+    return path
+
+
+def save_rank(ckpt_dir: str, step: int, tree: Any, rank: int, world: int,
+              skip_replay: bool = False) -> str:
+    """Write one rank's state (its env and replay shard, its copy of the
+    replicated entries, its own generator) to
+    ``<ckpt_dir>/ckpt_<step>.rank<rank>of<world>.pt``.  A step restores
+    once all ``world`` files exist (:func:`latest_sharded_step`)."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    sd = _to_cpu(_as_dict(tree))
+    if skip_replay:
+        sd = strip_replay(sd)
+    path = os.path.join(ckpt_dir, f"ckpt_{step}.rank{rank}of{world}.pt")
     _write(path, sd)
     return path
 
@@ -189,12 +216,106 @@ def restore_latest(ckpt_dir: str, target: Any) -> tuple[Any, Optional[int]]:
     """Restore the newest ``ckpt_<step>.pt`` into ``target`` → (restored,
     step); (target, None) when there is none.  A dict target gives a new
     merged dict; a state with ``load_state_dict`` is restored in place and
-    returned."""
+    returned.
+
+    A newer rank-0 file of a multi-process run wins over the global files:
+    its replicated entries (networks, optimizers, counters) are whole, and
+    its env and replay shards, sized for one rank, keep the target's fresh
+    values through the lenient merge (one process's ``--eval-only`` or a
+    fine-tune from a multi-process run)."""
     step = latest_step(ckpt_dir)
+    ranks = sorted((int(m.group(1)), name) for name in _listdir(ckpt_dir)
+                   if (m := _CKPT_RANK_RE.match(name)) and int(m.group(2)) == 0)
+    if ranks and (step is None or ranks[-1][0] > step):
+        step, name = ranks[-1]
+    elif step is None:
+        return target, None
+    else:
+        name = f"ckpt_{step}.pt"
+    path = os.path.join(ckpt_dir, name)
+    return _restore_into(target, _load(path), path), step
+
+
+def _listdir(ckpt_dir: str) -> list:
+    return os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else []
+
+
+def latest_sharded_step(ckpt_dir: str, world: int) -> Optional[int]:
+    """The newest step whose ``world`` rank files all exist.  A set with a
+    file missing (a rank died while saving) is skipped: resuming from it
+    would restart that rank's shard fresh while the others go on."""
+    ranks_by_step: dict[int, set] = {}
+    for name in _listdir(ckpt_dir):
+        if (m := _CKPT_RANK_RE.match(name)) and int(m.group(3)) == world:
+            ranks_by_step.setdefault(int(m.group(1)), set()).add(int(m.group(2)))
+    complete = [s for s, r in ranks_by_step.items() if r >= set(range(world))]
+    return max(complete) if complete else None
+
+
+def _slice_global_to_local(local: Any, raw: Any, rank: int, world: int) -> Any:
+    """A global checkpoint's entries cut to one rank's template: a tensor
+    whose leading dim is exactly ``world`` times the template's (the rest
+    of its shape equal) is a sharded field, and this rank keeps its
+    contiguous block of rows (rank-major); entries that match already
+    (replicated ones, host values) and anything else pass through for the
+    lenient merge to judge."""
+    if isinstance(local, dict):
+        if not isinstance(raw, dict):
+            return raw
+        return {k: _slice_global_to_local(local[k], v, rank, world) if k in local else v
+                for k, v in raw.items()}
+    if (torch.is_tensor(local) and torch.is_tensor(raw) and local.ndim >= 1
+            and raw.ndim == local.ndim and raw.shape[1:] == local.shape[1:]
+            and local.shape[0] > 0 and raw.shape[0] == local.shape[0] * world):
+        rows = local.shape[0]
+        return raw[rank * rows:(rank + 1) * rows]
+    return raw
+
+
+def restore_latest_sharded(ckpt_dir: str, target: Any, mesh) -> tuple[Any, Optional[int]]:
+    """A data-parallel resume: restore this rank's part of the newest
+    checkpoint into ``target`` (this rank's state) → (restored, step).
+
+    The newest of a complete set of ``world`` rank files (each rank reads
+    its own) and a global ``ckpt_<step>.pt`` wins; a global file is cut to
+    this rank (:func:`_slice_global_to_local`), and rank r takes the r-th
+    of its ``rank_generators`` where it holds one per rank (rank 0 else its
+    ``generator``, the other ranks keep their fresh generators).  The same
+    lenient merge as :func:`restore_latest` follows.  Every rank must call
+    this: the steps the ranks chose are compared in one all-gather before
+    anything loads, and ranks that disagree (checkpoint directories out of
+    sync between hosts) stop the run."""
+    import torch.distributed as dist
+
+    from cartpoleplusplus_tpu_torch.parallel.mesh import comm_device
+
+    rank, world = mesh.rank, mesh.world
+    step = latest_sharded_step(ckpt_dir, world)
+    global_step = latest_step(ckpt_dir)
+    use_global = global_step is not None and (step is None or global_step > step)
+    step = global_step if use_global else step
+    mine = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                        device=comm_device(mesh))
+    steps = [torch.empty_like(mine) for _ in range(world)]
+    dist.all_gather(steps, mine, group=mesh.group)
+    steps = [int(s) for s in steps]
+    if len(set(steps)) > 1:
+        raise SystemExit(f"checkpoint resume aborted: ranks disagree on the newest restorable "
+                         f"step ({steps}); sync the checkpoint directories and relaunch")
     if step is None:
         return target, None
-    path = os.path.join(ckpt_dir, f"ckpt_{step}.pt")
-    return _restore_into(target, _load(path), path), step
+    name = f"ckpt_{step}.pt" if use_global else f"ckpt_{step}.rank{rank}of{world}.pt"
+    path = os.path.join(ckpt_dir, name)
+    raw = _load(path)
+    if use_global:
+        local = _to_cpu(_as_dict(target))
+        raw = _slice_global_to_local(local, raw, rank, world)
+        gens = raw.pop("rank_generators", None)
+        if gens is not None and len(gens) == world:
+            raw["generator"] = gens[rank]
+        elif rank > 0 and "generator" in local:
+            raw["generator"] = local["generator"]
+    return _restore_into(target, raw, path), step
 
 
 def restore_best(ckpt_dir: str, target: Any) -> tuple[Any, Optional[int]]:

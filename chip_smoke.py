@@ -125,7 +125,23 @@ set to 0 just before it and read just after:
 - the trajlog codec (``native``): ``native/trajlog.cpp`` built by g++ under
   the port's ``_build/``, ``native_available()``, and the same records
   written by the native and the Python codec byte-equal and read back by
-  each other.
+  each other;
+- data parallelism on the one card (``parallel``): (a) ``ddpg.main`` with
+  ``ddpg_cli``'s config-5 flags at full width and ``--num-devices 2``, one
+  launcher whose two spawned ranks share the card over gloo (2048 envs,
+  replay 4096 and batch 64 each), 2 segments of 5 steps (``ddpg_cli``'s
+  take 20), the global ``ckpt_2.pt``;
+  (b) two launchers (``--num-processes 2 --num-devices 2 --coordinator``,
+  each a process of one rank, started with (a) and held, imported and with
+  its CUDA context, until (a)'s file is written; then ``ddpg.main``) resume
+  from it to segment 3:
+  both restore at 2 and train segment 3 alone, their rank files hold
+  byte-equal networks and optimizers and different env shards, and only
+  rank 0 writes metrics; (c) a 1-rank NCCL group in this process runs one
+  config-5 segment byte-equal to the plain segment from the same state,
+  while (b)'s launchers start.
+  K1-K4 launch on every rank; each rank's launches, backend and seconds per
+  segment are printed beside ``ddpg_cli``'s.
 
 Each kernel is held against its plain version on seeded states and on the
 paths' own inputs and timed there (``parity_modes`` for K5b-K5d, with K5c
@@ -156,7 +172,9 @@ and spills (every render kernel culls: its bound counts the work these
 inputs need, with the full-work bound beside it); the last line is
 ``{"ok": true, "device": {...}}``.
 
-A watchdog turns a hang into a traceback and a nonzero exit after 300 s.
+A watchdog turns a hang into a traceback and a nonzero exit after 300 s;
+the ranks of ``parallel`` have a time limit of their own
+(``PARALLEL_RANK_TIMEOUT_S``) and are killed at it.
 Without CUDA, or without the port beside it, the script fails before
 printing any result.
 """
@@ -188,7 +206,7 @@ import numpy as np
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from cartpoleplusplus_tpu_torch import kernels
+from cartpoleplusplus_tpu_torch import kernels, parallel
 from cartpoleplusplus_tpu_torch.agents import common, ddpg, dqn, lrpg, naf, ppo, random_agent, sac
 from cartpoleplusplus_tpu_torch.agents.common import eval_rollout, make_venv
 from cartpoleplusplus_tpu_torch.agents.ddpg import greedy_act
@@ -206,6 +224,8 @@ from cartpoleplusplus_tpu_torch.replay import buffer as replay_mod
 from cartpoleplusplus_tpu_torch.utils import (
     benchmark, checkpoint, event_log, export, fidelity, native, roofline)
 from cartpoleplusplus_tpu_torch.utils.benchmark import device_events
+from cartpoleplusplus_tpu_torch.parallel import distributed
+from cartpoleplusplus_tpu_torch.parallel.mesh import free_port
 from cartpoleplusplus_tpu_torch.utils.params import (
     ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, q_network_params_from_flax,
     unflatten_tree)
@@ -445,6 +465,35 @@ NAF_TRAIN_FIELDS = ["ts", "elapsed_s", "event", "segment", "env_steps", "loss", 
 NAF_EVENT_FIELDS = {**EVENT_FIELDS, "train": NAF_TRAIN_FIELDS}
 NAF_UPDATES = 3
 NAF_STATS_RTOL = 1e-3
+# Data parallelism on the one card (parallel phase): ddpg_cli's flags over 2
+# ranks (each 2048 envs, replay 4096, batch 64) with PARALLEL_STEPS steps a
+# segment (a cut in depth from ddpg_cli's 20: each update waits on a gloo
+# all-reduce staged through host memory) and a checkpoint at each run's end
+# only; the ranks' time limit, and the launchers' seconds to exit after it.
+PARALLEL_RANKS = 2
+PARALLEL_STEPS = 5
+PARALLEL_ARGV = [*CLI_ARGV[:CLI_ARGV.index("--steps-per-segment")],
+                 "--steps-per-segment", str(PARALLEL_STEPS),
+                 *CLI_ARGV[CLI_ARGV.index("--steps-per-segment") + 2:CLI_ARGV.index("--ckpt-freq")],
+                 "--ckpt-freq", "1000", "--num-devices", str(PARALLEL_RANKS)]
+PARALLEL_RANK_TIMEOUT_S = 90
+PARALLEL_EXIT_S = 30
+# (b)'s launchers start with (a), import the port, make their CUDA context
+# and wait for (a)'s file before they call ``ddpg.main`` (a process takes
+# about 8 s to reach the card, which (a)'s run hides).
+_HELD_MAIN = """
+import os, sys, time
+import torch
+from cartpoleplusplus_tpu_torch.agents import ddpg
+torch.zeros(1, device="cuda")
+go, deadline = sys.argv[1], time.monotonic() + float(sys.argv[2])
+while not os.path.exists(go):
+    if time.monotonic() > deadline:
+        sys.exit("no go file")
+    time.sleep(0.02)
+ddpg.main(sys.argv[3:])
+"""
+_K1_K4 = ("step_repeats", "step_substeps", "render_repeats", "render_batched")
 
 # The bench's training hyperparameters (utils/benchmark.py build) and the
 # TD3 recipe's stabilizers.
@@ -2642,6 +2691,138 @@ def fidelity_check(log_path: str, work: str, dev) -> tuple[dict, dict]:
     return line, dict(kernels.LAUNCHES)
 
 
+def rank_lines(out: str) -> dict:
+    """A launcher's stderr → its ranks' ``PARALLEL`` end reports by rank and
+    the segments each rank's logger reported training and restoring."""
+    ends = [json.loads(ln[9:]) for ln in out.splitlines() if ln.startswith("PARALLEL ")]
+    return dict(ends={r["rank"]: r for r in ends if r["event"] == "end"},
+                trained=[int(m) for m in re.findall(r"\] train segment=(\d+)", out)],
+                restored=[int(m) for m in re.findall(r"\] restore step=(\d+)", out)])
+
+
+def parallel_check(work: str, dev, ddpg_cli_segment_s: float) -> tuple[dict, dict]:
+    """Data parallelism on the one card: (a) one launcher of 2 ranks, (b)
+    two launchers resuming from (a)'s global file, (c) a 1-rank NCCL group
+    against the plain segment → (the line, the launches of every rank)."""
+    ck = os.path.join(work, "ck")
+    env = {**os.environ, distributed.RANK_TIMEOUT_ENV: str(PARALLEL_RANK_TIMEOUT_S),
+           "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    os.environ[distributed.RANK_TIMEOUT_ENV] = str(PARALLEL_RANK_TIMEOUT_S)
+
+    # (b)'s two launchers, one rank each, held until (a) has written its file
+    go, port = os.path.join(work, "go"), free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _HELD_MAIN, go, str(PARALLEL_RANK_TIMEOUT_S), *PARALLEL_ARGV,
+         "--num-processes", "2", "--process-id", str(pid), "--coordinator",
+         f"localhost:{port}", "--ckpt-dir", ck, "--num-train-batches", "3",
+         "--metrics-jsonl", os.path.join(work, f"b{pid}.jsonl")],
+        env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+        for pid in (0, 1)]
+    try:
+        # (a) one launcher, two spawned ranks sharing the card
+        m_a = os.path.join(work, "a.jsonl")
+        t = time.monotonic()
+        final_a = ddpg.main([*PARALLEL_ARGV, "--ckpt-dir", ck, "--metrics-jsonl", m_a,
+                             "--num-train-batches", "2"])
+        a_s = time.monotonic() - t
+        reports_a = list(distributed.LAST_REPORTS)
+        trains_a = [e for e in read_jsonl(m_a) if e["event"] == "train"]
+        files_a = sorted(os.listdir(ck))
+
+        # (b) resumes to segment 3; (c) runs in this process meanwhile
+        t = time.monotonic()
+        open(go, "w").close()
+        # (c) one config-5 segment on a 1-rank NCCL group against the plain one
+        venv = make_venv(CONFIG5, NUM_ENVS)
+        plain = parallel.global_ddpg_state(CONFIG5, NUM_ENVS, REPLAY_CAPACITY, seed=SEED,
+                                           device=dev)
+        want = ddpg.make_segment(venv, **TRAIN_HP)(plain)
+        st = parallel.global_ddpg_state(CONFIG5, NUM_ENVS, REPLAY_CAPACITY, seed=SEED,
+                                        device=dev)
+        kernels.reset_launches()
+        t_c = time.monotonic()
+        mesh = parallel.init_process_group(f"localhost:{free_port()}", 0, 1, device=dev)
+        try:
+            segment, shard = parallel.make_distributed_segment(mesh, venv, **TRAIN_HP)
+            shard(st)
+            got = segment(st)
+            torch.cuda.synchronize()
+            backend_c = mesh.backend
+        finally:
+            parallel.destroy()
+        c_s = time.monotonic() - t_c
+        launches_c = dict(kernels.LAUNCHES)
+        nccl_equal = trees_equal(host_tree(st.state_dict()), host_tree(plain.state_dict())) \
+            and all(trees_equal(host_tree(got[k]), host_tree(want[k])) for k in want)
+        del plain, st, venv
+        outs = [p.communicate(timeout=PARALLEL_RANK_TIMEOUT_S + PARALLEL_EXIT_S)[1]
+                for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    b_s = time.monotonic() - t
+    ranks_b = [rank_lines(out) for out in outs]
+    paths = [os.path.join(ck, f"ckpt_3.rank{k}of2.pt") for k in (0, 1)]
+    rank_files = [torch.load(p, map_location="cpu", weights_only=True) if os.path.exists(p)
+                  else None for p in paths]
+    b0 = os.path.join(work, "b0.jsonl")
+    events_b = read_jsonl(b0) if os.path.exists(b0) else []
+
+    # the mean over both ranks of their segments after the first (a warm-up)
+    a_segment_s = sum(s for r in reports_a for s in r["segment_s"][1:]) / max(
+        sum(len(r["segment_s"][1:]) for r in reports_a), 1)
+    ranks = {f"a{r['rank']}": r for r in reports_a}
+    ranks.update({f"b{k}": rb["ends"].get(k, {}) for k, rb in enumerate(ranks_b)})
+    launches = {name: sum(r.get("launches", {}).get(name, 0) for r in ranks.values())
+                + launches_c.get(name, 0) for name in kernels.LAUNCHES}
+    net_keys = ("actor", "critic", "target_actor", "target_critic", "actor_opt", "critic_opt")
+    checks = {
+        "a_two_ranks_gloo_on_one_card": [(r["rank"], r["backend"], r["device"])
+                                         for r in reports_a] == [(0, "gloo", "cuda:0"),
+                                                                 (1, "gloo", "cuda:0")],
+        "a_trained_two_segments": [e["segment"] for e in trains_a] == [2]
+        and [e["env_steps"] for e in trains_a] == [2 * PARALLEL_STEPS * NUM_ENVS]
+        and all(len(r["segment_s"]) == 2 for r in reports_a)
+        and all(math.isfinite(e[k]) for e in trains_a for k in ("critic_loss", "actor_loss"))
+        and final_a == trains_a[-1]["eval_ep_len"],
+        "a_global_file": files_a == ["ckpt_2.pt"],
+        "b_both_ranks_restored_at_2": all(
+            r["ends"].get(k, {}).get("backend") == "gloo" and r["restored"] == [2]
+            for k, r in enumerate(ranks_b)),
+        "b_trained_segment_3_only": all(r["trained"] == [3] and len(
+            r["ends"].get(k, {}).get("segment_s", [])) == 1 for k, r in enumerate(ranks_b)),
+        "b_exit_0": [p.returncode for p in procs] == [0, 0],
+        "b_rank_files_nets_equal": None not in rank_files and all(
+            trees_equal(rank_files[0][k], rank_files[1][k]) for k in net_keys),
+        "b_rank_files_env_shards_differ": None not in rank_files and not torch.equal(
+            rank_files[0]["env_states"]["pos"], rank_files[1]["env_states"]["pos"]),
+        "b_one_metrics_writer": not os.path.exists(os.path.join(work, "b1.jsonl"))
+        and [e["event"] for e in events_b] == ["restore", "train"],
+        "k1_k4_on_every_rank": all(r.get("launches", {}).get(k, 0) > 0
+                                   for r in ranks.values() for k in _K1_K4),
+        "c_nccl": backend_c == "nccl",
+        "c_nccl_segment_equals_plain": nccl_equal,
+        "c_k1_k4_launched": all(launches_c[k] > 0 for k in _K1_K4),
+    }
+    if not checks["b_exit_0"]:
+        checks["b_stderr_tail"] = [out[-2000:] for out in outs]
+    line = dict(
+        argv=PARALLEL_ARGV, ranks=PARALLEL_RANKS,
+        backend={"a": [r["backend"] for r in reports_a], "b": [
+            r["ends"].get(k, {}).get("backend") for k, r in enumerate(ranks_b)], "c": backend_c},
+        segment_s={k: r.get("segment_s") for k, r in ranks.items()},
+        ddpg_cli_mean_segment_s=ddpg_cli_segment_s,
+        ddpg_cli_step_s=ddpg_cli_segment_s / int(CLI_ARGV[CLI_ARGV.index("--steps-per-segment") + 1]),
+        a_mean_segment_s=a_segment_s, a_step_s=a_segment_s / PARALLEL_STEPS,
+        launches_by_rank={k: {n: v for n, v in r.get("launches", {}).items() if v}
+                          for k, r in ranks.items()},
+        launches_c={n: v for n, v in launches_c.items() if v},
+        a_s=a_s, b_s=b_s, c_s=c_s, a_train_events=trains_a, b_events=events_b,
+        checks={k: v for k, v in checks.items() if isinstance(v, bool)},
+        **({"b_stderr_tail": checks["b_stderr_tail"]} if "b_stderr_tail" in checks else {}))
+    return line, launches
+
+
 def native_check(work: str) -> dict:
     """The trajlog codec (``native``): the library built from
     ``native/trajlog.cpp`` under the port's ``_build/`` (by the first event
@@ -3292,6 +3473,7 @@ def run() -> int:
     emit("ddpg_cli", **line)
     if not all(line["checks"].values()):
         raise AssertionError(f"ddpg_cli checks failed: {line['checks']}")
+    ddpg_cli_segment_s = line["mean_segment_s"]
 
     # 14. the JAX config-5 SAC checkpoint's actor on the card and its greedy
     # eval (slab: K1-K4)
@@ -3391,11 +3573,22 @@ def run() -> int:
             raise AssertionError(f"native checks failed: {line['checks']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+
+    # 25. data parallelism on the one card: two ranks over gloo (one
+    # launcher, then two), a 1-rank NCCL group against the plain segment
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        line, launches_by_path["parallel"] = parallel_check(work, dev, ddpg_cli_segment_s)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit("parallel", card=smi, **line)
+    if not all(line["checks"].values()):
+        raise AssertionError(f"parallel checks failed: {line['checks']}")
     for row in rows:
         row["launches_one_env"] = one_env.get(row["name"], 0)
         for path in ("crossload_td3", "ddpg_cli", "sac_crossload", "sac_cli", "replay_ext",
                      "ppo_cli", "lrpg_cli", "dqn_crossload", "dqn_cli", "export", "naf_cli",
-                     "per_env", "fidelity", "native"):
+                     "per_env", "fidelity", "native", "parallel"):
             n = launches_by_path[path].get(row["name"], 0)
             row["launches_by_path"][path] = n
             row["launches"] += n

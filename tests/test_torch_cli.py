@@ -1,14 +1,12 @@
 """The port's DDPG CLI against the JAX package's: the same flags, defaults
 and choices (``vars(opts)`` equal for the recipes' argv, the port adding
-only ``--device``), the same ``CartpoleConfig`` from them, every flag
-whose feature the port lacks refused at startup with the ROADMAP item that
-brings it, and ``--export-policy`` and ``--tb-dir`` writing what they
-write.
+only ``--device``), the same ``CartpoleConfig`` from them, the JAX
+package's multi-process contract refused at startup in its words, and
+``--export-policy`` and ``--tb-dir`` writing what they write.
 """
 
 import dataclasses
 import json
-import re
 import shlex
 
 import pytest
@@ -98,22 +96,22 @@ def test_config_from_opts_matches_jax(name):
 TOY = """--num-train-batches 2 --num-envs 4 --num-eval 4 --action-repeats 2
   --steps-per-repeat 2 --max-episode-len 10 --steps-per-segment 3 --batch-size 8
   --replay-capacity 64 --warmup-steps 1 --eval-freq 1"""
-# flag argv → the ROADMAP.md item its message must name
-UNPORTED = {
-    "--num-devices 2": "item 7",
-    "--num-processes 2 --coordinator h:1": "item 7",
+# flag argv → what its refusal must say (the JAX maybe_init_multihost's words)
+REFUSED = {
+    "--num-processes 2 --num-devices 2": r"--num-processes > 1 needs --coordinator host:port",
+    "--num-processes 2 --num-devices 1 --coordinator h:1":
+        r"--num-processes > 1 needs --num-devices set to the job-global device count",
 }
 
 
-@pytest.mark.parametrize("flags", sorted(UNPORTED))
+@pytest.mark.parametrize("flags", sorted(REFUSED))
 def test_unported_flag_stops_at_startup(flags, tmp_path):
-    """Each refused before anything is built, on the CPU as on the card;
-    the same flags at their defaults pass."""
+    """The JAX package's multi-process contract (and the divisibility its
+    multi-device CLI branch demands): each refused before anything is built
+    or written, on the CPU as on the card."""
     opts = ddpg.make_parser().parse_args(
         shlex.split(flags) + ["--device", "cpu", "--metrics-jsonl", str(tmp_path / "m.jsonl")])
-    flag = flags.split()[0]
-    with pytest.raises(SystemExit, match=re.escape(flag) + r".*ROADMAP\.md Queue 1 " +
-                       UNPORTED[flags]):
+    with pytest.raises(SystemExit, match=REFUSED[flags]):
         ddpg.train(opts)
     assert not (tmp_path / "m.jsonl").exists()
 
@@ -146,9 +144,11 @@ def test_ported_flag_runs(flag, tmp_path):
 
 
 def test_defaults_of_refused_flags_pass():
-    common.reject_unported(ddpg.make_parser().parse_args(
+    opts = ddpg.make_parser().parse_args(
         ["--n-step", "1", "--num-devices", "1", "--num-processes", "1", "--pallas-render",
-         "--pallas-physics"]))
+         "--pallas-physics"])
+    assert common.maybe_init_multihost(opts) is None
+    assert not common.launches_ranks(opts, None)
 
 
 def test_eval_only_without_checkpoint_is_an_error(tmp_path):

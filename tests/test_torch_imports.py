@@ -1,10 +1,13 @@
 """The port stands alone: it never imports JAX, flax, optax, msgpack or the
 JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
 scripts/torch_{sac,ppo,lrpg}_lowdim.py, scripts/torch_dqn_rainbow.py,
-scripts/torch_naf_anneal.py and scripts/export_{sac_actor,dqn_q}_npz.py), its
+scripts/torch_naf_anneal.py, scripts/torch_parallel_scaling.py,
+scripts/chip_smoke_parallel.py and scripts/export_{sac_actor,dqn_q}_npz.py), its
 CLIs (DDPG, SAC, PPO, LRPG, DQN and NAF, the random agent and the torch DQN
-demo) answer ``--help`` where JAX is not importable, and its entry points
-refuse to fall back to the CPU quietly."""
+demo) answer ``--help`` where JAX is not importable, its data-parallel
+layer (``parallel/``) imports and reduces over a gloo group where JAX is
+not importable, and its entry points refuse to fall back to the CPU
+quietly."""
 
 import os
 import subprocess
@@ -47,6 +50,8 @@ runpy.run_path("scripts/export_sac_actor_npz.py", run_name="not_main")
 runpy.run_path("scripts/torch_dqn_rainbow.py", run_name="not_main")
 runpy.run_path("scripts/export_dqn_q_npz.py", run_name="not_main")
 runpy.run_path("scripts/torch_naf_anneal.py", run_name="not_main")
+runpy.run_path("scripts/torch_parallel_scaling.py", run_name="not_main")
+runpy.run_path("scripts/chip_smoke_parallel.py", run_name="not_main")
 for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer",
              "cartpoleplusplus_tpu_torch.agents.ppo", "cartpoleplusplus_tpu_torch.agents.lrpg",
              "cartpoleplusplus_tpu_torch.utils.learning_run",
@@ -61,7 +66,9 @@ for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torc
              "cartpoleplusplus_tpu_torch.agents.torch_dqn_demo",
              "cartpoleplusplus_tpu_torch.utils.native", "cartpoleplusplus_tpu_torch.utils.plots",
              "cartpoleplusplus_tpu_torch.utils.fidelity",
-             "cartpoleplusplus_tpu_torch.utils.export"):
+             "cartpoleplusplus_tpu_torch.utils.export", "cartpoleplusplus_tpu_torch.parallel",
+             "cartpoleplusplus_tpu_torch.parallel.mesh",
+             "cartpoleplusplus_tpu_torch.parallel.distributed"):
     assert name in sys.modules, name
 from cartpoleplusplus_tpu_torch.replay import buffer
 for fn in ("sample_prioritized", "update_priorities", "nstep_batch", "valid_mask"):
@@ -91,8 +98,35 @@ def test_port_never_imports_jax():
     # agents.{ppo,lrpg,dqn,naf}, utils.learning_run, and the per-env surface's
     # physics.{contacts,solver,engine,urdf}, env.gym_env, utils.{event_log,
     # event_pb2,records,optim}, agents.{random_agent,torch_dqn_demo}, and the
-    # tools utils.{native,plots,fidelity,export}
-    assert int(out.stdout.split()[-1]) >= 51
+    # tools utils.{native,plots,fidelity,export}, and parallel.{mesh,distributed}
+    assert int(out.stdout.split()[-1]) >= 54
+
+
+_PARALLEL = _REFUSE + r"""
+import torch
+from cartpoleplusplus_tpu_torch import parallel
+from cartpoleplusplus_tpu_torch.parallel.mesh import free_port
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+mesh = parallel.init_process_group(f"localhost:{free_port()}", 0, 1, device="cpu")
+x = torch.tensor([1.5, -2.0])
+parallel.allreduce_mean_([x], mesh.group)
+parallel.destroy()
+assert x.tolist() == [1.5, -2.0] and mesh.backend == "gloo"
+print("reduced")
+"""
+
+
+def test_parallel_imports_without_jax():
+    """``cartpoleplusplus_tpu_torch.parallel`` imports where jax, flax,
+    optax, msgpack and the JAX package cannot be imported, leaves none of
+    them in ``sys.modules``, and averages over a 1-rank gloo group."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _PARALLEL], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert out.stdout.split()[-1] == "reduced"
 
 
 _NO_DYNAMO = _IMPORT_ALL.replace("print(len(names))", "") + r"""

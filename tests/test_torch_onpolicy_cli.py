@@ -1,6 +1,7 @@
 """The port's on-policy programs (PPO and LRPG) on the CPU: their CLIs
 against the JAX package's (the same flags, defaults and choices; the same
-``CartpoleConfig``; ``--num-devices`` above 1 refused at startup), their
+``CartpoleConfig``; an env count ``--num-devices`` does not divide refused
+at startup), their
 ``train`` beside the JAX ``train`` on one toy argv (the same events,
 fields, update numbers and env steps), a resume from 2 to 4 updates (the
 counterpart of ``tests/test_ppo.py::test_ppo_resume``), ``--eval-only``
@@ -126,9 +127,11 @@ def test_config_from_opts_matches_jax(agent):
 
 @pytest.mark.parametrize("agent", sorted(AGENTS))
 def test_num_devices_stops_at_startup(agent, tmp_path):
+    """The JAX CLI's multi-device branch refuses --num-envs 64 over 3
+    devices, before anything is built or written."""
     opts = AGENTS[agent][0].make_parser().parse_args(
-        ["--num-devices", "2", "--device", "cpu", "--metrics-jsonl", str(tmp_path / "m.jsonl")])
-    with pytest.raises(SystemExit, match=r"--num-devices.*ROADMAP\.md Queue 1 item 7"):
+        ["--num-devices", "3", "--device", "cpu", "--metrics-jsonl", str(tmp_path / "m.jsonl")])
+    with pytest.raises(SystemExit, match=r"--num-envs must be divisible by --num-devices"):
         AGENTS[agent][0].train(opts)
     assert not (tmp_path / "m.jsonl").exists()
 
