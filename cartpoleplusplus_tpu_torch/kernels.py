@@ -163,6 +163,8 @@ def library() -> ctypes.CDLL:
     lib.cp_pack_setups.restype = i32
     lib.cp_roofline.argtypes = [ptr, ptr, i32, i32, i32, ptr]
     lib.cp_roofline.restype = i32
+    lib.cp_roofline_geometry.argtypes = [i32, i32, ptr]
+    lib.cp_roofline_geometry.restype = i32
     return lib
 
 

@@ -7,10 +7,18 @@ stores).  ``CHAINS`` holds each chain's op count per element per iteration,
 the JAX probe's own.  :func:`run_chain` launches the kernel for a CUDA
 tensor and runs :func:`plain_chain`, the plain PyTorch version, for a CPU
 one; :func:`measure_vpu` times the kernel and needs the card.
+
+The kernel runs one wave sized to the card, K chains a thread; :func:`split`
+mirrors how it divides the block (:func:`geometry` reads the launch it makes
+on the card), and :func:`interleaved_chain` runs the plain chains in that
+division.  :func:`issue_bound` prices a chain's loop body, its SASS opcodes
+per element-iteration, at the card's instruction throughputs.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 
 import torch
 
@@ -27,6 +35,110 @@ CHAINS = {
     "recip_f32": (4, 3, torch.float32),
     "div_f32": (5, 3, torch.float32),
 }
+
+
+# The kernel's launch (csrc/roofline.cu): threads per block (one warp per
+# scheduler) and independent chains per thread, by chain (div_f32's
+# divisions run one after another in a thread, so it takes 3 chains and
+# more warps).
+THREADS = 128
+CHAINS_PER_THREAD = {mix: 3 if mix == "div_f32" else 4 for mix in CHAINS}
+WARP = 32
+SCHEDULERS_PER_SM = 4
+
+# Throughput of native arithmetic instructions at compute capability 9.0,
+# in results per clock per SM (CUDA C++ Programming Guide, "Arithmetic
+# Instructions", table "Throughput of Native Arithmetic Instructions"):
+# class → (results per clock per SM, results per instruction, SASS opcodes).
+# A paired 16-bit instruction (HFMA2 on a bfloat16 pair) gives two results.
+THROUGHPUT_CC90 = {
+    "fp32 add/mul/fma": (128, 1, ("FFMA", "FADD", "FMUL", "FFMA32I", "FADD32I", "FMUL32I")),
+    "fp16/bf16 add/mul/fma": (256, 2, ("HFMA2", "HADD2", "HMUL2", "HFMA2_32I", "HADD2_32I",
+                                       "HMUL2_32I")),
+    "mufu rcp/rsqrt/lg2/ex2/sin/cos": (16, 1, ("MUFU",)),
+    "compare/min/max": (64, 1, ("FSETP", "FSET", "FMNMX", "ISETP", "IMNMX")),
+    "int32 add": (64, 1, ("IADD3", "IADD", "VIADD", "IADD32I")),
+    "int32 bitwise and/or/xor": (64, 1, ("LOP3", "LOP", "LOP32I")),
+}
+_CLASS_OF = {op: name for name, (_, _, ops) in THROUGHPUT_CC90.items() for op in ops}
+
+
+def issue_bound(opcodes_per_elem_iter: dict, sm_count: int, clock_hz: float) -> dict:
+    """The least time a loop body can take on the card, from its SASS
+    opcodes per element-iteration (``{"FFMA": 1.0, ...}``; a paired
+    bfloat16 instruction counts 0.5 per element) → ``{"el_iter_per_s",
+    "bound_by", "clocks_per_el_iter", "unpriced"}``.
+
+    An SM issues one warp instruction per clock on each of its schedulers
+    (the ``issue`` bound), and each class of :data:`THROUGHPUT_CC90` runs at
+    its own rate; the bound is the largest of these clocks per
+    element-iteration per SM (a tie goes to ``issue``).  An opcode of no
+    class there is priced at the FFMA rate, which is optimistic, and listed
+    in ``unpriced``."""
+    clocks = {"issue": sum(opcodes_per_elem_iter.values()) / (SCHEDULERS_PER_SM * WARP)}
+    for name, (rate, per_instr, ops) in THROUGHPUT_CC90.items():
+        count = sum(opcodes_per_elem_iter.get(op, 0) for op in ops)
+        if count:
+            clocks[name] = count * per_instr / rate
+    unpriced = sorted(op for op in opcodes_per_elem_iter if op not in _CLASS_OF)
+    ffma_rate = THROUGHPUT_CC90["fp32 add/mul/fma"][0]
+    for op in unpriced:
+        clocks[f"{op} (unpriced: FFMA rate)"] = opcodes_per_elem_iter[op] / ffma_rate
+    by = max(clocks, key=clocks.get)
+    return {"el_iter_per_s": sm_count * clock_hz / clocks[by], "bound_by": by,
+            "clocks_per_el_iter": clocks, "unpriced": unpriced}
+
+
+def units_of(mix: str, n: int) -> int:
+    """The kernel's units of an n-element block: elements, or bfloat16 pairs."""
+    return n // 2 if CHAINS[mix][2] == torch.bfloat16 else n
+
+
+def split(units: int, sm_count: int, max_blocks: int, k: int, threads: int = THREADS) -> dict:
+    """How K6 divides ``units`` over the card (csrc/roofline.cu
+    ``geometry``): ``blocks_per_sm`` blocks of ``threads`` on each of
+    ``sm_count`` SMs (enough warps for ``k`` units a thread, at most
+    ``max_blocks``, the most an SM holds), one wave of ``grid`` blocks;
+    every thread's first ``full`` slots are whole rounds of the block, and
+    slot ``full`` takes the ``rest``, in runs of equal length per block."""
+    per_sm = sm_count * WARP * k
+    warps = -(-units // per_sm)
+    blocks = min(max(-(-warps // (threads // WARP)), 1), max_blocks)
+    grid = sm_count * blocks
+    full, rest = divmod(units, grid * threads)
+    return {"sms": sm_count, "blocks_per_sm": blocks, "grid": grid, "threads": threads, "k": k,
+            "full": full, "rest": rest, "slots": full + (rest > 0)}
+
+
+def slot_units(geo: dict) -> torch.Tensor:
+    """The unit each slot of each thread holds, as the kernel takes them:
+    (slots rounded up to k, threads) int64, -1 where a slot holds none."""
+    grid, threads, full, rest = geo["grid"], geo["threads"], geo["full"], geo["rest"]
+    n_threads = grid * threads
+    t = torch.arange(n_threads, dtype=torch.int64)
+    b, i = t // threads, t % threads
+    lo, hi = b * rest // grid, (b + 1) * rest // grid
+    last = torch.where(i < hi - lo, full * n_threads + lo + i, -1)
+    rows = math.ceil(geo["slots"] / geo["k"]) * geo["k"]
+    return torch.stack([s * n_threads + t if s < full else last if s == full
+                        else torch.full_like(t, -1) for s in range(rows)])
+
+
+def interleaved_chain(mix: str, x: torch.Tensor, iters: int, sm_count: int,
+                      max_blocks: int) -> torch.Tensor:
+    """The fused plain chains run as K6 divides them: each thread's slots
+    side by side, dummy slots starting from 1.0, the units written back
+    where they came from."""
+    pairs = CHAINS[mix][2] == torch.bfloat16
+    flat = x.reshape(-1, 2 if pairs else 1)
+    idx = slot_units(split(flat.shape[0], sm_count, max_blocks, CHAINS_PER_THREAD[mix]))
+    live = idx >= 0
+    v = torch.where(live[..., None], flat[idx.clamp(min=0)], torch.ones((), dtype=x.dtype))
+    for _ in range(iters):
+        v = _step(mix, v, fused=True)
+    out = torch.empty_like(flat)
+    out[idx[live]] = v[live]
+    return out.reshape(x.shape)
 
 
 def _fma(v: torch.Tensor, scale, shift) -> torch.Tensor:
@@ -109,6 +221,19 @@ def run_chain(mix: str, x: torch.Tensor, iters: int) -> torch.Tensor:
     launch(mix, x, out, iters)
     kernels.LAUNCHES["roofline_" + mix] += 1
     return out
+
+
+def geometry(mix: str, n: int) -> dict:
+    """The launch K6 makes on the current card for chain ``mix`` over n
+    elements: :func:`split`'s keys, ``max_blocks`` (what an SM holds by the
+    kernel's registers and threads), ``smem`` (the dynamic shared memory a
+    block asks for, so that an SM holds no more than ``blocks_per_sm``) and
+    ``unroll`` (steps per pass of the unrolled loop)."""
+    vals = (ctypes.c_int * 11)()
+    kernels.check(kernels.library().cp_roofline_geometry(CHAINS[mix][0], n, vals), "roofline")
+    keys = ("sms", "max_blocks", "blocks_per_sm", "grid", "threads", "smem", "k", "unroll",
+            "full", "rest", "slots")
+    return dict(zip(keys, vals))
 
 
 def _best_ms(fn, reps: int) -> float:

@@ -27,7 +27,10 @@ set to 0 just before it and read just after:
   the main path's reset states and on seeded states, then a training row
   as above;
 - the card's element-op rate probe (K6): six op chains timed at N and 2N
-  iterations;
+  iterations, each beside its type's peak and beside its issue bound, the
+  least time of the chain's own instructions in its loop's SASS (the loop's
+  counting and branching set apart) at the card's ``clocks.max.sm``
+  (``roofline.issue_bound``), with ``clocks.sm`` sampled after it;
 - the port's bench (``bench_torch.py``'s four-row suite, its parent run in
   this process, each row in a child process of its own): four row lines
   and the summary, every row on the card with its mix rate measured there
@@ -172,7 +175,7 @@ and spills (every render kernel culls: its bound counts the work these
 inputs need, with the full-work bound beside it); the last line is
 ``{"ok": true, "device": {...}}``.
 
-A watchdog turns a hang into a traceback and a nonzero exit after 300 s;
+A watchdog turns a hang into a traceback and a nonzero exit after 600 s;
 the ranks of ``parallel`` have a time limit of their own
 (``PARALLEL_RANK_TIMEOUT_S``) and are killed at it.
 Without CUDA, or without the port beside it, the script fails before
@@ -230,7 +233,9 @@ from cartpoleplusplus_tpu_torch.utils.params import (
     ddpg_params_from_jax_checkpoint, gaussian_actor_params_from_flax, q_network_params_from_flax,
     unflatten_tree)
 
-WATCHDOG_S = 300
+# The command takes 200-290 s, and hosts run 1.1-1.6x another's: 600 s
+# leaves a slow host room and stays well inside a 1200 s limit.
+WATCHDOG_S = 600
 SEED = 0
 NUM_ENVS = 4096
 PARITY_ENVS = 1024
@@ -275,6 +280,13 @@ K6_PARITY_ITERS = 256
 K6_ATOL = {torch.float32: 1e-6, torch.bfloat16: 2.0**-9}
 K6_MOVE_SHARE = 0.01
 K6_ROW_ITERS = 1000  # the chains' iterations in the kernels line
+# Each chain's unrolled loop holds a multiple of unroll·K steps, each with
+# one of this opcode (a step of one unit: a float32 element or a bfloat16
+# pair); the loop's own instructions stay under K6_LOOP_SHARE of those it
+# issues.
+K6_STEP_OPCODE = {"fma_f32": "FFMA", "fma_bf16": "HFMA2", "mix_f32": "FMNMX",
+                  "mix_bf16": "HMNMX2", "recip_f32": "MUFU", "div_f32": "MUFU"}
+K6_LOOP_SHARE = 0.05
 
 _ROW = dict(discrete_actions=False, use_raw_pixels=True, render_width=50, render_height=50,
             obs_pool=2, action_repeats=3, steps_per_repeat=5, solver_iterations=3)
@@ -612,24 +624,175 @@ def census(fn) -> int:
     return c.ops
 
 
-def sass_opcodes(lib_path: str, function: str) -> dict | None:
-    """Opcode counts of one kernel's SASS in the built library, by
-    ``cuobjdump -sass`` (None where the toolkit has no cuobjdump)."""
+_SASS_INSN = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)([.\w]*)\s*(.*?)\s*;")
+# Instructions of a loop's own counting, branching and constant set-up
+# (besides its back edge): ptxas sets a chain's constant up again on each
+# pass (an IMAD, a MOV and a PRMT for a bfloat16 pair, or an LDC), and may
+# combine the loop's predicates (PLOP3).
+LOOP_OPCODES = ("IADD3", "IADD", "VIADD", "ISETP", "UIADD3", "UISETP", "IMAD", "MOV", "UMOV", "PRMT",
+                "LDC", "PLOP3", "NOP")
+
+
+def sass_dump(lib_path: str) -> str:
+    """``cuobjdump -sass`` of the built library."""
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
-    if not os.path.exists(tool):
-        return None
-    dump = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
+    return subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True,
                           timeout=120, check=True).stdout
-    counts, inside = collections.Counter(), False
+
+
+def sass_instructions(dump: str, function: str,
+                      modifiers: bool = False) -> list[tuple[int, str, str, str]]:
+    """One kernel's SASS (the first function whose mangled name holds
+    ``function``) → [(address, predicate or "", opcode, operands)]; with
+    ``modifiers`` the opcode keeps them (``HFMA2.MMA.BF16_V2``)."""
+    insns, inside, seen = [], False, False
     for line in dump.splitlines():
         if "Function :" in line:
-            inside = function in line
-        elif inside:
-            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-            if m:
-                counts[m.group(1)] += 1
-    return dict(counts)
+            inside = function in line and not seen
+            seen = seen or inside
+        elif inside and (m := _SASS_INSN.search(line)):
+            op = m.group(3) + (m.group(4) if modifiers else "")
+            insns.append((int(m.group(1), 16), (m.group(2) or "").strip(), op, m.group(5)))
+    return insns
+
+
+def _branch_target(op: str, args: str) -> int | None:
+    m = re.search(r"0x([0-9a-f]+)$", args) if op == "BRA" else None
+    return int(m.group(1), 16) if m else None
+
+
+def sass_loop_body(insns: list[tuple[int, str, str, str]]) -> dict:
+    """The opcodes of a kernel's unrolled loop: the largest innermost
+    loop (from the target of a conditional backward branch before the last
+    ``EXIT`` to the branch, no other backward branch inside).  A region
+    that a conditional forward branch inside it jumps over to skip a
+    ``CALL`` (the IEEE division's slow path, which the probe's divisors,
+    between 0.5 and 3, never take) is counted apart, as ``skipped``; the
+    rest is ``issued``.  ``loop_own`` holds the back edge and the loop's own
+    instructions (:data:`LOOP_OPCODES`), ``chain`` the rest of ``issued``:
+    the chain's own instructions, a division's forward branch over its slow
+    path among them."""
+    end = max((a for a, _, op, _ in insns if op == "EXIT"), default=0)
+    back = [(t, a) for a, pred, op, args in insns
+            if pred and (t := _branch_target(op, args)) is not None and t < a <= end]
+    inner = [(lo, hi) for lo, hi in back if not any(lo <= a < hi for _, a in back)]
+    if not inner:
+        raise AssertionError("no loop found in the kernel's SASS")
+    lo, hi = max(inner, key=lambda r: r[1] - r[0])
+    body = [i for i in insns if lo <= i[0] <= hi]
+    skipped = set()
+    for a, pred, op, args in body:
+        t = _branch_target(op, args) if pred else None
+        if t is not None and a < t <= hi:
+            region = [i for i in body if a < i[0] < t]
+            if any(i[2] == "CALL" for i in region):
+                skipped.update(i[0] for i in region)
+    issued = collections.Counter(op for a, _, op, _ in body if a not in skipped)
+    loop_own = collections.Counter({op: issued[op] for op in LOOP_OPCODES if issued[op]})
+    loop_own["BRA"] += 1
+    return {"issued": dict(issued), "chain": dict(issued - loop_own), "loop_own": dict(loop_own),
+            "skipped": dict(collections.Counter(op for a, _, op, _ in body if a in skipped)),
+            "range": [hex(lo), hex(hi)]}
+
+
+def smi_query(fields: str) -> str:
+    """One ``nvidia-smi --query-gpu`` line of the first card, without units."""
+    return subprocess.run(["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader,nounits"],
+                          capture_output=True, text=True, timeout=60,
+                          check=True).stdout.strip().splitlines()[0]
+
+
+def type_peak(mix: str) -> float:
+    """The published peak of a chain's type (op/s)."""
+    return PEAK_BF16_OPS_PER_S if roofline.CHAINS[mix][2] == torch.bfloat16 else PEAK_F32_OPS_PER_S
+
+
+def roofline_phase(dev, lib_path: str) -> tuple[dict, dict, dict]:
+    """K6: each chain against its fused plain chains from distinct starts
+    and its launch against :func:`roofline.split`; then, with the counts
+    from 0, each timed at N and 2N iterations with ``clocks.sm`` sampled
+    right after; each chain's loop body read from the SASS (a multiple of
+    unroll·K steps, the loop's own instructions under K6_LOOP_SHARE,
+    fma_f32's FFMAs only), its chain's own instructions priced by
+    :func:`roofline.issue_bound` at ``clocks.max.sm`` (div_f32's BSSY,
+    BSYNC and forward BRA among them: every IEEE division ptxas emits
+    issues them) → (the line's fields, errors by kernel name, issue bounds
+    by chain)."""
+    errs, moved = {}, {}
+    for mix, (_, _, dtype) in roofline.CHAINS.items():
+        x = roofline.varied(mix, roofline.SHAPE, dev)
+        want = roofline.plain_chain(mix, x, K6_PARITY_ITERS, fused=True).float()
+        err = float((roofline.run_chain(mix, x, K6_PARITY_ITERS).float() - want).abs().max())
+        moved[mix] = float((want - x.float()).abs().max())
+        if not err <= min(K6_ATOL[dtype], K6_MOVE_SHARE * moved[mix]):
+            raise AssertionError(
+                f"roofline {mix} disagrees with its plain version: {err} (plain moved {moved[mix]})")
+        errs[f"roofline_{mix}"] = err
+    n = math.prod(roofline.SHAPE)
+    geo = {mix: roofline.geometry(mix, n) for mix in roofline.CHAINS}
+    for mix, g in geo.items():
+        want = roofline.split(roofline.units_of(mix, n), g["sms"], g["max_blocks"],
+                              roofline.CHAINS_PER_THREAD[mix])
+        if any(g[key] != v for key, v in want.items()):
+            raise AssertionError(f"roofline {mix}: the kernel's launch {g} is not split's {want}")
+    kernels.reset_launches()
+    probe, clocks_sm = {}, {}
+    for mix in roofline.CHAINS:
+        probe[mix] = roofline.measure_chain(mix)
+        clocks_sm[mix] = float(smi_query("clocks.sm"))
+    launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    clock_max = float(smi_query("clocks.max.sm"))
+    dump = sass_dump(lib_path)
+    whole_fma = collections.Counter(
+        op for _, _, op, _ in sass_instructions(dump, PTXAS_NAMES["roofline_fma_f32"]))
+    if not (whole_fma["FFMA"] > 0 and not whole_fma["FMUL"] and not whole_fma["FADD"]):
+        raise AssertionError(f"fma_f32's kernel is not FFMAs only: {dict(whole_fma)}")
+    chains, bounds = {}, {}
+    for mix, m in probe.items():
+        g, ops, pairs = geo[mix], roofline.CHAINS[mix][1], roofline.CHAINS[mix][2] == torch.bfloat16
+        body = sass_loop_body(sass_instructions(dump, PTXAS_NAMES[f"roofline_{mix}"]))
+        # ptxas may unroll the loop further (div_f32's twice): the steps in
+        # the body are a multiple of unroll·K.
+        issued, steps = body["issued"], body["issued"].get(K6_STEP_OPCODE[mix], 0)
+        if not (steps and steps % (g["unroll"] * g["k"]) == 0):
+            raise AssertionError(f"roofline {mix}: the loop found is not the chain's: {body}")
+        loop_share = sum(body["loop_own"].values()) / sum(issued.values())
+        if not loop_share < K6_LOOP_SHARE:
+            raise AssertionError(f"roofline {mix}: the loop's own share is {loop_share:.3f}")
+        if mix == "fma_f32" and set(body["chain"]) != {"FFMA"}:
+            raise AssertionError(f"fma_f32's loop is not FFMAs only: {issued}")
+        # The bound prices the chain's own instructions only, not the loop's.
+        per_step = {op: c / steps for op, c in sorted(body["chain"].items())}
+        # ptxas may issue a 16-bit multiply-add on the tensor cores' pipe (.MMA).
+        lo, hi = (int(a, 16) for a in body["range"])
+        mma = sum(lo <= a <= hi and ".MMA" in op for a, _, op, _ in sass_instructions(
+            dump, PTXAS_NAMES[f"roofline_{mix}"], modifiers=True))
+        bound = roofline.issue_bound({op: c / (2 if pairs else 1) for op, c in per_step.items()},
+                                     g["sms"], clock_max * 1e6)
+        bounds[mix] = bound
+        rate, bound_rate = m["el_ops_per_s"], ops * bound["el_iter_per_s"]
+        chains[mix] = {
+            **m, "share_of_peak": rate / type_peak(mix), "issue_bound_el_ops_per_s": bound_rate,
+            "share_of_issue_bound": rate / bound_rate, "bound_by": bound["bound_by"],
+            "clocks_per_el_iter": bound["clocks_per_el_iter"], "unpriced": bound["unpriced"],
+            "sass_per_step": per_step, "sass_mma_per_step": mma / steps,
+            "sass_steps_in_loop": steps, "sass_skipped": body["skipped"],
+            "sass_loop_own": body["loop_own"], "sass_loop_range": body["range"],
+            "loop_share": loop_share,
+            "clocks_sm_mhz": clocks_sm[mix],
+            **{key: g[key] for key in ("sms", "max_blocks", "blocks_per_sm", "grid", "threads",
+                                        "smem", "k", "unroll", "full", "rest")},
+        }
+    fields = {
+        "shape": roofline.SHAPE, "iters": roofline.ITERS, "clocks_max_sm_mhz": clock_max,
+        "parity_iters": K6_PARITY_ITERS, "max_abs_err": errs, "plain_moved": moved,
+        "share_of_peak": {mix: c["share_of_peak"] for mix, c in chains.items()},
+        "share_of_issue_bound": {mix: c["share_of_issue_bound"] for mix, c in chains.items()},
+        "chains": chains, "launches": launches,
+    }
+    return fields, errs, bounds
 
 
 def time_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -3207,35 +3370,10 @@ def run() -> int:
     del state_ld, obs_ld
 
     # 7b. the card's element-op rate (K6): each chain against its plain
-    # version, then timed at N and 2N iterations
-    k6_errs, k6_moved = {}, {}
-    for mix, (_, _, dtype) in roofline.CHAINS.items():
-        x = roofline.varied(mix, roofline.SHAPE, dev)
-        want = roofline.plain_chain(mix, x, K6_PARITY_ITERS, fused=True).float()
-        err = float((roofline.run_chain(mix, x, K6_PARITY_ITERS).float() - want).abs().max())
-        moved = float((want - x.float()).abs().max())
-        if not err <= min(K6_ATOL[dtype], K6_MOVE_SHARE * moved):
-            raise AssertionError(
-                f"roofline {mix} disagrees with its plain version: {err} (plain moved {moved})")
-        k6_errs[f"roofline_{mix}"], k6_moved[mix] = err, moved
-    kernels.reset_launches()
-    probe = {mix: roofline.measure_chain(mix) for mix in roofline.CHAINS}
-    launches_by_path["roofline"] = dict(kernels.LAUNCHES)
-    # fma_f32's chain must be FFMAs only (no FMUL/FADD pair, nothing folded);
-    # checked where the toolkit has cuobjdump.
-    fma_sass = sass_opcodes(kernels.build()["path"], "chain_f32_kernelILi0E")
-    if fma_sass is None:
-        print("chip_smoke: no cuobjdump; fma_f32's SASS is not checked", file=sys.stderr)
-    elif not (fma_sass.get("FFMA", 0) > 0 and not fma_sass.get("FMUL") and not fma_sass.get("FADD")):
-        raise AssertionError(f"fma_f32's chain is not FFMAs only: {fma_sass}")
-    peak = {m: PEAK_BF16_OPS_PER_S if dtype == torch.bfloat16 else PEAK_F32_OPS_PER_S
-            for m, (_, _, dtype) in roofline.CHAINS.items()}
-    emit("roofline", shape=roofline.SHAPE, iters=roofline.ITERS, card=smi,
-         fma_f32_sass_opcodes=fma_sass, fma_f32_sass_checked=fma_sass is not None,
-         parity_iters=K6_PARITY_ITERS, max_abs_err=k6_errs, plain_moved=k6_moved,
-         chains=probe, peak_ops_per_s=peak,
-         share_of_peak={m: v["el_ops_per_s"] / peak[m] for m, v in probe.items()},
-         launches={k: v for k, v in launches_by_path["roofline"].items() if v})
+    # version, then timed at N and 2N iterations and priced from its SASS
+    k6_fields, k6_errs, k6_bounds = roofline_phase(dev, info["path"])
+    launches_by_path["roofline"] = k6_fields["launches"]
+    emit("roofline", card=smi, **k6_fields)
 
     # 8. kernels at the main paths' shapes: parity, time, plain time, bound
     e = NUM_ENVS
@@ -3343,8 +3481,11 @@ def run() -> int:
         for name, source, replaces in KERNELS:
             wrapper_fn, plain_fn, nbytes, ops = work[name]
             ops = census(plain_fn) if ops is None else ops
-            peak_ops = peak.get(name.removeprefix("roofline_"), PEAK_F32_OPS_PER_S)
-            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / peak_ops * 1e3
+            t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_F32_OPS_PER_S * 1e3
+            mix = name.removeprefix("roofline_")
+            if mix in k6_bounds:  # K6: its loop body priced from its SASS
+                t_peak = ops / type_peak(mix) * 1e3
+                t_ops = ops / roofline.CHAINS[mix][1] / k6_bounds[mix]["el_iter_per_s"] * 1e3
             rows.append({
                 "name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": total_launches[name],
@@ -3361,6 +3502,9 @@ def run() -> int:
                 "census_ops": ops, "bytes": nbytes,
                 **usage_of(usage, name),
             })
+            if mix in k6_bounds:
+                rows[-1]["bound_basis"] = f"roofline.issue_bound: {k6_bounds[mix]['bound_by']}"
+                rows[-1]["bound_ms_type_peak"] = max(t_bytes, t_peak)
             if name in full_ops:
                 rows[-1]["bound_ms_full_work"] = max(
                     t_bytes, full_ops[name] / PEAK_F32_OPS_PER_S * 1e3)

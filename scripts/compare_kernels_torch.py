@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the port's K1-K4 and K5a-K5d kernels of two source trees on one GPU.
+"""Compare the port's K1-K4, K5a-K5d and K6 kernels of two source trees on one GPU.
 
     python3 scripts/compare_kernels_torch.py --parent DIR [--out DIR]
 
@@ -28,6 +28,15 @@ its cull rectangles widened to the plane (``ray_abs`` = inf) and, where its
 render kernels have the switch (``RenderParams.cull``), K5a, K5c and K5d
 with their cull on and off (``variants_ms``): the cull's form in the tree
 that has one, the same kernel twice in one that has none.
+
+Each tree also launches K6's six chains (``roofline.launch``) over the
+probe's (512, 1280) block: from ``roofline.varied`` for
+``chip_smoke.K6_PARITY_ITERS`` iterations and from ``roofline.initial`` for
+``chip_smoke.K6_ROW_ITERS`` (the kernels line's count), whose outputs are
+compared byte for byte and whose launch is timed (``k6/<chain>``), and
+measures each chain's rate by its N/2N timing (``roofline.measure_chain``;
+``k6_el_ops_per_s``, with the ratio of this tree's two runs to the
+parent's).
 
 Input sets (config 5 unless named; 50x50 renders, obs_pool 2, 3 repeats x
 5 substeps, 3 solver iterations):
@@ -108,6 +117,15 @@ def _configs():
             "exact2": CartpoleConfig(num_cameras=2, obs_samples=0, **row),
             "exact2_192": CartpoleConfig(num_cameras=2, obs_samples=0, **{
                 **row, "render_width": 192, "render_height": 192})}
+
+
+def k6_inputs(dev) -> dict:
+    """K6's starting blocks: {chain: {"varied": ..., "initial": ...}}."""
+    from cartpoleplusplus_tpu_torch.utils import roofline
+
+    return {mix: {"varied": roofline.varied(mix, roofline.SHAPE, dev),
+                  "initial": roofline.initial(mix, roofline.SHAPE, dev)}
+            for mix in roofline.CHAINS}
 
 
 def make_inputs(path: str) -> dict:
@@ -201,6 +219,7 @@ def make_inputs(path: str) -> dict:
                 rnd = Renderer(cfg_s1 if name == "p2_1" else cfg5, dev)
                 shares[name] = chip_smoke.cast_shares(scene, rnd, poses)
         saved[name] = item
+    saved["k6"] = k6_inputs(dev)
     torch.save(saved, path)
     return shares
 
@@ -226,6 +245,7 @@ def worker(tree: str, inputs: str, out: str) -> None:
     from cartpoleplusplus_tpu_torch.physics import cuda_step
     from cartpoleplusplus_tpu_torch.render import cuda_render
     from cartpoleplusplus_tpu_torch.render.cuda_render import Renderer
+    from cartpoleplusplus_tpu_torch.utils import roofline
 
     sys.path.insert(1, REPO)
     import chip_smoke  # this tree's timing helpers; the kernels are `tree`'s
@@ -322,8 +342,22 @@ def worker(tree: str, inputs: str, out: str) -> None:
                     variants[f"{label}@{form}"] = time_ms(
                         lambda vp=vp, p=p, frames=frames, setups=setups: rnd.launch(
                             vp, p, frames, setups))
+    rates = {}
+    for mix, item in sets["k6"].items():
+        as_int = torch.int16 if item["varied"].dtype == torch.bfloat16 else torch.int32
+        for start, iters in (("varied", chip_smoke.K6_PARITY_ITERS),
+                             ("initial", chip_smoke.K6_ROW_ITERS)):
+            x = item[start]
+            y = torch.empty_like(x)
+            fn = lambda mix=mix, x=x, y=y, iters=iters: roofline.launch(mix, x, y, iters)
+            fn()
+            torch.cuda.synchronize()
+            outputs[f"k6/{mix}@{start}_{iters}"] = (y.view(as_int).cpu(),)
+            if start == "initial":
+                ms[f"k6/{mix}"] = time_ms(fn)
+        rates[mix] = roofline.measure_chain(mix)["el_ops_per_s"]
     torch.save({"outputs": outputs, "ms": ms, "variants_ms": variants, "device_ms": device,
-                "shapes": shapes,
+                "shapes": shapes, "k6_el_ops_per_s": rates,
                 "ptxas": info["log"], "nvcc_s": info["nvcc_s"]}, out)
 
 
@@ -379,6 +413,7 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     ms = {k: [r["ms"][k] for r in runs] for k in runs[0]["ms"]}
     device = {k: [r["device_ms"][k] for r in runs] for k in runs[0]["device_ms"]}
+    rates = {k: [r["k6_el_ops_per_s"][k] for r in runs] for k in runs[0]["k6_el_ops_per_s"]}
     result = {
         "trees": trees, "order": "ABBA", "card": smi, "reps": REPS,
         "ms": ms,
@@ -386,12 +421,14 @@ def main() -> int:
         "device_ms": device,
         "device_ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in device.items()
                                   if None not in v},
+        "k6_el_ops_per_s": rates,
+        "k6_rate_ratio_b_over_a": {k: (v[1] + v[2]) / (v[0] + v[3]) for k, v in rates.items()},
         "equal": equal, "k5d_b_vs_a": mxu_vs_a, "k5c_equals_k5a": k5c_equals_k5a,
         "skipped_cast_share": shares,
         "variants_ms": {tag: runs[i]["variants_ms"] for tag, i in (("A", 0), ("B", 1))},
         "ptxas": {tag: {k: v for k, v in chip_smoke.ptxas_usage(runs[i]["ptxas"]).items()
                         if re.search(r"phys_kernel|render_slab_kernel|render_kernel|"
-                                     r"render_raster|pack_setups", k)}
+                                     r"render_raster|pack_setups|chain_", k)}
                   for tag, i in (("A", 0), ("B", 1))},
         "nvcc_s": {"A": runs[0]["nvcc_s"], "B": runs[1]["nvcc_s"]},
         "seconds": time.monotonic() - t0, "ok": ok,
