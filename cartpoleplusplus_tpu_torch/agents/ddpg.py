@@ -446,7 +446,7 @@ def add_ddpg_opts(parser) -> None:
     parser.add_argument("--target-noise-clip", type=float, default=0.5)
 
 
-def train(opts) -> float:
+def train(opts, stop_at: int | None = None) -> float:
     """The JAX ``train`` over the port's pieces → the last eval's mean
     episode length.
 
@@ -456,7 +456,9 @@ def train(opts) -> float:
     segment count, so numbering stays monotonic), then runs segments
     ``start .. --num-train-batches`` with their evals, metrics and
     checkpoints (:func:`common.train_segments`).  ``--eval-only``
-    evaluates the restored policy instead of training.  ``--per`` and
+    evaluates the restored policy instead of training.  ``stop_at`` (not a
+    flag): end after that segment, the learning-rate and PER schedules
+    keeping ``--num-train-batches``'s length.  ``--per`` and
     ``--n-step`` select prioritized replay and n-step returns; an n-step
     run needs the s2-free replay with room for n + 1 blocks
     (:func:`common.check_nstep_capacity`).  The eval venv renders with the
@@ -478,7 +480,7 @@ def train(opts) -> float:
     checkpoints and the eval hold rank 0's."""
     mesh = common.maybe_init_multihost(opts)
     if common.launches_ranks(opts, mesh):
-        return distributed.launch(opts, train)
+        return distributed.launch(opts, train, stop_at)
     dev = common.rank_device(opts, mesh)
     config = config_from_opts(opts, discrete_actions=False)
     raster = common.resolve_render_raster(config, opts)
@@ -513,11 +515,12 @@ def train(opts) -> float:
         per_alpha=opts.per_alpha if opts.per else None, per_beta0=opts.per_beta0,
         per_eps=opts.per_eps, per_total_steps=opts.num_train_batches * opts.steps_per_segment,
         n_step=opts.n_step, group=mesh and mesh.group)
+    end = opts.num_train_batches if stop_at is None else min(stop_at, opts.num_train_batches)
     return common.train_segments(opts, st, common.distribute(segment, mesh, SHARDED_FIELDS,
                                                              METRIC_KEYS),
                                  venv, eval_venv, act, logger,
                                  common.replay_fields(("critic_loss", "actor_loss")),
-                                 start_segment, opts.num_train_batches, mesh, SHARDED_FIELDS)
+                                 start_segment, end, mesh, SHARDED_FIELDS)
 
 
 def make_parser():
@@ -526,10 +529,10 @@ def make_parser():
     return parser
 
 
-def main(argv=None) -> float:
+def main(argv=None, stop_at: int | None = None) -> float:
     opts = make_parser().parse_args(argv)
     print(f"OPTS {vars(opts)}", file=sys.stderr)
-    return train(opts)
+    return train(opts, stop_at=stop_at)
 
 
 if __name__ == "__main__":

@@ -308,17 +308,20 @@ def _cpu_threads(device, ranks: int) -> int | None:
 def _rank_entry(local_rank: int, rank: int, world: int, coordinator: str, device,
                 timeout_s: float, threads: int | None, work: bytes, queue) -> object:
     """One rank: join the group, run ``fn(mesh, *args)`` (``work`` is their
-    pickle), leave; the result goes to ``queue``, pickled, when there is
-    one.  Plain pickles copy tensors: torch's shared-memory handles would
-    outlive the process that made them."""
+    pickle), leave (in order, :func:`mesh.destroy`, unless ``fn`` raised);
+    the result goes to ``queue``, pickled, when there is one.  Plain
+    pickles copy tensors: torch's shared-memory handles would outlive the
+    process that made them."""
     if threads is not None:
         torch.set_num_threads(threads)
     fn, args = pickle.loads(work)
-    mesh = init_process_group(coordinator, rank, world, local_rank, device, timeout_s)
     try:
-        out = fn(mesh, *args)
-    finally:
-        destroy()
+        out = fn(init_process_group(coordinator, rank, world, local_rank, device, timeout_s),
+                 *args)
+    except BaseException:
+        destroy(orderly=False)
+        raise
+    destroy()
     if queue is not None:
         queue.put((local_rank, pickle.dumps(out, pickle.HIGHEST_PROTOCOL)))
     return out

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import socket
 from typing import Optional
 
@@ -32,8 +33,12 @@ from cartpoleplusplus_tpu_torch import resolve_device
 # A rank's default time limit (seconds) for the store, the collectives and
 # the launcher's join.
 DEFAULT_TIMEOUT_S = 24 * 3600.0
+# The store key each rank > 0 sets once it has left the group.
+_LEFT_KEY = "cartpole_left/{}"
 
 _CURRENT: Optional["Mesh"] = None
+# This rank's client of the job's TCP store (rank 0's also serves it).
+_STORE = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,7 +91,7 @@ def init_process_group(coordinator: str, rank: int, world: int, local_rank: int 
     """Join the job's process group over a TCP store at ``coordinator``
     (``host:port``; rank 0 serves it) and make the result this process's
     :func:`current_mesh`.  CUDA ranks set their device first."""
-    global _CURRENT
+    global _CURRENT, _STORE
     if _CURRENT is not None:
         raise RuntimeError("this process already holds a rank")
     host, port = coordinator.rsplit(":", 1)
@@ -99,6 +104,7 @@ def init_process_group(coordinator: str, rank: int, world: int, local_rank: int 
     dist.init_process_group(backend, store=store, rank=rank, world_size=world, timeout=timeout)
     _CURRENT = Mesh(group=dist.group.WORLD, rank=rank, world=world, local_rank=local_rank,
                     device=dev, backend=backend)
+    _STORE = store
     return _CURRENT
 
 
@@ -107,12 +113,39 @@ def current_mesh() -> Optional[Mesh]:
     return _CURRENT
 
 
-def destroy() -> None:
-    """Leave the process group (a no-op outside a rank)."""
-    global _CURRENT
-    if _CURRENT is not None:
+def destroy(orderly: bool = True) -> None:
+    """Leave the process group (a no-op outside a rank).
+
+    ``orderly`` (every rank of the job calls it once its work is done): a
+    barrier first, so no rank tears its group down while a peer's
+    collective is in flight; then the group is destroyed and freed (where
+    the caller keeps no reference to it), so its gloo threads end while
+    every peer's process is still up, not in this process's interpreter
+    teardown; then each rank > 0 checks out on the store while rank 0,
+    whose process serves the store, waits for all of them before its store
+    goes.  ``orderly=False`` (a rank whose work raised), or a barrier that
+    fails because a peer has gone already: the group is destroyed at once,
+    without waiting for peers that may never arrive; the peer's own
+    failure is the one to report."""
+    global _CURRENT, _STORE
+    if _CURRENT is None:
+        return
+    rank, world, group, store = _CURRENT.rank, _CURRENT.world, _CURRENT.group, _STORE
+    orderly = orderly and world > 1
+    try:
+        if orderly:
+            dist.barrier(group=group)
+    except RuntimeError:
+        orderly = False
+    finally:
         dist.destroy_process_group()
-        _CURRENT = None
+        _CURRENT = _STORE = group = None
+        gc.collect()
+    if orderly:
+        if rank == 0:
+            store.wait([_LEFT_KEY.format(r) for r in range(1, world)])
+        else:
+            store.set(_LEFT_KEY.format(rank), "1")
 
 
 def comm_device(mesh_or_group) -> torch.device:

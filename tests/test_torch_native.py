@@ -6,6 +6,7 @@ bytes, and every reader reads every writer's file."""
 
 import itertools
 import os
+import shutil
 import struct
 
 import numpy as np
@@ -119,6 +120,44 @@ READERS = {"port_native": lambda p: list(read_records(p)),
            "jax_python": lambda p: list(jnative.read_records(p, force_python=True))}
 
 
+def _build_jax_codec_apart(tmp_path, monkeypatch) -> str:
+    """Point the JAX codec's loader at a copy of ``native/``'s source and
+    Makefile under ``tmp_path`` and clear its per-process cache (both put
+    back after the test) → the copy's directory."""
+    build = tmp_path / "jax_native"
+    build.mkdir()
+    for name in ("trajlog.cpp", "Makefile"):
+        shutil.copy2(os.path.join(jnative._native_dir, name), build / name)
+    monkeypatch.setattr(jnative, "_native_dir", str(build))
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_tried", False)
+    return str(build)
+
+
+@pytest.fixture
+def jax_codec_built_apart(tmp_path, monkeypatch):
+    """The JAX codec built where no other process writes.  Every xdist
+    worker that collects ``tests/test_native.py`` calls the JAX loader,
+    which runs ``make`` into the shared ``native/libtrajlog.so`` when that
+    file is absent and caches a failed load for the process; a worker could
+    load a file another was still writing.  Built apart, the same source
+    and the same loader make a library no other process writes."""
+    _build_jax_codec_apart(tmp_path, monkeypatch)
+
+
+def test_jax_codec_built_apart_after_a_failed_load(tmp_path, monkeypatch):
+    """A failed load, as a race with another worker's build leaves it, is
+    cached by the JAX loader for the process; built apart, the codec loads
+    all the same, from the test's own directory."""
+    monkeypatch.setattr(jnative, "_lib", None)
+    monkeypatch.setattr(jnative, "_lib_tried", True)
+    assert not jnative.native_available()
+    build = _build_jax_codec_apart(tmp_path, monkeypatch)
+    assert jnative.native_available()
+    assert os.path.exists(os.path.join(build, "libtrajlog.so"))
+
+
+@pytest.mark.usefixtures("jax_codec_built_apart")
 def test_files_equal_across_packages_and_codecs(tmp_path):
     """The same records, appended in two sessions, by each of the four
     writers: four byte-equal files, each read back whole by all four
