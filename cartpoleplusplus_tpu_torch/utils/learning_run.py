@@ -9,7 +9,9 @@ script, the argv and N), then the run's own events (one ``train`` line
 per eval), then a ``summary`` line (:func:`summarize`: best and final
 eval, where the best was, the first eval at or above the gate, wall
 seconds, seconds per segment or update, the kernel launches of the run,
-the last evals' ``double_reset_frac`` and whether the run ``flatlined``).
+the last evals' ``double_reset_frac`` and whether the run ``flatlined``;
+where asked, the best eval at the reference runs' eval points, on which
+the gate is then scored, and fields of the last ``train`` event).
 Each line is also printed to stdout.  A watchdog turns a hang into a
 traceback and a nonzero exit.  Without CUDA, and without ``--device cpu``
 among the flags, it fails before training (the port never falls back to
@@ -71,12 +73,18 @@ def flatlined(trains: list, counter: str = "segment") -> bool | None:
 
 
 def summarize(events: list, counter: str, gate: float, seed: int, wall_s: float,
-              final: float, launches: dict, ran: int) -> dict:
+              final: float, launches: dict, ran: int, ref_points: tuple | None = None,
+              carry: tuple = ()) -> dict:
     """The summary line of a run's ``events`` (its metrics jsonl):
     ``launches`` the kernels launched during the run (nonzero counts only),
     ``ran`` the segments or updates it ran.  ``s_per_<counter>`` is the
     mean between the first and the last eval (evals included), or the wall
-    seconds over ``ran`` where there is one eval."""
+    seconds over ``ran`` where there is one eval.  With ``ref_points``
+    (the reference runs' own eval points) the summary gains
+    ``best_eval_ref``, the best eval at those points (None where the run
+    has none), and ``reached_gate`` is scored on it rather than on the
+    best of all evals; ``carry`` names fields of the last ``train`` event
+    copied into the summary."""
     trains = [e for e in events if e["event"] == "train"]
     lens = [e["eval_ep_len"] for e in trains]
     best = max(lens)
@@ -87,23 +95,33 @@ def summarize(events: list, counter: str, gate: float, seed: int, wall_s: float,
     else:
         per = wall_s / max(ran, 1)
     drf = [e["double_reset_frac"] for e in trains[-LAST_EVALS:] if "double_reset_frac" in e]
-    return {"event": "summary", "seed": seed, "wall_s": wall_s, f"s_per_{counter}": per,
-            "final_eval": final, "best_eval": best,
-            f"best_{counter}": trains[lens.index(best)][counter],
-            f"first_{counter}_at_gate": first_gate, "gate": gate, "reached_gate": best >= gate,
-            "env_steps": trains[-1].get("env_steps"), "launches": launches,
-            "double_reset_frac_last": sum(drf) / len(drf) if drf else None,
-            "flatlined": flatlined(trains, counter)}
+    summary = {"event": "summary", "seed": seed, "wall_s": wall_s, f"s_per_{counter}": per,
+               "final_eval": final, "best_eval": best,
+               f"best_{counter}": trains[lens.index(best)][counter],
+               f"first_{counter}_at_gate": first_gate, "gate": gate,
+               "reached_gate": best >= gate,
+               "env_steps": trains[-1].get("env_steps"), "launches": launches,
+               "double_reset_frac_last": sum(drf) / len(drf) if drf else None,
+               "flatlined": flatlined(trains, counter)}
+    if ref_points is not None:
+        at_ref = [e["eval_ep_len"] for e in trains if e[counter] in ref_points]
+        best_ref = max(at_ref, default=None)
+        summary.update(ref_points=list(ref_points), best_eval_ref=best_ref,
+                       reached_gate=best_ref is not None and best_ref >= gate)
+    summary.update({k: trains[-1].get(k) for k in carry})
+    return summary
 
 
 def run(*, script: str, agent_main: Callable, parser, argv: list, stop_at: int, counter: str,
         gate: float, seed: int, out: str, watchdog_s: float,
-        expect_kernels: tuple | None = None) -> int:
+        expect_kernels: tuple | None = None, ref_points: tuple | None = None,
+        carry: tuple = ()) -> int:
     """``agent_main(argv + ["--metrics-jsonl", …], stop_at=stop_at)`` →
     0, the jsonl written to ``out``; 1 without CUDA unless ``argv`` asks for
     the CPU, or on the card when ``expect_kernels`` is given and the run's
     launched kernels are not exactly those.  ``counter``: the name of the
-    run's unit in its ``train`` events, "segment" or "update"."""
+    run's unit in its ``train`` events, "segment" or "update";
+    ``ref_points`` and ``carry`` as in :func:`summarize`."""
     on_cpu = parser.parse_args(argv).device == "cpu"
     if not on_cpu and not torch.cuda.is_available():
         print(f"{os.path.basename(script)}: torch.cuda.is_available() is False", file=sys.stderr)
@@ -125,7 +143,8 @@ def run(*, script: str, agent_main: Callable, parser, argv: list, stop_at: int, 
     with open(train_log) as f:
         events = [json.loads(line) for line in f]
     os.remove(train_log)
-    summary = summarize(events, counter, gate, seed, wall, final, launches, stop_at)
+    summary = summarize(events, counter, gate, seed, wall, final, launches, stop_at,
+                        ref_points, carry)
     ok = True
     if expect_kernels is not None and not on_cpu:
         ok = set(launches) == set(expect_kernels)

@@ -2,7 +2,7 @@
 JAX package (nor do chip_smoke.py, bench_torch.py, scripts/torch_ddpg_it3.py,
 scripts/torch_{sac,ppo,lrpg}_lowdim.py, scripts/torch_dqn_rainbow.py,
 scripts/torch_naf_anneal.py, scripts/torch_ddpg_pixels_ab2k.py,
-scripts/torch_parallel_scaling.py,
+scripts/torch_sac_pixels.py, scripts/torch_parallel_scaling.py,
 scripts/chip_smoke_parallel.py and scripts/export_{sac_actor,dqn_q}_npz.py), its
 CLIs (DDPG, SAC, PPO, LRPG, DQN and NAF, the random agent and the torch DQN
 demo) answer ``--help`` where JAX is not importable, its data-parallel
@@ -52,6 +52,7 @@ runpy.run_path("scripts/torch_dqn_rainbow.py", run_name="not_main")
 runpy.run_path("scripts/export_dqn_q_npz.py", run_name="not_main")
 runpy.run_path("scripts/torch_naf_anneal.py", run_name="not_main")
 runpy.run_path("scripts/torch_ddpg_pixels_ab2k.py", run_name="not_main")
+runpy.run_path("scripts/torch_sac_pixels.py", run_name="not_main")
 runpy.run_path("scripts/torch_parallel_scaling.py", run_name="not_main")
 runpy.run_path("scripts/chip_smoke_parallel.py", run_name="not_main")
 for name in ("cartpoleplusplus_tpu_torch.agents.sac", "cartpoleplusplus_tpu_torch.replay.buffer",

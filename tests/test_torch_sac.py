@@ -3,7 +3,8 @@
 conv encoders) with params carried across by ``utils/params.py``, one and
 two ``train_once`` updates against the JAX ``make_segment``'s own
 ``train_once`` fed the same batch and the same random draws (the plain
-recipe, and DrQ shift + reward scale + grad clip), the temperature floor,
+recipe, DrQ shift + reward scale + grad clip, and the pixel learning run's
+recipe at its exact network and loss), the temperature floor,
 and the config-5 SAC checkpoint read without flax (greedy actions against
 flax on its carried observations; the chip's npz of its actor equal to it
 leaf for leaf).
@@ -19,6 +20,17 @@ Tolerances, as ``tests/test_torch_ddpg.py`` sets them and why:
   away.  ``log_alpha`` is a float32 scalar with the same bound in its
   own lr.  After two updates, 1·lr (test_torch_ddpg.py's measured bound).
 - the target critic: the polyak step over the port's own critic at 1e-6.
+
+The recipe case (``scripts/torch_sac_pixels.py``'s network and loss) meets
+these bounds but two: its conv trunks' bias gradients are left out of the
+gradient bound, because JAX on the CPU sums a bfloat16 bias add's gradient
+in bfloat16 (``test_jax_cpu_sums_a_bf16_bias_add_gradient_in_bf16``: 9.6 %
+off the exact sum at the first conv's shape, the port's 0.16 %), and port
+and reference differ there by up to 11.7 %
+(``scripts/sac_recipe_update_probe.py``); and it has no two-update case: a
+bias entry whose reference gradient flipped sign moves 2·lr apart in the
+first step, and the second step spreads that over the encoders (up to
+2.04·lr on the actor and 1.61·lr on the critic, against the 1·lr bound).
 """
 
 import copy
@@ -65,6 +77,20 @@ TAU, GAMMA = 0.005, 0.99
 CASES = {
     "sac": dict(),
     "drq": dict(aug_shift=2, reward_scale=0.1, grad_clip=1.0),
+    "recipe": dict(aug_shift=2, reward_scale=0.1, grad_clip=10.0),
+}
+# Each case's config, networks, batch, learning rates and temperature floor.
+TOY = dict(cfg_kw=CFG_KW, encoder="dense", hidden=HIDDEN, b=B, lr_a=LR_A, lr_c=LR_C,
+           alpha_min=None)
+SHAPES = {
+    "sac": TOY,
+    "drq": TOY,
+    # scripts/torch_sac_pixels.py's recipe as the card trains it: the conv
+    # encoder, 2 cameras, obs_pool 2 over 50x50 renders, the default hidden
+    # widths, its learning rates and --alpha-min 0.02.  The only cut: a batch
+    # of 32 for its 256.
+    "recipe": dict(cfg_kw=dict(CFG_KW, num_cameras=2), encoder="conv", hidden=(100, 50), b=32,
+                   lr_a=1e-4, lr_c=3e-4, alpha_min=0.02),
 }
 
 
@@ -145,25 +171,25 @@ def test_gaussian_actor_matches_flax(encoder, side, cams):
         assert float(actor(_t(obs))[1].min()) == -20.0
 
 
-def _batch(cfg, seed=0):
+def _batch(cfg, seed=0, b=B):
     rng = np.random.default_rng(seed)
-    shape = (B, *cfg.obs_shape)
+    shape = (b, *cfg.obs_shape)
     return (rng.integers(0, 256, shape, dtype=np.uint8),
-            rng.uniform(-1, 1, (B, 2)).astype(np.float32),
-            rng.normal(size=B).astype(np.float32),
+            rng.uniform(-1, 1, (b, 2)).astype(np.float32),
+            rng.normal(size=b).astype(np.float32),
             rng.integers(0, 256, shape, dtype=np.uint8),
-            rng.random(B) < 0.25)
+            rng.random(b) < 0.25)
 
 
-def _draws(k_train, hp):
+def _draws(k_train, hp, b=B):
     """The draws a JAX SAC train_once makes from ``k_train``: the target's
     and the actor's normals and the shift offsets of s1 and s2."""
     k_next, k_new, k_aug = jax.random.split(k_train, 3)
-    eps_next, eps_new = (_t(jax.random.normal(k, (B, 2))) for k in (k_next, k_new))
+    eps_next, eps_new = (_t(jax.random.normal(k, (b, 2))) for k in (k_next, k_new))
     pad = hp.get("aug_shift", 0)
     offsets = None
     if pad:
-        offsets = tuple(_t(jax.random.randint(k, (B, 2), 0, 2 * pad + 1))
+        offsets = tuple(_t(jax.random.randint(k, (b, 2), 0, 2 * pad + 1))
                         for k in jax.random.split(k_aug))
     return dict(eps_next=eps_next, eps_new=eps_new, aug_offsets=offsets)
 
@@ -174,23 +200,28 @@ def _closure(fn):
 
 def _one_update(name, log_alpha_min=None):
     """One JAX SAC train_once (from make_segment's closure) and the same
-    update in the port, from the same params, batch and draws."""
-    hp = CASES[name]
-    jcfg, cfg = JConfig(**CFG_KW), CartpoleConfig(**CFG_KW)
-    kw = dict(use_raw_pixels=True, hidden=HIDDEN, height=cfg.obs_height, width=cfg.obs_width)
+    update in the port, from the same params, batch and draws; the case's
+    temperature floor where ``log_alpha_min`` is not given."""
+    hp, shape = CASES[name], SHAPES[name]
+    b, lr_a, lr_c = shape["b"], shape["lr_a"], shape["lr_c"]
+    if log_alpha_min is None and shape["alpha_min"]:
+        log_alpha_min = float(np.log(shape["alpha_min"]))
+    jcfg, cfg = JConfig(**shape["cfg_kw"]), CartpoleConfig(**shape["cfg_kw"])
+    kw = dict(use_raw_pixels=True, hidden=shape["hidden"], pixel_encoder=shape["encoder"],
+              height=cfg.obs_height, width=cfg.obs_width)
     jactor, jcritic = JGaussianActor(action_dim=2, **kw), JCritic(**kw)
     k_a, k_c, k_train = jax.random.split(jax.random.PRNGKey(13), 3)
     dummy_obs, dummy_act = jnp.zeros((2,) + jcfg.obs_shape), jnp.zeros((2, 2))
-    actor_vars = dict(jactor.init(k_a, dummy_obs))
-    critic_vars = {"params": jax.vmap(lambda k: jcritic.init(k, dummy_obs, dummy_act)["params"])(
-        jax.random.split(k_c, 2))}
+    actor_vars = dict(jax.jit(jactor.init)(k_a, dummy_obs))
+    critic_vars = {"params": jax.jit(jax.vmap(
+        lambda k: jcritic.init(k, dummy_obs, dummy_act)["params"]))(jax.random.split(k_c, 2))}
     clip = hp.get("grad_clip", 0.0)
     tx = (lambda lr: optax.chain(optax.clip_by_global_norm(clip), optax.adam(lr))) if clip \
         else optax.adam
-    atx, ctx, altx = tx(LR_A), tx(LR_C), optax.adam(LR_ALPHA)
+    atx, ctx, altx = tx(lr_a), tx(lr_c), optax.adam(LR_ALPHA)
     seg = jsac.make_segment(
         jcommon.make_venv(jcfg, 4), jactor, jcritic, atx, ctx, altx, gamma=GAMMA, tau=TAU,
-        batch_size=B, warmup_steps=0, steps_per_segment=1, target_entropy=-2.0,
+        batch_size=b, warmup_steps=0, steps_per_segment=1, target_entropy=-2.0,
         log_alpha_min=log_alpha_min, reward_scale=hp.get("reward_scale", 1.0),
         aug_shift=hp.get("aug_shift", 0))
     train_once = _closure(seg)["train_once"]
@@ -198,7 +229,7 @@ def _one_update(name, log_alpha_min=None):
     log_alpha = jnp.log(jnp.asarray(0.1, jnp.float32))
     bundle = (actor_vars, critic_vars, critic_vars, atx.init(actor_vars["params"]),
               ctx.init(critic_vars["params"]), log_alpha, altx.init(log_alpha))
-    batch = _batch(cfg)
+    batch = _batch(cfg, b=b)
     jbatch = tuple(jnp.asarray(x) for x in batch)
     new_bundle, metrics = jax.jit(train_once)(bundle, jbatch, k_train)
 
@@ -215,9 +246,9 @@ def _one_update(name, log_alpha_min=None):
     q2 = jnp.min(jax.vmap(lambda p: jcritic.apply({"params": p}, s2, a2))(critic_vars["params"]),
                  axis=0)
     y = hp.get("reward_scale", 1.0) * jbatch[2] + GAMMA * (1.0 - jbatch[4]) * (q2 - alpha * logp2)
-    cgrads = jax.grad(fns["critic_loss_fn"])(critic_vars["params"], s1, jbatch[1], y)
-    agrads = jax.grad(lambda p: fns["actor_loss_fn"](p, new_bundle[1]["params"], alpha, s1,
-                                                     k_new)[0])(actor_vars["params"])
+    cgrads = jax.jit(jax.grad(fns["critic_loss_fn"]))(critic_vars["params"], s1, jbatch[1], y)
+    agrads = jax.jit(jax.grad(lambda p: fns["actor_loss_fn"](p, new_bundle[1]["params"], alpha,
+                                                             s1, k_new)[0]))(actor_vars["params"])
     if clip:
         clip_fn = optax.clip_by_global_norm(clip)
         cgrads = clip_fn.update(cgrads, clip_fn.init(cgrads))[0]
@@ -228,7 +259,7 @@ def _one_update(name, log_alpha_min=None):
     critic = TwinCritic(cfg.obs_shape, device="cpu", **kw)
     actor.load_state_dict(gaussian_actor_params_from_flax(jax.device_get(actor_vars)))
     critic.load_state_dict(critic_params_from_flax(jax.device_get(critic_vars)))
-    (aopt, asch), (copt, csch) = ddpg.adam(actor, LR_A), ddpg.adam(critic, LR_C)
+    (aopt, asch), (copt, csch) = ddpg.adam(actor, lr_a), ddpg.adam(critic, lr_c)
     la = torch.log(torch.tensor(0.1, dtype=torch.float32)).requires_grad_(True)
     st = sac.SACState(
         actor=actor, critic=critic, target_critic=copy.deepcopy(critic).requires_grad_(False),
@@ -238,8 +269,9 @@ def _one_update(name, log_alpha_min=None):
     target0 = {k: v.clone() for k, v in st.target_critic.state_dict().items()}
     port_once = sac.make_train_once(cfg, gamma=GAMMA, tau=TAU, target_entropy=-2.0,
                                     log_alpha_min=log_alpha_min, **hp)
-    got = port_once(st, tuple(_t(x) for x in batch), **_draws(k_train, hp))
-    return SimpleNamespace(name=name, hp=hp, cfg=cfg, st=st, got=got, metrics=metrics,
+    got = port_once(st, tuple(_t(x) for x in batch), **_draws(k_train, hp, b))
+    return SimpleNamespace(name=name, hp=hp, b=b, lr_a=lr_a, lr_c=lr_c, cfg=cfg, st=st, got=got,
+                           metrics=metrics,
                            new_bundle=new_bundle, cgrads=cgrads, agrads=agrads,
                            target0=target0, port_once=port_once, train_once=train_once,
                            log_alpha0=float(log_alpha))
@@ -256,6 +288,12 @@ def test_train_once_metrics_match_jax(update):
     assert float(update.got["critic_loss"]) > 0.0
 
 
+def _sums_in_bf16_on_jax_cpu(name, key):
+    """A conv trunk's bias at the recipe's shape, whose JAX reference
+    gradient is summed in bfloat16."""
+    return name == "recipe" and ".conv_trunk." in key and key.endswith(".bias")
+
+
 def test_train_once_gradients_match_jax(update):
     want = {**{"a." + k: v for k, v in gaussian_actor_params_from_flax(update.agrads).items()},
             **{"c." + k: v for k, v in critic_params_from_flax(update.cgrads).items()}}
@@ -263,14 +301,43 @@ def test_train_once_gradients_match_jax(update):
            **{"c." + k: p.grad for k, p in update.st.critic.named_parameters()}}
     assert got.keys() == want.keys()
     for k, w in want.items():
+        assert bool(torch.isfinite(got[k]).all()) and float(got[k].abs().max()) > 0.0, k
+        if _sums_in_bf16_on_jax_cpu(update.name, k):
+            continue
         rel = float(torch.linalg.vector_norm(got[k] - w) / torch.linalg.vector_norm(w))
         assert rel <= 5e-2, f"{k}: relative gradient error {rel:.3g}"
 
 
+def test_jax_cpu_sums_a_bf16_bias_add_gradient_in_bf16():
+    """The gradient of a bfloat16 bias add over (32, 13, 13, 16), the
+    recipe's first conv output at batch 32: JAX on the CPU sums it in
+    bfloat16, the port (PyTorch) in float32, against the exact sum of the
+    same bfloat16 cotangent."""
+    c = np.random.default_rng(3).normal(size=(32, 13, 13, 16)).astype(np.float32)
+    cb = jnp.asarray(c).astype(jnp.bfloat16)
+    exact = np.asarray(cb.astype(jnp.float32), np.float64).sum((0, 1, 2))
+
+    def loss(b):
+        y = jnp.zeros(c.shape, jnp.bfloat16) + b.astype(jnp.bfloat16)
+        return jnp.sum((y * cb).astype(jnp.float32))
+
+    g_jax = np.asarray(jax.grad(loss)(jnp.zeros(16, jnp.float32)), np.float64)
+    bias = torch.zeros(16, requires_grad=True)
+    ct = _t(np.asarray(cb.astype(jnp.float32))).permute(0, 3, 1, 2)  # NCHW, as ConvTrunk
+    y = torch.zeros(ct.shape, dtype=torch.bfloat16) + bias.to(torch.bfloat16)[:, None, None]
+    (y.float() * ct).sum().backward()
+    rel = lambda g: float(np.linalg.norm(g - exact) / np.linalg.norm(exact))
+    gaps = rel(g_jax), rel(bias.grad.numpy().astype(np.float64))
+    print(f"bias-add gradient off the exact sum: JAX {gaps[0]:.4f}, port {gaps[1]:.5f}")
+    assert gaps[0] > 5e-2
+    assert gaps[1] < 5e-3
+
+
 def test_train_once_params_match_jax_after_adam(update):
     new_a, new_c = update.new_bundle[0], update.new_bundle[1]
-    for module, tree, conv, lr in ((update.st.actor, new_a, gaussian_actor_params_from_flax, LR_A),
-                                   (update.st.critic, new_c, critic_params_from_flax, LR_C)):
+    for module, tree, conv, lr in (
+            (update.st.actor, new_a, gaussian_actor_params_from_flax, update.lr_a),
+            (update.st.critic, new_c, critic_params_from_flax, update.lr_c)):
         want = conv(jax.device_get(tree))
         flipped = total = 0
         for k, v in module.state_dict().items():
@@ -294,17 +361,17 @@ def test_train_once_target_critic_moves_by_tau(update):
         step = update.target0[k] + TAU * (online[k] - update.target0[k])
         np.testing.assert_allclose(v.numpy(), step.numpy(), rtol=0, atol=1e-6)
         np.testing.assert_allclose(v.numpy(), want_jax[k].numpy(), rtol=0,
-                                   atol=TAU * 2 * LR_C + 1e-6)
+                                   atol=TAU * 2 * update.lr_c + 1e-6)
         assert not torch.equal(v, update.target0[k])
 
 
-@pytest.fixture(scope="module", params=list(CASES))
+@pytest.fixture(scope="module", params=[c for c in CASES if c != "recipe"])
 def two_updates(request):
     u = _one_update(request.param)
-    batch = _batch(u.cfg, seed=1)
+    batch = _batch(u.cfg, seed=1, b=u.b)
     key = jax.random.PRNGKey(14)
     bundle, metrics = jax.jit(u.train_once)(u.new_bundle, tuple(jnp.asarray(x) for x in batch), key)
-    got = u.port_once(u.st, tuple(_t(x) for x in batch), **_draws(key, u.hp))
+    got = u.port_once(u.st, tuple(_t(x) for x in batch), **_draws(key, u.hp, u.b))
     return SimpleNamespace(u=u, bundle=bundle, metrics=metrics, got=got)
 
 
@@ -313,8 +380,8 @@ def test_train_once_params_match_jax_after_two_updates(two_updates):
     assert float(t.got["critic_loss"]) == pytest.approx(float(t.metrics["critic_loss"]), rel=2e-2)
     gaps = {}
     for prefix, module, tree, conv, lr in (
-            ("a.", u.st.actor, t.bundle[0], gaussian_actor_params_from_flax, LR_A),
-            ("c.", u.st.critic, t.bundle[1], critic_params_from_flax, LR_C)):
+            ("a.", u.st.actor, t.bundle[0], gaussian_actor_params_from_flax, u.lr_a),
+            ("c.", u.st.critic, t.bundle[1], critic_params_from_flax, u.lr_c)):
         want = conv(jax.device_get(tree))
         gaps[prefix] = max(float((v - want[k]).abs().max()) / lr
                            for k, v in module.state_dict().items())
